@@ -5,33 +5,44 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA build;
-  2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
-     (one nvcc each, in parallel) and time the build;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+     per source, in parallel; B3 and both B5 entry points share
+     ``predict.cu``) and time the build;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes, and time kernel, plain version and, where one
-     PyTorch call computes the same function, that call;
+     main path's shapes (B5 also against B3 on the dequantized forest), and
+     time kernel, plain version and, where one PyTorch call computes the
+     same function, that call;
   4. fit the paper's configuration (``configs/sketchboost_tabular.py``) at
      full width, 2,097,152 rows x 100 features, d = 512, k = 5, depth 6,
-     256 bins, cut to 8 of its 100 rounds, with a 131,072-row eval set;
+     256 bins, all 100 rounds, with a 131,072-row eval set;
   5. predict 262,144 held-out rows through the traversal kernel;
   6. profile two more rounds of the loop body (device time by kernel,
      the device's busy share);
-  7. print the kernel table as one JSON line, the card's line, and last
+  7. serve the fitted model: checkpoint it, load four servers (float32,
+     int8, bfloat16, pruned int8), drive a request stream and a streamed
+     262,144-row batch through each (plain and double-buffered), check
+     exactness against the model and the dequantized twins, run the
+     overload drill, then measure a window that bucket padding nearly
+     doubles (8 x 33 rows, padded to 512);
+  8. print the kernel table as one JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
 (the Guyon scheme of ``data/pipeline.make_tabular``; numpy would take
 minutes at this size).  Kernel launch counts are set to zero just before
-phase 4 and read just after phase 5: they count the main path only.
+phase 4 and read just after phase 5 (the fit -> predict path), and again
+just before and after phase 7 (the serving path).
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -40,7 +51,6 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 N_TRAIN, N_EVAL, N_TEST = 2_097_152, 131_072, 262_144
-ROUNDS = 8
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -143,11 +153,11 @@ def check_split(torch, gen, dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def check_predict(torch, gen, dev):
-    """B3 at predict's shape: 262,144 rows, 8 depth-6 trees (N=127),
-    D = W = 512, bitwise against the plain version."""
+def predict_case(torch, gen, dev):
+    """Predict's shape: 262,144 rows x 100 codes, 8 depth-6 trees (N=127),
+    D = W = 512.  Returns ``(codes, PackedForest, F0)``."""
+    from repro_torch.core.forest import PackedForest
     from repro_torch.core.tree import heap_to_node_arrays
-    from repro_torch.kernels import predict_kernel, ref
     n, M, T, depth, D = N_TEST, 100, 8, 6, 512
     feat = torch.randint(0, M, (T, 2 ** depth - 1), generator=gen,
                          device=dev, dtype=torch.int32)
@@ -157,9 +167,22 @@ def check_predict(torch, gen, dev):
     feat, thr, left, right, leaf = heap_to_node_arrays(feat, thr, value)
     codes = torch.randint(0, 256, (n, M), generator=gen, device=dev,
                           dtype=torch.int32).to(torch.uint8)
-    out_col = torch.zeros(T, dtype=torch.int32, device=dev)
-    F0 = torch.randn((n, D), generator=gen, device=dev)
-    tree_args = (codes, feat, thr, left, right, leaf, out_col, 0.05)
+    pf = PackedForest(feat=feat, thr=thr, left=left, right=right, leaf=leaf,
+                      out_col=torch.zeros(T, dtype=torch.int32, device=dev),
+                      base=torch.zeros(D, device=dev),
+                      lr=torch.tensor(0.05), depth=depth)
+    return codes, pf, torch.randn((n, D), generator=gen, device=dev)
+
+
+def check_predict(torch, case):
+    """B3 at predict's shape, bitwise against the plain version."""
+    from repro_torch.kernels import predict_kernel, ref
+    codes, pf, F0 = case
+    n, M = codes.shape
+    T, N, D = pf.leaf.shape
+    depth, dev = pf.depth, codes.device
+    feat, thr, left, right, leaf = pf.feat, pf.thr, pf.left, pf.right, pf.leaf
+    tree_args = (codes, feat, thr, left, right, leaf, pf.out_col, 0.05)
     out = predict_kernel.forest_traverse(F0.clone(), *tree_args, depth=depth)
     plain = ref.forest_apply_ref(F0.clone(), *tree_args, depth=depth)
     torch.cuda.synchronize()
@@ -173,7 +196,6 @@ def check_predict(torch, gen, dev):
     p_n = ref.forest_apply_ref(F0.clone(), codes, feat, thr, left, right,
                                narrow, cols, 0.05, depth=depth)
     assert torch.equal(k_n, p_n), "B3 narrow blocks differ from plain"
-    N = feat.shape[1]
     b_ms, b_by = bound_ms(8 * n * D + n * M + T * N * (16 + 4 * D) + 4 * T,
                           2 * n * T * D)
     Fw = F0.clone()
@@ -186,6 +208,54 @@ def check_predict(torch, gen, dev):
             Fw, *tree_args, depth=depth)),
         plain_ms=cuda_ms(lambda: ref.forest_apply_ref(
             Fw, *tree_args, depth=depth), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_predict_quant(torch, case, dtype):
+    """B5 at B3's shape with ``dtype`` leaves (``quantize_forest`` of the
+    same trees): bitwise against its plain version, and against B3 on the
+    dequantized twin."""
+    from repro_torch.core import quantize as Q
+    from repro_torch.kernels import predict_kernel, predict_quant_kernel, ref
+    codes, pf, F0 = case
+    qf = Q.quantize_forest(pf, dtype)
+    twin = Q.dequantize_forest(qf)
+    n, M = codes.shape
+    T, N, D = qf.leaf.shape
+    args = (codes, qf.feat, qf.thr, qf.left, qf.right, qf.leaf, qf.leaf_scale,
+            qf.out_col, 0.05)
+    out = predict_quant_kernel.forest_traverse_quant(F0.clone(), *args,
+                                                     depth=qf.depth)
+    plain = ref.forest_apply_quant_ref(F0.clone(), *args, depth=qf.depth)
+    b3 = predict_kernel.forest_traverse(
+        F0.clone(), codes, twin.feat, twin.thr, twin.left, twin.right,
+        twin.leaf, twin.out_col, 0.05, depth=twin.depth)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain), f"B5 {dtype} is not bitwise plain"
+    assert torch.equal(out, b3), f"B5 {dtype} differs from B3 on its twin"
+    # A narrow block at per-tree columns.
+    cols = torch.arange(T, dtype=torch.int32, device=codes.device) * 60
+    narrow = qf.leaf[:, :, :1].contiguous()
+    k_n = predict_quant_kernel.forest_traverse_quant(
+        F0.clone(), codes, qf.feat, qf.thr, qf.left, qf.right, narrow,
+        qf.leaf_scale, cols, 0.05, depth=qf.depth)
+    p_n = ref.forest_apply_quant_ref(
+        F0.clone(), codes, qf.feat, qf.thr, qf.left, qf.right, narrow,
+        qf.leaf_scale, cols, 0.05, depth=qf.depth)
+    assert torch.equal(k_n, p_n), f"B5 {dtype} narrow blocks differ"
+    s = qf.leaf.element_size()
+    b_ms, b_by = bound_ms(8 * n * D + n * M + T * N * (13 + D * s) + 4 * T * 2,
+                          3 * n * T * D)
+    Fw = F0.clone()
+    return dict(
+        name=predict_quant_kernel.KERNELS[qf.leaf.dtype].name, route="cuda",
+        source="src/repro_torch/kernels/csrc/predict.cu",
+        replaces="src/repro/kernels/predict_kernel.py:237",
+        max_abs_err=float((out - plain).abs().max()),
+        ms=cuda_ms(lambda: predict_quant_kernel.forest_traverse_quant(
+            Fw, *args, depth=qf.depth)),
+        plain_ms=cuda_ms(lambda: ref.forest_apply_quant_ref(
+            Fw, *args, depth=qf.depth), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -270,13 +340,143 @@ def make_data(torch, dev, n, m, d, seed):
     return X.cpu().numpy(), y.to(torch.int32).cpu().numpy()
 
 
+def serve_phase(torch, model, dev, Xte, raw, kernels):
+    """Phase 7: the serving path on the card, from a checkpoint of the
+    fitted model.  Returns the serving record and the kernel launches of
+    this phase (counts set to zero just before it)."""
+    import numpy as np
+
+    from repro_torch.core import forest as FO
+    from repro_torch.core import quantize as Q
+    from repro_torch.io.checkpoint import save_forest_checkpoint
+    from repro_torch.launch import serve as LS
+    from repro_torch.training.serve_lib import ForestServer
+    variants = {"float32": dict(quantize="none"),
+                "int8": dict(quantize="int8"),
+                "bfloat16": dict(quantize="bfloat16"),
+                "int8_pruned": dict(quantize="int8", prune_alpha=0.0)}
+    rng = np.random.default_rng(0)
+    requests = [rng.normal(size=(32, Xte.shape[1])).astype(np.float32)
+                for _ in range(512)]
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    for k in kernels:
+        k.launches = 0
+    record = {}
+    t0 = time.perf_counter()
+    save_forest_checkpoint(ckpt, model.packed, model.quantizer,
+                           metadata={"loss": model.cfg.loss,
+                                     "best_iteration": model.best_iteration})
+    print(f"[7] checkpoint of {model.packed.n_trees} trees written in "
+          f"{time.perf_counter() - t0:.3f} s")
+    servers = {}
+    for name, kw in variants.items():
+        t0 = time.perf_counter()
+        srv = ForestServer.from_checkpoint(ckpt, device=dev, **kw)
+        servers[name] = srv
+        load_s = time.perf_counter() - t0
+        print(f"[7] {name}: loaded + compressed in {load_s:.3f} s, "
+              f"compression {srv.compression}")
+        # (b) the request stream of launch/serve.py: 512 x 32 rows, windows
+        # of 8 requests.
+        stream = LS.drive_stream(srv, requests, 8)
+        # (c) one streamed 262,144-row batch in chunks of max_batch, double
+        # buffered (raw features staged chunk by chunk), against the same
+        # server without double buffering, timed in turns.
+        big = {db: ForestServer.from_checkpoint(
+            ckpt, device=dev, max_batch=4096, double_buffer=db, **kw)
+            for db in (False, True)}
+        secs, out = {False: [], True: []}, {}
+        for db in (False, True):
+            big[db].predict_raw(Xte[:8192])                 # warm up
+        for db in (False, True, True, False, False, True):
+            t0 = time.perf_counter()
+            out[db] = big[db].predict_raw(Xte)
+            secs[db].append(time.perf_counter() - t0)
+        assert big[True].stats["pipelined_batches"] == 4
+        assert big[False].stats["pipelined_batches"] == 0
+        assert torch.equal(out[True], out[False]), \
+            f"{name}: double-buffered batch differs"
+        if name == "float32":        # (d) the fp32 server is the model
+            assert torch.equal(out[True], raw), "fp32 server != model"
+        del big, out
+        record[name] = dict(
+            stream, load_s=load_s, compression=srv.compression,
+            streamed_rows_per_s=[len(Xte) / t for t in secs[True]],
+            streamed_plain_rows_per_s=[len(Xte) / t for t in secs[False]])
+        print(f"[7] {name}: stream {stream['rows_per_s']:.1f} rows/s, p50 "
+              f"{stream['p50_ms']:.4f} ms, p99 {stream['p99_ms']:.4f} ms per "
+              f"request; streamed batch {len(Xte)} rows, rows/s: "
+              f"double-buffered {record[name]['streamed_rows_per_s']}, plain "
+              f"{record[name]['streamed_plain_rows_per_s']}")
+
+    # (d) exactness on 4,096 held-out rows (one padded bucket).
+    Xs = Xte[:4096]
+    fp32 = servers["float32"].predict_raw(Xs)
+    assert torch.equal(fp32, raw[:4096]), "fp32 server != model.predict_raw"
+    for name in ("int8", "bfloat16", "int8_pruned"):
+        srv = servers[name]
+        codes = srv._codes(Xs)
+        got = srv.predict_codes(codes)
+        twin = FO.predict_raw(Q.dequantize_forest(srv.packed), codes)
+        assert torch.equal(got, twin), f"{name} != B3 on its dequantized twin"
+    int8 = servers["int8"].predict_raw(Xs)
+    lr = float(servers["int8"].packed.lr)
+    bound = lr * float(servers["int8"].packed.leaf_scale.sum()) / 2 + 1e-5
+    err = float((int8 - fp32).abs().max())
+    print(f"[7] int8 vs float32: max |diff| {err!r} <= bound {bound!r}; "
+          f"bfloat16 vs float32: max |diff| "
+          f"{float((servers['bfloat16'].predict_raw(Xs) - fp32).abs().max())!r}")
+    assert err <= bound, (err, bound)
+
+    # (e) the overload drill of launch/serve.py, on the card.
+    drill = LS.chaos_drill(ckpt, device=dev)
+    st = drill["stats"]
+    assert drill["ok"] and st["shed_requests"] == 2 \
+        and st["deadline_requests"] == 1 and st["fallback_batches"] >= 1 \
+        and st["errors"] == 0, drill
+    record["chaos"] = {k: st[k] for k in ("shed_requests", "deadline_requests",
+                                          "fallback_batches", "errors")}
+    shutil.rmtree(ckpt)
+    launches = {k.name: k.launches for k in kernels}
+    print(f"[7] launches in the serving phase: {launches}")
+
+    # Device time of one window of the stream (256 rows, one bucket) and of
+    # its traversal alone, after the counts were read.  Then the cost of
+    # bucket padding: a window of 8 x 33 rows (264, padded to 512) through
+    # the server's stream, and its traversal on the card padded and not.
+    window = np.concatenate(requests[:8])
+    odd = [np.concatenate([r, r[:1]]) for r in requests[:256]]
+    for name, srv in servers.items():
+        codes = srv._codes(window)
+        rec = record[name]
+        rec["window_bin_traverse_ms"] = cuda_ms(
+            lambda: FO.predict_raw(srv.packed, srv._codes(window)), 20)
+        rec["window_traverse_ms"] = cuda_ms(
+            lambda: FO.predict_raw(srv.packed, codes), 20)
+        print(f"[7] {name}: one 256-row window on the card: traversal "
+              f"{rec['window_traverse_ms']:.4f} ms, binning + traversal "
+              f"{rec['window_bin_traverse_ms']:.4f} ms")
+        rec["stream_33"] = LS.drive_stream(srv, odd, 8)
+        codes = srv._codes(np.concatenate(odd[:8]))
+        padded = torch.nn.functional.pad(codes, (0, 0, 0, 512 - 264))
+        rec["window_264_traverse_ms"] = cuda_ms(
+            lambda: FO.predict_raw(srv.packed, codes), 20)
+        rec["window_264_padded_traverse_ms"] = cuda_ms(
+            lambda: FO.predict_raw(srv.packed, padded), 20)
+        print(f"[7] {name}: 8 x 33-row stream {rec['stream_33']}; one "
+              f"264-row window's traversal {rec['window_264_traverse_ms']:.4f}"
+              f" ms, padded to 512 rows "
+              f"{rec['window_264_padded_traverse_ms']:.4f} ms")
+    return record, launches
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import sketchboost_tabular as paper
     from repro_torch.core import losses as L
     from repro_torch.core.boosting import SketchBoost
     from repro_torch.kernels import _build, hist_kernel, predict_kernel
-    from repro_torch.kernels import split_kernel
+    from repro_torch.kernels import predict_quant_kernel, split_kernel
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -292,9 +492,11 @@ def main() -> int:
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
+    b5 = [predict_quant_kernel.KERNELS[torch.int8],
+          predict_quant_kernel.KERNELS[torch.bfloat16]]
     kernels = [hist_kernel.KERNEL, split_kernel.KERNEL, predict_kernel.KERNEL]
     t0 = time.perf_counter()
-    reports = _build.build(kernels)
+    reports = _build.build(kernels + b5)
     print(f"[2] built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -302,8 +504,12 @@ def main() -> int:
                 print(f"[2] {name}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    case = predict_case(torch, gen, dev)
     rows = [check_hist(torch, gen, dev), check_split(torch, gen, dev),
-            check_predict(torch, gen, dev)]
+            check_predict(torch, case),
+            check_predict_quant(torch, case, "int8"),
+            check_predict_quant(torch, case, "bfloat16")]
+    del case
     for r in rows:
         print(f"[3] {r['name']}: max_abs_err {r['max_abs_err']!r} kernel "
               f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
@@ -319,8 +525,8 @@ def main() -> int:
     Xtr, ytr = X[:N_TRAIN], y[:N_TRAIN]
     Xev, yev = X[N_TRAIN:N_TRAIN + N_EVAL], y[N_TRAIN:N_TRAIN + N_EVAL]
     Xte = X[N_TRAIN + N_EVAL:]
-    cfg = dataclasses.replace(paper.CONFIG, n_trees=ROUNDS)
-    for k in kernels:
+    cfg = paper.CONFIG
+    for k in kernels + b5:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -330,9 +536,13 @@ def main() -> int:
     fit_s = time.perf_counter() - t0
     times = [h["train_time_s"] for h in model.history]
     per_round = [b - a for a, b in zip([0.0] + times[:-1], times)]
-    print(f"[4] fit {len(model.history)} rounds in {fit_s:.3f} s; per-round "
-          f"s {[round(t, 4) for t in per_round]}")
-    print(f"[4] valid loss {[round(h['valid_loss'], 5) for h in model.history]}")
+    round_s = {"min": min(per_round), "median": statistics.median(per_round),
+               "max": max(per_round)}
+    print(f"[4] fit {len(model.history)} rounds in {fit_s:.3f} s; seconds "
+          f"per round {round_s}")
+    vl = [h["valid_loss"] for h in model.history]
+    print(f"[4] valid loss {vl[0]!r} after round 1, {vl[-1]!r} after round "
+          f"{len(vl)}")
     print(f"[4] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     fit_launches = {k.name: k.launches for k in kernels}
     print(f"[4] launches in fit: {fit_launches}")
@@ -361,16 +571,23 @@ def main() -> int:
     Ytr = torch.as_tensor(ytr, device=dev).long()
     base_loss = float(loss.value(model.base_score.expand(N_TRAIN, -1), Ytr))
     train_loss = model.eval_loss(Xtr, ytr)
-    print(f"[5] train loss {train_loss!r} after {ROUNDS} rounds, base-score "
+    print(f"[5] train loss {train_loss!r} after {cfg.n_trees} rounds, base-score "
           f"loss {base_loss!r}")
     assert math.isfinite(train_loss) and train_loss < base_loss
 
     profile_rounds(torch, model, dev, Xtr, ytr, Xev, yev)
+    serve, serve_launches = serve_phase(
+        torch, model, dev, Xte, raw, [predict_kernel.KERNEL] + b5)
+    assert all(v > 0 for v in serve_launches.values()), serve_launches
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        if r["name"] in launches:            # B1-B3: the fit -> predict path
+            r["launches"], r["path"] = launches[r["name"]], "fit+predict"
+        else:                                # B5: the serving path
+            r["launches"], r["path"] = serve_launches[r["name"]], "serve"
+    rows[2]["serve_launches"] = serve_launches[rows[2]["name"]]
     print(json.dumps({"kernels": rows, "fit_s": fit_s,
-                      "fit_round_s": per_round, "predict_rows_per_s":
-                      N_TEST / pred_s, "card": smi}))
+                      "fit_round_s": round_s, "predict_rows_per_s":
+                      N_TEST / pred_s, "serve": serve, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,7 @@ from repro_torch.core import losses as L
 from repro_torch.core import quantize as Q
 from repro_torch.core import sketch as SK
 from repro_torch.core import tree as T
+from repro_torch.core.device import resolve_device
 from repro_torch.kernels import predict_kernel
 
 
@@ -131,17 +132,6 @@ class GBDTConfig:
                 raise ValueError(msg)
 
 
-def _device(device) -> torch.device:
-    """The device rule: CUDA unless the caller names another device."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("repro_torch runs on CUDA and no CUDA device is "
-                           "available; pass device='cpu' to run the plain "
-                           "PyTorch versions of the kernels")
-    return torch.device("cuda")
-
-
 def validate_features(X, *, n_features: Optional[int] = None,
                       where: str = "X") -> np.ndarray:
     """Numeric 2-D features with no +/-inf (NaN encodes missing), as
@@ -194,7 +184,7 @@ class SketchBoost:
     def __init__(self, cfg: GBDTConfig, device=None):
         cfg.validate()
         self.cfg = cfg
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.quantizer: Optional[Q.Quantizer] = None
         self.forest: Optional[T.Forest] = None
         self.packed: Optional[FO.PackedForest] = None

@@ -91,29 +91,30 @@ class CudaKernel:
 
 
 def build(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
-    """Compile every kernel whose library is missing, one ``nvcc`` each,
-    all started together.  Returns ``{name: ptxas report}`` for the
-    libraries built by this call; raises if any build fails."""
+    """Compile every missing library, one ``nvcc`` each, all started
+    together; kernels that share a source and flags share one library.
+    Returns ``{source file name: ptxas report}`` for the libraries built by
+    this call; raises if any build fails."""
     with _LOCK:
-        todo = [k for k in kernels if not k.library.exists()]
+        todo = {k.library: k for k in kernels if not k.library.exists()}
         if not todo:
             return {}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []
-        for k in todo:
-            tmp = k.library.with_suffix(f".{os.getpid()}.tmp")
+        for lib, k in todo.items():
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc(), *k.flags, "-o", str(tmp), str(k.source)]
-            procs.append((k, tmp, subprocess.Popen(
+            procs.append((k, lib, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         reports, failed = {}, []
-        for k, tmp, p in procs:
+        for k, lib, tmp, p in procs:
             out, _ = p.communicate()
             if p.returncode != 0:
                 failed.append(f"{k.source.name}:\n{out}")
                 continue
-            os.replace(tmp, k.library)
-            reports[k.name] = out
+            os.replace(tmp, lib)
+            reports[k.source.name] = out
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         return reports

@@ -1,12 +1,12 @@
-"""Plain PyTorch versions of the three CUDA kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Each function computes what its kernel computes, with the same inputs, in
 plain tensor operations: the CPU path of the wrappers and the yardstick the
 kernels are held to on the card.  Counterparts in the JAX package's
 ``kernels/ref.py``: `hist_nodes_ref` is ``histogram_tiles_ref`` followed by
 the tile->node ``segment_sum`` of ``ops.histogram_splits_level``;
-`split_scan_ref` is ``split_scan_ref``; `node_walk_ref` and
-`forest_apply_ref` are their namesakes.
+`split_scan_ref` is ``split_scan_ref``; `node_walk_ref`,
+`forest_apply_ref` and `forest_apply_quant_ref` are their namesakes.
 """
 from __future__ import annotations
 
@@ -98,4 +98,26 @@ def forest_apply_ref(F: torch.Tensor, codes: torch.Tensor,
         pos = node_walk_ref(feat[t], thr[t], left[t], right[t], codes,
                             depth=depth)
         F[:, col:col + w] += lr_t * leaf[t][pos]
+    return F
+
+
+def forest_apply_quant_ref(F: torch.Tensor, codes: torch.Tensor,
+                           feat: torch.Tensor, thr: torch.Tensor,
+                           left: torch.Tensor, right: torch.Tensor,
+                           leaf: torch.Tensor, leaf_scale: torch.Tensor,
+                           out_col: torch.Tensor, lr: float, *,
+                           depth: int) -> torch.Tensor:
+    """Plain B5: `forest_apply_ref` on quantized storage.  ``thr`` (T, N)
+    uint8, ``leaf`` (T, N, W) int8 or bfloat16, ``leaf_scale`` (T, 1) or
+    (T,) float32.  Each add rounds three times, in the reference's order:
+    ``deq = leaf.float() * scale``, then ``lr * deq``, then the sum.  So it
+    is bitwise `forest_apply_ref` on the dequantized twin of the forest."""
+    w = leaf.shape[2]
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=F.device)
+    scale = leaf_scale.reshape(-1).to(torch.float32)
+    for t, col in enumerate(out_col.tolist()):
+        pos = node_walk_ref(feat[t], thr[t], left[t], right[t], codes,
+                            depth=depth)
+        deq = leaf[t][pos].to(torch.float32) * scale[t]
+        F[:, col:col + w] += lr_t * deq
     return F

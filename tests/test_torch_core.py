@@ -23,6 +23,7 @@ from repro_torch.core import boosting as TB
 from repro_torch.core import losses as TL
 from repro_torch.core import quantize as TQ
 from repro_torch.core import sketch as TS
+from repro_torch.io import convert
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -70,7 +71,7 @@ def test_quantizer_codes_bitwise(n_bins):
     X[:, 3] = np.nan                                  # all-NaN column
     X[:, 5] = np.round(X[:, 5])                       # low cardinality
     q_ref = JQ.fit_quantizer(X, n_bins, sample_rows=500, seed=1)
-    q = TQ.fit_quantizer(X, n_bins, sample_rows=500, seed=1)
+    q = TQ.fit_quantizer(X, n_bins, sample_rows=500, seed=1, device="cpu")
     np.testing.assert_array_equal(q.edges.numpy(), np.asarray(q_ref.edges))
     codes_ref = np.asarray(JQ.apply_quantizer(q_ref, jnp.asarray(X)))
     codes_t = TQ.apply_quantizer(q, torch.from_numpy(X))
@@ -138,22 +139,40 @@ def test_sketch_draws_from_generator():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Importing every module of the port loads no ``jax`` and no
-    ``repro``; no source file of the port names either."""
+    """Importing every module of the port loads no ``jax``, no ``repro``
+    and no ``ml_dtypes``; no source file of the port names any of them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "       or k == 'repro' or k.startswith('repro.')]\n"
+        "bad = [k for k in sys.modules\n"
+        "       if k.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\s|\.|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\s|\.|$)",
+                         re.M)
     for root, _, files in os.walk(os.path.join(SRC, "repro_torch")):
         for f in files:
             if f.endswith(".py"):
                 with open(os.path.join(root, f)) as fh:
                     assert not pattern.search(fh.read()), f
+
+
+@pytest.mark.parametrize("make", [
+    lambda: TQ.fit_quantizer(np.zeros((4, 2), np.float32), 4),
+    lambda: convert.quantizer_from_edges(np.zeros((2, 3), np.float32), 4),
+    lambda: convert.tree_from_arrays(np.zeros(1), np.zeros(1),
+                                     np.zeros((2, 1)), np.zeros(1))])
+def test_helpers_follow_the_device_rule(make):
+    """No device given: the helpers place their tensors on CUDA, or raise
+    when there is none, as every entry point of the port does."""
+    if torch.cuda.is_available():
+        out = make()
+        first = out.edges if hasattr(out, "edges") else out.feat
+        assert first.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()

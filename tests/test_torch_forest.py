@@ -51,7 +51,8 @@ def _arrays(pf):
 def _port_forest():
     jm, X = _jax_model()
     return convert.packed_forest_from_arrays(_arrays(jm.packed),
-                                             depth=jm.packed.depth)
+                                             depth=jm.packed.depth,
+                                             device="cpu")
 
 
 def _replay(jpf, codes, F0, leaf, cols, lr):
@@ -129,7 +130,7 @@ def test_pack_forest_matches_reference():
     jm, _ = _jax_model()
     f = jm.forest
     trees = [convert.tree_from_arrays(f.feat[t], f.thr[t], f.value[t],
-                                      f.gain[t], f.cover[t])
+                                      f.gain[t], f.cover[t], device="cpu")
              for t in range(f.feat.shape[0])]
     forest = TT.stack_trees(trees)
     assert forest.depth == 4 and forest.n_trees == 4
@@ -146,7 +147,7 @@ def test_predict_raw_bitwise_with_carried_quantizer(row_chunk):
     jm, X = _jax_model()
     pf = _port_forest()
     q = convert.quantizer_from_edges(np.array(jm.quantizer.edges),
-                                     jm.quantizer.n_bins)
+                                     jm.quantizer.n_bins, device="cpu")
     codes = TQ.codes_rows(TQ.apply_quantizer(q, torch.from_numpy(X)))
     got = TF.predict_raw(pf, codes, row_chunk=row_chunk)
     codes_r = JQ.apply_quantizer(jm.quantizer, jnp.asarray(X))
