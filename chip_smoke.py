@@ -7,11 +7,12 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA build;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, in parallel; B3 and both B5 entry points share
-     ``predict.cu``) and time the build;
+     ``predict.cu``; B6 is ``shap.cu``) and time the build;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (B5 also against B3 on the dequantized forest), and
-     time kernel, plain version and, where one PyTorch call computes the
-     same function, that call;
+     main path's shapes (B5 also against B3 on the dequantized forest; B6
+     wide and with narrow blocks at per-tree columns), and time kernel,
+     plain version and, where one PyTorch call computes the same function,
+     that call;
   4. fit the paper's configuration (``configs/sketchboost_tabular.py``) at
      full width, 2,097,152 rows x 100 features, d = 512, k = 5, depth 6,
      256 bins, all 100 rounds, with a 131,072-row eval set;
@@ -24,14 +25,20 @@ Phases (any failure exits non-zero; nothing is caught):
      exactness against the model and the dequantized twins, run the
      overload drill, then measure a window that bucket padding nearly
      doubles (8 x 33 rows, padded to 512);
-  8. print the kernel table as one JSON line, the card's line, and last
+  8. explain the fitted model: path-dependent SHAP of 4,096 held-out rows
+     with its additivity check, 64 of them against the port on the CPU,
+     leaf ids against a CPU walk, importances of each kind, interventional
+     SHAP of 256 rows against 64 background rows, and the SHAP endpoint of
+     the float32 and int8 servers of phase 7 (windows of 8 x 32 rows);
+  9. print the kernel table as one JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
 (the Guyon scheme of ``data/pipeline.make_tabular``; numpy would take
 minutes at this size).  Kernel launch counts are set to zero just before
-phase 4 and read just after phase 5 (the fit -> predict path), and again
-just before and after phase 7 (the serving path).
+phase 4 and read just after phase 5 (the fit -> predict path), again just
+before and after phase 7 (the serving path), and again around phase 8 (the
+explain path).
 """
 from __future__ import annotations
 
@@ -259,6 +266,86 @@ def check_predict_quant(torch, case, dtype):
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def shap_ops(depth: int) -> int:
+    """Floating-point operations of one path's factors in ``shap.cu``:
+    suffix and prefix products, the weighted convolutions, ``(o - z) * Ψ``
+    (duplicate-feature sums excluded: merged packs have none)."""
+    ext = sum(3 * k - 1 for k in range(1, depth + 1))      # one EXTEND each
+    conv = 0
+    for s in range(depth):
+        ls, lp = depth - s, s + 1
+        for k in range(depth):
+            terms = min(k, lp - 1) - max(0, k - ls + 1) + 1
+            conv += 2 * terms - 1 + 1 + (k > 0)
+    return 2 * ext - (3 * depth - 1) + conv + 2 * depth
+
+
+def check_shap(torch, gen, dev):
+    """B6 at the main model's tree shape: 4,096 rows x 100 features, 8
+    depth-6 trees (L=64, D=6), W = d = 512, covers with empty subtrees;
+    then W=1 blocks at per-tree columns.  Bitwise against the plain
+    version on the card (same sums in the same order, two roundings)."""
+    from repro_torch.core import forest as FO
+    from repro_torch.core.tree import heap_to_node_arrays
+    from repro_torch.explain import build_path_pack
+    from repro_torch.kernels import ref, shap_kernel
+    n, M, T, depth, d = 4096, 100, 8, 6, 512
+    h = 2 ** depth - 1
+    feat, thr, left, right, leaf = heap_to_node_arrays(
+        torch.randint(0, M, (T, h), generator=gen, device=dev,
+                      dtype=torch.int32),
+        torch.randint(0, 255, (T, h), generator=gen, device=dev,
+                      dtype=torch.int32),
+        torch.randn((T, h + 1, d), generator=gen, device=dev))
+    leaf_cover = torch.randint(0, 40, (T, h + 1), generator=gen, device=dev,
+                               dtype=torch.int32).float()
+    pf = FO.PackedForest(
+        feat=feat, thr=thr, left=left, right=right, leaf=leaf,
+        out_col=torch.zeros(T, dtype=torch.int32, device=dev),
+        base=torch.zeros(d, device=dev), lr=torch.tensor(0.05),
+        cover=FO._heap_cover(leaf_cover), node_count=None, depth=depth)
+    pack = build_path_pack(pf)
+    codes = torch.randint(0, 256, (n, M), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    tables = (pack.slot_feat, pack.slot_lo, pack.slot_hi, pack.slot_z)
+
+    def kernel(leaf_v, cols):
+        return shap_kernel.tree_shap(codes, *tables, leaf_v, cols, 0.05,
+                                     n_outputs=d)
+
+    def plain(leaf_v, cols):
+        phi = torch.zeros((n, M, d), device=dev)
+        return ref.tree_shap_ref(phi, codes, *tables, leaf_v, cols, 0.05)
+    out, again = kernel(pack.leaf, pf.out_col), kernel(pack.leaf, pf.out_col)
+    want = plain(pack.leaf, pf.out_col)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "B6 is not deterministic run to run"
+    err = float((out - want).abs().max())
+    assert torch.equal(out, want), f"B6 differs from plain by {err!r}"
+    del out, again, want
+    narrow = pack.leaf[:, :, :1].contiguous()
+    cols = torch.arange(T, dtype=torch.int32, device=dev) * 60
+    k_n, p_n = kernel(narrow, cols), plain(narrow, cols)
+    torch.cuda.synchronize()
+    assert torch.equal(k_n, p_n), "B6 narrow blocks differ from plain"
+    del k_n, p_n
+    L, D = pack.slot_feat.shape[1:]
+    real_slots = int((pack.slot_feat >= 0).sum())
+    real_paths = int((pack.slot_feat >= 0).any(2).sum())
+    b_ms, b_by = bound_ms(4 * n * M * d + n * M + 16 * T * L * D
+                          + 4 * T * L * d + 4 * T + 4 * D,
+                          2 * n * real_slots * d
+                          + n * real_paths * shap_ops(D))
+    return dict(
+        name="tree_shap", route="cuda",
+        source="src/repro_torch/kernels/csrc/shap.cu",
+        replaces="src/repro/kernels/shap_kernel.py:109",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: kernel(pack.leaf, pf.out_col)),
+        plain_ms=cuda_ms(lambda: plain(pack.leaf, pf.out_col), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def check_small_fit(torch):
     """The whole path at a small size: the CUDA fit against the CPU fit
     (plain versions), same data and injected sketches, predictions within
@@ -342,8 +429,8 @@ def make_data(torch, dev, n, m, d, seed):
 
 def serve_phase(torch, model, dev, Xte, raw, kernels):
     """Phase 7: the serving path on the card, from a checkpoint of the
-    fitted model.  Returns the serving record and the kernel launches of
-    this phase (counts set to zero just before it)."""
+    fitted model.  Returns the serving record, the kernel launches of this
+    phase (counts set to zero just before it) and the servers."""
     import numpy as np
 
     from repro_torch.core import forest as FO
@@ -467,7 +554,104 @@ def serve_phase(torch, model, dev, Xte, raw, kernels):
               f"264-row window's traversal {rec['window_264_traverse_ms']:.4f}"
               f" ms, padded to 512 rows "
               f"{rec['window_264_padded_traverse_ms']:.4f} ms")
-    return record, launches
+    return record, launches, servers
+
+
+def explain_phase(torch, model, dev, Xte, raw, pf_cpu, servers, kernels):
+    """Phase 8: the explain path on the card, on the fitted model and on
+    the float32 and int8 servers of phase 7.  Returns the record and the
+    kernel launches of this phase (counts set to zero just before it)."""
+    import numpy as np
+
+    from repro_torch import explain as EX
+    from repro_torch.launch import serve as LS
+    for k in kernels:
+        k.launches = 0
+    rec = {}
+    Xs = Xte[:4096]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phi, base = model.shap_values(Xs, check_additivity=True)
+    torch.cuda.synchronize()
+    rec["shap_4096_s"] = time.perf_counter() - t0       # pack + check incl.
+    assert phi.shape == (len(Xs), Xte.shape[1], model.cfg.n_outputs)
+    assert bool(phi.isfinite().all())
+    err = float((base + phi.sum(1) - raw[:4096]).abs().max())
+    rec["local_accuracy_err"] = err
+    print(f"[8] SHAP of 4,096 rows x {Xte.shape[1]} features x "
+          f"{phi.shape[2]} outputs in {rec['shap_4096_s']:.4f} s (path pack "
+          f"and additivity check included); max |base + sum(phi) - "
+          f"predict_raw| {err!r} <= 1e-3")
+    assert err <= 1e-3, err
+    # 64 rows against the port on the CPU (the plain version).
+    codes = model._bin(Xs)
+    t0 = time.perf_counter()
+    phi_c, base_c = EX.shap_values(pf_cpu, codes[:64].cpu())
+    cpu_s = time.perf_counter() - t0
+    d_phi = float((phi[:64].cpu() - phi_c).abs().max())
+    d_base = float((base.cpu() - base_c).abs().max())
+    rec.update(cpu_phi_err=d_phi, cpu_base_err=d_base,
+               cpu_bitwise=bool(torch.equal(phi[:64].cpu(), phi_c)))
+    print(f"[8] 64 rows against the CPU's plain version ({cpu_s:.2f} s): "
+          f"max |diff| phi {d_phi!r}, base {d_base!r}, bitwise "
+          f"{rec['cpu_bitwise']} (tolerance atol 1e-5 + rtol 1e-5)")
+    torch.testing.assert_close(phi[:64].cpu(), phi_c, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(base.cpu(), base_c, atol=1e-5, rtol=1e-5)
+    del phi, phi_c
+    # Leaf ids against a walk on the CPU; importances of each kind.
+    assert torch.equal(model.apply(Xs).cpu(),
+                       EX.apply_forest(pf_cpu, codes.cpu())), "apply differs"
+    for kind in EX.IMPORTANCE_KINDS:
+        imp = model.feature_importances(kind)
+        assert abs(float(imp.sum()) - 1.0) <= 1e-5, (kind, float(imp.sum()))
+        top = torch.argsort(imp, descending=True)[:3].tolist()
+        print(f"[8] {kind} importances sum {float(imp.sum())!r}, top "
+              f"features {top}")
+    # Interventional SHAP: 256 rows against 64 background rows.
+    bg = Xte[-64:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phi, base = model.shap_values(Xte[:256], algorithm="interventional",
+                                  background=bg)
+    torch.cuda.synchronize()
+    rec["interventional_256x64_s"] = time.perf_counter() - t0
+    assert torch.equal(base, model.predict_raw(bg).mean(0)), "base differs"
+    ierr = float((base + phi.sum(1) - raw[:256]).abs().max())
+    rec["interventional_local_accuracy_err"] = ierr
+    print(f"[8] interventional SHAP, 256 rows x 64 background rows, in "
+          f"{rec['interventional_256x64_s']:.3f} s; base == mean background "
+          f"prediction; max |base + sum(phi) - predict_raw| {ierr!r} <= 1e-3")
+    assert ierr <= 1e-3, ierr
+    del phi
+    # The SHAP endpoint of the float32 and int8 servers: windows of 8
+    # requests x 32 rows.
+    rng = np.random.default_rng(1)
+    requests = [rng.normal(size=(32, Xte.shape[1])).astype(np.float32)
+                for _ in range(256)]
+    for name in ("float32", "int8"):
+        srv = servers[name]
+        ex = LS.drive_explain(srv, requests, 8)
+        last = ex.pop("last_window")
+        phi = np.concatenate([p for p, _ in last])
+        own = srv.predict_raw(np.concatenate(requests[-8:])).cpu().numpy()
+        lerr = float(np.abs(last[0][1] + phi.sum(1) - own).max())
+        rec[f"serve_{name}"] = dict(ex, local_accuracy_err=lerr)
+        print(f"[8] {name} server SHAP endpoint: p50 {ex['p50_ms']:.3f} ms, "
+              f"p99 {ex['p99_ms']:.3f} ms per request, "
+              f"{ex['shap_rows_per_s']:.1f} rows/s in SHAP; local accuracy "
+              f"against its own predictions {lerr!r} <= 1e-3")
+        assert lerr <= 1e-3, (name, lerr)
+    launches = {k.name: k.launches for k in kernels}
+    print(f"[8] launches in the explain phase: {launches}")
+    # Device time of one 256-row window's SHAP (B6 and the expected
+    # values) on the float32 server, after the counts were read.
+    srv = servers["float32"]
+    codes = srv._codes(np.concatenate(requests[:8]))
+    rec["window_shap_ms"] = cuda_ms(lambda: EX.shap_values(
+        srv.explain_packed, codes, pack=srv._path_pack), 5)
+    print(f"[8] float32: one 256-row window's SHAP on the card "
+          f"{rec['window_shap_ms']:.4f} ms")
+    return rec, launches
 
 
 def main() -> int:
@@ -476,7 +660,8 @@ def main() -> int:
     from repro_torch.core import losses as L
     from repro_torch.core.boosting import SketchBoost
     from repro_torch.kernels import _build, hist_kernel, predict_kernel
-    from repro_torch.kernels import predict_quant_kernel, split_kernel
+    from repro_torch.kernels import (predict_quant_kernel, shap_kernel,
+                                     split_kernel)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -495,8 +680,9 @@ def main() -> int:
     b5 = [predict_quant_kernel.KERNELS[torch.int8],
           predict_quant_kernel.KERNELS[torch.bfloat16]]
     kernels = [hist_kernel.KERNEL, split_kernel.KERNEL, predict_kernel.KERNEL]
+    b6 = shap_kernel.KERNEL
     t0 = time.perf_counter()
-    reports = _build.build(kernels + b5)
+    reports = _build.build(kernels + b5 + [b6])
     print(f"[2] built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -510,6 +696,7 @@ def main() -> int:
             check_predict_quant(torch, case, "int8"),
             check_predict_quant(torch, case, "bfloat16")]
     del case
+    rows.append(check_shap(torch, gen, dev))
     for r in rows:
         print(f"[3] {r['name']}: max_abs_err {r['max_abs_err']!r} kernel "
               f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
@@ -526,7 +713,7 @@ def main() -> int:
     Xev, yev = X[N_TRAIN:N_TRAIN + N_EVAL], y[N_TRAIN:N_TRAIN + N_EVAL]
     Xte = X[N_TRAIN + N_EVAL:]
     cfg = paper.CONFIG
-    for k in kernels + b5:
+    for k in kernels + b5 + [b6]:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -576,18 +763,27 @@ def main() -> int:
     assert math.isfinite(train_loss) and train_loss < base_loss
 
     profile_rounds(torch, model, dev, Xtr, ytr, Xev, yev)
-    serve, serve_launches = serve_phase(
+    serve, serve_launches, servers = serve_phase(
         torch, model, dev, Xte, raw, [predict_kernel.KERNEL] + b5)
     assert all(v > 0 for v in serve_launches.values()), serve_launches
+    explain, explain_launches = explain_phase(
+        torch, model, dev, Xte, raw, pf_cpu, servers,
+        [predict_kernel.KERNEL, b6])
+    assert explain_launches[b6.name] > 0, explain_launches
+    del servers
     for r in rows:
         if r["name"] in launches:            # B1-B3: the fit -> predict path
             r["launches"], r["path"] = launches[r["name"]], "fit+predict"
+        elif r["name"] == b6.name:           # B6: the explain path
+            r["launches"], r["path"] = explain_launches[r["name"]], "explain"
         else:                                # B5: the serving path
             r["launches"], r["path"] = serve_launches[r["name"]], "serve"
     rows[2]["serve_launches"] = serve_launches[rows[2]["name"]]
+    rows[2]["explain_launches"] = explain_launches[rows[2]["name"]]
     print(json.dumps({"kernels": rows, "fit_s": fit_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
-                      N_TEST / pred_s, "serve": serve, "card": smi}))
+                      N_TEST / pred_s, "serve": serve, "explain": explain,
+                      "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ Port of the JAX package's ``core/boosting.py`` for this slice of the port:
 engine, float32 statistics, ``sketch_method`` ``"random_projection"`` or
 ``"none"``, no row or column sampling, no guards and no checkpoints.
 Options outside the slice raise a ValueError that names the slice that
-brings them.
+brings them.  The fitted model explains itself as the reference's does:
+`SketchBoost.shap_values`, `apply` and `feature_importances` (``explain/``).
 
 The loop runs one round per iteration for both ``loop="scan"`` (the
 default) and ``loop="python"``: the reference guarantees that its two loops
@@ -27,6 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import explain as EX
 from repro_torch.core import forest as FO
 from repro_torch.core import losses as L
 from repro_torch.core import quantize as Q
@@ -191,6 +193,7 @@ class SketchBoost:
         self.base_score: Optional[torch.Tensor] = None
         self.history: List[Dict[str, Any]] = []
         self.best_round: int = -1
+        self._path_pack: Optional[EX.PathPack] = None
 
     # -- data prep ----------------------------------------------------------
     def _codes(self, X: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -299,6 +302,7 @@ class SketchBoost:
         self.forest = T.stack_trees(trees)
         self.packed = FO.pack_forest(self.forest, self.base_score,
                                      cfg.learning_rate)
+        self._path_pack = None
         return self
 
     # -- inference ----------------------------------------------------------
@@ -309,18 +313,75 @@ class SketchBoost:
     def predict_raw(self, X, iteration: Optional[int] = None) -> torch.Tensor:
         """Raw scores through the traversal kernel, ``predict_row_chunk``
         rows at a time; ``iteration`` keeps the first rounds only."""
-        if self.quantizer is None:
-            raise ValueError("model is not fitted; call fit() first")
-        X = validate_features(X, n_features=self.quantizer.edges.shape[0])
-        codes, _ = self._codes(X)
-        pf = self.packed
-        if iteration is not None:
-            pf = FO.slice_rounds(pf, iteration)
-        return FO.predict_raw(pf, codes, row_chunk=self.cfg.predict_row_chunk)
+        return FO.predict_raw(self._sliced_packed(iteration), self._bin(X),
+                              row_chunk=self.cfg.predict_row_chunk)
 
     def predict(self, X, iteration: Optional[int] = None) -> torch.Tensor:
         return L.get_loss(self.cfg.loss).transform(
             self.predict_raw(X, iteration))
+
+    # -- explainability (repro_torch.explain) --------------------------------
+    def _bin(self, X) -> torch.Tensor:
+        """(n, m) uint8 codes of fitted-model features, on the model's
+        device."""
+        if self.quantizer is None:
+            raise ValueError("model is not fitted; call fit() first")
+        X = validate_features(X, n_features=self.quantizer.edges.shape[0])
+        return self._codes(X)[0]
+
+    def _sliced_packed(self, iteration: Optional[int]) -> FO.PackedForest:
+        return (self.packed if iteration is None
+                else FO.slice_rounds(self.packed, iteration))
+
+    def shap_values(self, X, *, algorithm: str = "path_dependent",
+                    background=None, iteration: Optional[int] = None,
+                    check_additivity: bool = False):
+        """Per-output SHAP attributions ``(phi, base_values)``: phi (n, m, d),
+        base_values (d,), with ``base_values + phi.sum(1) ==
+        predict_raw(X)`` up to float32 rounding.  ``"path_dependent"`` is
+        TreeSHAP over the packed covers (the B6 kernel on the card);
+        ``"interventional"`` explains against ``background`` (raw features,
+        binned with the model's quantizer).  The path pack is built once
+        per fit; ``iteration`` keeps a prefix of its tree axis.
+        ``check_additivity`` raises when local accuracy is off by more than
+        1e-3."""
+        codes = self._bin(X)
+        bg = None if background is None else self._bin(background)
+        pf = self._sliced_packed(iteration)
+        if self._path_pack is None:            # host-side extraction: once
+            self._path_pack = EX.build_path_pack(self.packed)
+        pack = self._path_pack
+        if iteration is not None:              # pure prefix of the tree axis
+            t = iteration * self.packed.trees_per_round
+            pack = EX.PathPack(*(a[:t] for a in pack))
+        phi, base = EX.shap_values(
+            pf, codes, algorithm=algorithm, background=bg,
+            row_chunk=self.cfg.predict_row_chunk, pack=pack)
+        if check_additivity:
+            raw = self.predict_raw(X, iteration)
+            err = float((base + phi.sum(1) - raw).abs().max())
+            if err > 1e-3:
+                raise AssertionError(
+                    f"SHAP additivity violated: max |base + sum(phi) - "
+                    f"predict_raw| = {err:.2e}")
+        return phi, base
+
+    def apply(self, X, iteration: Optional[int] = None) -> torch.Tensor:
+        """Terminal-node embeddings: ``(n, T)`` int32 node ids per tree in
+        the packed forest's numbering (leaf ``j`` of a level-wise tree is
+        ``2^depth - 1 + j``)."""
+        return EX.apply_forest(self._sliced_packed(iteration), self._bin(X))
+
+    def feature_importances(self, kind: str = "gain") -> torch.Tensor:
+        """Normalised per-feature importances from the packed buffers
+        (``kind`` in {"gain", "cover", "split_count"})."""
+        m = self.quantizer.edges.shape[0]
+        return EX.feature_importances(self.packed, kind=kind, n_features=m)
+
+    @property
+    def feature_importances_(self) -> torch.Tensor:
+        """sklearn-style alias for gain importances."""
+        return self.feature_importances("gain")
 
     def eval_loss(self, X, y) -> float:
         return float(L.get_loss(self.cfg.loss).value(self.predict_raw(X),

@@ -2,8 +2,9 @@
 
 The JAX package's fitted objects are given as numpy arrays (``np.asarray``
 of each field), so this module needs nothing of JAX.  Both packages then
-compute on the same forest, quantizer or tree.  Every helper places its
-tensors by the device rule: CUDA unless ``device`` names another device.
+compute on the same forest, quantizer, tree or path pack.  Every helper
+places its tensors by the device rule: CUDA unless ``device`` names another
+device.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.forest import PackedForest
 from repro_torch.core.quantize import QuantizedForest, Quantizer
 from repro_torch.core.tree import Tree
+from repro_torch.explain.paths import PathPack
 
 _INT_FIELDS = ("feat", "thr", "left", "right", "out_col", "node_count")
 _FLOAT_FIELDS = ("leaf", "base", "cover", "gain")
@@ -84,3 +86,16 @@ def tree_from_arrays(feat, thr, value, gain, cover=None,
     return Tree(feat=t(feat, torch.int32), thr=t(thr, torch.int32),
                 value=t(value, torch.float32), gain=t(gain, torch.float32),
                 cover=None if cover is None else t(cover, torch.float32))
+
+
+def path_pack_from_arrays(arrays: Mapping[str, np.ndarray], *,
+                          device=None) -> PathPack:
+    """`explain.paths.PathPack` from the reference's fields (slot_feat,
+    slot_lo, slot_hi as int32; slot_z, leaf_weight, leaf as float32)."""
+    device = resolve_device(device)
+    dtypes = dict(slot_feat=torch.int32, slot_lo=torch.int32,
+                  slot_hi=torch.int32, slot_z=torch.float32,
+                  leaf_weight=torch.float32, leaf=torch.float32)
+    return PathPack(**{k: torch.as_tensor(np.array(arrays[k]), dtype=dtype,
+                                          device=device)
+                       for k, dtype in dtypes.items()})

@@ -6,9 +6,12 @@ kernels are held to on the card.  Counterparts in the JAX package's
 ``kernels/ref.py``: `hist_nodes_ref` is ``histogram_tiles_ref`` followed by
 the tile->node ``segment_sum`` of ``ops.histogram_splits_level``;
 `split_scan_ref` is ``split_scan_ref``; `node_walk_ref`,
-`forest_apply_ref` and `forest_apply_quant_ref` are their namesakes.
+`forest_apply_ref`, `forest_apply_quant_ref`, the TreeSHAP helpers,
+`tree_shap_ref` and `tree_shap_interventional_ref` are their namesakes.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -121,3 +124,157 @@ def forest_apply_quant_ref(F: torch.Tensor, codes: torch.Tensor,
         deq = leaf[t][pos].to(torch.float32) * scale[t]
         F[:, col:col + w] += lr_t * deq
     return F
+
+
+# ---------------------------------------------------------------------------
+# TreeSHAP over packed root-to-leaf paths (plain B6, `shap_kernel.py`).
+# ---------------------------------------------------------------------------
+
+# "No upper bin bound" sentinel of merged path conditions (``o = lo < code
+# <= hi``), shared by the path extractor and the kernel's padding.  Codes are
+# below 2^20 always; the kernel compares it as an int32.
+SHAP_BIG_BIN = 2 ** 20
+
+
+def _unwind_weights(depth: int) -> list:
+    """Shapley permutation weights ``W(k, D) = k!(D-1-k)!/D!``, k=0..D-1."""
+    f = math.factorial
+    return [f(k) * f(depth - 1 - k) / f(depth) for k in range(depth)]
+
+
+def _poly_extend(coeffs: list, z_s, o_s) -> list:
+    """Multiply a coefficient list by ``(z_s + o_s * x)`` (Lundberg EXTEND)."""
+    out = [coeffs[0] * z_s]
+    for k in range(1, len(coeffs)):
+        out.append(coeffs[k] * z_s + coeffs[k - 1] * o_s)
+    out.append(coeffs[-1] * o_s)
+    return out
+
+
+def path_unwind_psis(o_slots: list, z_slots: list) -> list:
+    """Per-slot UNWIND sums ``Ψ_s = Σ_k W(k, D) [x^k] Π_{j≠s} (z_j + o_j x)``
+    of a root-to-leaf path with ``D`` slots, division-free: prefix and
+    suffix products of the path polynomial (EXTEND), then slot ``s``'s
+    convolution of prefix ``s`` with suffix ``s + 1``.  Safe at ``z = 0``;
+    padding slots with ``o = z = 1`` leave Ψ unchanged.  Inputs are
+    length-``D`` lists of broadcast-compatible float32 tensors; each
+    product and sum rounds once, in the reference's order (the kernel
+    repeats it)."""
+    depth = len(o_slots)
+    ones = torch.ones_like(o_slots[0])
+    prefixes = [[ones]]
+    for s in range(depth):
+        prefixes.append(_poly_extend(prefixes[-1], z_slots[s], o_slots[s]))
+    suffixes = [None] * (depth + 1)
+    suffixes[depth] = [ones]
+    for s in range(depth - 1, -1, -1):
+        suffixes[s] = _poly_extend(suffixes[s + 1], z_slots[s], o_slots[s])
+    W = torch.tensor(_unwind_weights(depth), dtype=torch.float32,
+                     device=o_slots[0].device)
+    psis = []
+    for s in range(depth):
+        pre, suf = prefixes[s], suffixes[s + 1]
+        psi = None
+        for k in range(depth):                 # degree-k coeff of pre ⊛ suf
+            ck = None
+            for j in range(max(0, k - len(suf) + 1),
+                           min(k, len(pre) - 1) + 1):
+                term = pre[j] * suf[k - j]
+                ck = term if ck is None else ck + term
+            if ck is None:
+                continue
+            wck = ck * W[k]
+            psi = wck if psi is None else psi + wck
+        psis.append(psi)
+    return psis
+
+
+def _path_contribs(codes_i: torch.Tensor, sf, lo, hi, z) -> torch.Tensor:
+    """Per-(row, leaf, slot) Shapley factors ``(o - z) * Ψ`` as (n, L, D):
+    ``o = lo < code[sf] <= hi`` (padding slots have ``sf = -1``, ``lo =
+    -1``, so ``o = 1``; a feature id past the codes reads the last one),
+    ``z`` (L, D) the zero-fractions."""
+    depth = sf.shape[1]
+    c = codes_i[:, sf.clamp(0, codes_i.shape[1] - 1).long()]   # (n, L, D)
+    o = ((c > lo) & (c <= hi)).to(torch.float32)
+    o_slots = [o[..., s] for s in range(depth)]
+    z_slots = [z[..., s] for s in range(depth)]
+    psis = path_unwind_psis(o_slots, z_slots)
+    return torch.stack([(o_slots[s] - z_slots[s]) * psis[s]
+                        for s in range(depth)], dim=-1)
+
+
+def _scatter_contribs(acc: torch.Tensor, contrib: torch.Tensor, sf, leaf_v,
+                      col: int, lr_t: torch.Tensor) -> torch.Tensor:
+    """``acc[:, :, col:col+w] += lr * res`` in place, with ``res[n, f, c] =
+    Σ_l a[n, l, f] * leaf_v[l, c]`` summed over leaves in ascending order;
+    ``a[n, l, f]`` is the sum, in slot order, of leaf ``l``'s slots on
+    feature ``f`` (one slot on a merged path).  Two roundings per add."""
+    n, m, _ = acc.shape
+    L, w = leaf_v.shape
+    res = torch.zeros((n, m, w), dtype=torch.float32, device=acc.device)
+    for l, row in enumerate(sf.tolist()):
+        for s, f in enumerate(row):
+            if not 0 <= f < m or f in row[:s]:
+                continue
+            a = contrib[:, l, s]
+            for s2 in range(s + 1, len(row)):
+                if row[s2] == f:
+                    a = a + contrib[:, l, s2]
+            res[:, f, :] += a[:, None] * leaf_v[l][None, :]
+    acc[:, :, col:col + w] += lr_t * res
+    return acc
+
+
+def tree_shap_ref(phi: torch.Tensor, codes: torch.Tensor,
+                  slot_feat: torch.Tensor, slot_lo: torch.Tensor,
+                  slot_hi: torch.Tensor, slot_z: torch.Tensor,
+                  leaf: torch.Tensor, out_col: torch.Tensor,
+                  lr: float) -> torch.Tensor:
+    """Plain B6: path-dependent TreeSHAP, ``phi += lr * shap_t(codes)`` tree
+    by tree in index order, in place.  phi (n, m, d) float32, codes (n, m)
+    integer, slot tensors (T, L, D) from `explain.paths.build_path_pack`,
+    leaf (T, L, w) float32, out_col (T,) the first column of each tree's
+    block.  The slot axis is the path depth."""
+    codes_i = codes.long()
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=phi.device)
+    for t, col in enumerate(out_col.tolist()):
+        contrib = _path_contribs(codes_i, slot_feat[t], slot_lo[t],
+                                 slot_hi[t], slot_z[t].to(torch.float32))
+        _scatter_contribs(phi, contrib, slot_feat[t], leaf[t], col, lr_t)
+    return phi
+
+
+def tree_shap_interventional_ref(phi: torch.Tensor, codes: torch.Tensor,
+                                 bg_codes: torch.Tensor,
+                                 slot_feat: torch.Tensor,
+                                 slot_lo: torch.Tensor, slot_hi: torch.Tensor,
+                                 leaf: torch.Tensor, out_col: torch.Tensor,
+                                 lr: float) -> torch.Tensor:
+    """Interventional TreeSHAP against (B, m) background codes, in place.
+
+    `tree_shap_ref`'s path machinery with a slot's zero-fraction taken from
+    each background row's one-fraction, and the factors averaged over the
+    background rows (all at once: Ψ over (n, B, L)), so ``sum(phi) = f(x) -
+    mean_b f(b)``.  The JAX package has no kernel for it; this runs on the
+    card as it is."""
+    codes_i = codes.long()
+    bg_i = bg_codes.long()
+    n_bg = torch.tensor(bg_codes.shape[0], dtype=torch.float32,
+                        device=phi.device)
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=phi.device)
+    depth = slot_feat.shape[2]
+    for t, col in enumerate(out_col.tolist()):
+        idx = slot_feat[t].clamp(0, codes.shape[1] - 1).long()
+        lo, hi = slot_lo[t], slot_hi[t]
+        c, cb = codes_i[:, idx], bg_i[:, idx]              # (n|B, L, D)
+        o = ((c > lo) & (c <= hi)).to(torch.float32)[:, None]
+        ob = ((cb > lo) & (cb <= hi)).to(torch.float32)[None]
+        o_slots = [o[..., s] for s in range(depth)]        # (n, 1, L)
+        z_slots = [ob[..., s] for s in range(depth)]       # (1, B, L)
+        psis = path_unwind_psis(o_slots, z_slots)          # (n, B, L)
+        contrib = torch.stack([(o_slots[s] - z_slots[s]) * psis[s]
+                               for s in range(depth)], dim=-1)
+        _scatter_contribs(phi, contrib.sum(1) / n_bg, slot_feat[t], leaf[t],
+                          col, lr_t)
+    return phi

@@ -5,7 +5,9 @@ written by `io.checkpoint.save_forest_checkpoint` (or, with ``--demo``,
 trains a small synthetic model with the port and checkpoints it), stands up
 a `training.serve_lib.ForestServer` on ``--device`` (default: the CUDA
 card), and drives a simulated request stream through it in micro-batched
-windows, reporting latency percentiles and throughput.
+windows, reporting latency percentiles and throughput.  With ``--explain``
+it then drives the SHAP endpoint the same way and prints a top-``--topk``
+attribution report per output and the global gain importances.
 
 With ``--chaos`` it runs the overload drill instead: a deterministic burst
 on a virtual clock that forces queue shedding, a deadline drop and
@@ -14,6 +16,7 @@ stats to ``--stats-out``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --demo --requests 64
   PYTHONPATH=src python -m repro_torch.launch.serve --demo --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --demo --explain
   PYTHONPATH=src python -m repro_torch.launch.serve --ckpt CKPT --quantize int8
   PYTHONPATH=src python -m repro_torch.launch.serve --demo --chaos \\
       --stats-out results/serve_chaos_torch.json
@@ -117,6 +120,26 @@ def drive_stream(server, requests: List[np.ndarray], window: int) -> Dict:
             "p99_ms": float(np.percentile(lat, 99))}
 
 
+def drive_explain(server, requests: List[np.ndarray], window: int) -> Dict:
+    """`drive_stream` for the SHAP endpoint: warm up on one window, zero
+    the explain counters, then explain ``requests`` in windows of
+    ``window``.  Returns p50/p99 latency per request in ms, rows/s inside
+    SHAP, and the last window's ``(phi, base)`` pairs."""
+    server.serve_explain(requests[:window])
+    server.stats.update(explain_requests=0, explain_rows=0,
+                        explain_time_s=0.0)
+    lat, outs = [], []
+    for ofs in range(0, len(requests), window):
+        w0 = time.perf_counter()
+        outs = server.serve_explain(requests[ofs:ofs + window])
+        lat.extend([(time.perf_counter() - w0) * 1e3] * len(outs))
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "shap_rows_per_s": (server.stats["explain_rows"]
+                                / max(server.stats["explain_time_s"], 1e-9)),
+            "last_window": outs}
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ckpt",
@@ -149,7 +172,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="overlap host->device copies with traversal on "
                          "streamed oversize batches")
     ap.add_argument("--explain", action="store_true",
-                    help="the SHAP endpoint (comes with the explain slice)")
+                    help="also drive the SHAP explanation endpoint and "
+                         "print a top-k attribution report")
+    ap.add_argument("--topk", type=int, default=3,
+                    help="features per output in the --explain report")
     ap.add_argument("--chaos", action="store_true",
                     help="run the deterministic overload/admission drill "
                          "instead of the throughput driver")
@@ -158,9 +184,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.explain:
-        from repro_torch.training.serve_lib import EXPLAIN_SLICE
-        raise SystemExit(f"[serve] --explain: {EXPLAIN_SLICE}")
     if args.demo:
         train_demo(args.ckpt, args.seed, args.device)
 
@@ -213,6 +236,27 @@ def main(argv: Optional[List[str]] = None) -> None:
     print(f"[serve] latency/request: p50 {res['p50_ms']:.2f}ms  "
           f"p99 {res['p99_ms']:.2f}ms  (window={args.window}, "
           f"max_batch={args.max_batch})")
+
+    if args.explain:
+        if not server.explainable:
+            ap.error(f"checkpoint {args.ckpt} predates cover packing "
+                     "(format_version 1): --explain unavailable; re-save "
+                     "the checkpoint from a freshly trained model")
+        ex = drive_explain(server, requests, args.window)
+        print(f"[serve] explain latency/request: p50 {ex['p50_ms']:.2f}ms  "
+              f"p99 {ex['p99_ms']:.2f}ms  "
+              f"({ex['shap_rows_per_s']:,.0f} rows/s in-shap)")
+        phi, base = ex["last_window"][-1]
+        row_phi = phi[0]                                   # (m, d)
+        for j in range(row_phi.shape[1]):
+            order = np.argsort(-np.abs(row_phi[:, j]))[:args.topk]
+            feats = ", ".join(f"x{f}={row_phi[f, j]:+.4f}" for f in order)
+            print(f"[serve]   output {j}: base {base[j]:+.4f}  top "
+                  f"{args.topk}: {feats}")
+        imp = server.feature_importances("gain")
+        order = np.argsort(-imp)[:args.topk]
+        print("[serve] global gain importances: "
+              + ", ".join(f"x{f}={imp[f]:.3f}" for f in order))
 
 
 if __name__ == "__main__":

@@ -16,9 +16,14 @@ Where the port departs from the reference: the server follows the port's
 device rule (``device=None`` is CUDA); ``use_kernel`` accepts only True (the
 port picks kernels by device); nothing is compiled per shape, so a bucket
 saves no compile here and its padding only adds rows to traverse, but the
-buckets and every ``stats`` counter behave as the reference's do.  The
-explanation endpoints (SHAP, importances) come with the explain slice of
-the port and raise `NotImplementedError` until then.
+buckets and every ``stats`` counter behave as the reference's do.
+
+Explanations: `ForestServer.explain` / `serve_explain` return TreeSHAP
+attributions of the float32 twin of the served forest (`explain_packed`:
+the dequantized forest of a quantized server), through the B6 kernel on
+the card, under `predict_codes`'s bucket and chunk policy;
+`feature_importances` reads the packed gains and covers.  A cover-less
+(format_version 1) checkpoint serves interventional SHAP only.
 """
 from __future__ import annotations
 
@@ -31,15 +36,13 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from repro_torch import explain as EX
 from repro_torch.core import forest as FO
 from repro_torch.core import quantize as Q
 from repro_torch.core.boosting import validate_features
 from repro_torch.core.device import resolve_device
 from repro_torch.core.losses import get_loss
 from repro_torch.io.checkpoint import dtype_name, load_forest_checkpoint
-
-EXPLAIN_SLICE = ("explanations (TreeSHAP, importances) are not ported yet: "
-                 "they come with the explain slice of repro_torch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,6 +202,7 @@ class ForestServer:
             "prune_alpha": cfg.prune_alpha,
             "quantize": self.quantized or "none"}
         self._explain_packed = None     # lazy float32 twin
+        self._path_pack = None          # lazy path pack of the twin
         self._fallback = None           # lazy sliced overload forest
         self.buckets = (bucket_cache if bucket_cache is not None
                         else BucketCache(cfg.max_buckets))
@@ -431,17 +435,70 @@ class ForestServer:
             results[i] = out
         return results
 
-    # -- explanation serving (the explain slice) ------------------------------
+    # -- explanation serving --------------------------------------------------
     def explain(self, X, *, algorithm: str = "path_dependent",
-                background=None):
-        raise NotImplementedError(EXPLAIN_SLICE)
+                background=None) -> Tuple[np.ndarray, np.ndarray]:
+        """Micro-batched SHAP endpoint: ``(phi (n, m, d), base_values (d,))``
+        as numpy arrays.
+
+        The batch and chunk policy of `predict_codes`: requests up to
+        ``max_batch`` pad to their power-of-two bucket, larger inputs run
+        in ``min(row_chunk, max_batch)``-row chunks.  SHAP runs on the
+        float32 twin of the served forest, so local accuracy holds against
+        what `predict` returns; its path pack is built once per server.
+        """
+        if algorithm == "path_dependent" and not self.explainable:
+            raise RuntimeError(
+                "this checkpoint has no cover tensor (format_version 1): "
+                "path-dependent SHAP is disabled; re-checkpoint the model "
+                "or pass algorithm='interventional' with a background set")
+        codes = self._codes(X)
+        bg = None if background is None else self._codes(background)
+        epf = self.explain_packed
+        if self._path_pack is None:
+            self._path_pack = EX.build_path_pack(
+                epf, need_cover=(epf.cover is not None))
+        n = codes.shape[0]
+        t0 = time.perf_counter()
+        if n > self.cfg.max_batch:
+            phi, base = EX.shap_values(
+                epf, codes, algorithm=algorithm, background=bg,
+                row_chunk=min(self.cfg.row_chunk, self.cfg.max_batch),
+                pack=self._path_pack)
+        else:
+            bucket = self._bucket(n)
+            padded = TF.pad(codes, (0, 0, 0, bucket - n))
+            phi, base = EX.shap_values(epf, padded, algorithm=algorithm,
+                                       background=bg, pack=self._path_pack)
+            phi = phi[:n]
+        self._sync()
+        self.stats["explain_rows"] += int(n)
+        self.stats["explain_time_s"] += time.perf_counter() - t0
+        return phi.cpu().numpy(), base.cpu().numpy()
 
     def serve_explain(self, requests: Sequence, *,
-                      algorithm: str = "path_dependent", background=None):
-        raise NotImplementedError(EXPLAIN_SLICE)
+                      algorithm: str = "path_dependent", background=None
+                      ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Micro-batch explanation requests through ONE SHAP pass; one
+        ``(phi_i, base_values)`` pair per request (base is shared)."""
+        if not requests:
+            return []
+        batch, sizes = self._concat_requests(requests)
+        phi, base = self.explain(batch, algorithm=algorithm,
+                                 background=background)
+        self.stats["explain_requests"] += len(requests)
+        offsets = np.cumsum([0] + list(sizes))
+        return [(phi[a:b], base) for a, b in zip(offsets[:-1], offsets[1:])]
 
-    def feature_importances(self, kind: str = "gain"):
-        raise NotImplementedError(EXPLAIN_SLICE)
+    def feature_importances(self, kind: str = "gain") -> Optional[np.ndarray]:
+        """Importances from the checkpoint alone; ``None`` when the forest
+        has no covers (format_version 1)."""
+        if not self.explainable:
+            return None
+        m = (None if self.quantizer is None
+             else self.quantizer.edges.shape[0])
+        return EX.feature_importances(self.explain_packed, kind=kind,
+                                      n_features=m).cpu().numpy()
 
     def throughput(self) -> float:
         """Rows/sec over everything served so far."""

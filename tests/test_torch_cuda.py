@@ -8,12 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import explain as EX
 from repro_torch.core import forest as FO
 from repro_torch.core import histogram as H
 from repro_torch.core import quantize as Q
 from repro_torch.core.tree import heap_to_node_arrays
 from repro_torch.kernels import (hist_kernel, predict_kernel,
-                                 predict_quant_kernel, ref, split_kernel)
+                                 predict_quant_kernel, ref, shap_kernel,
+                                 split_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -247,3 +249,115 @@ def test_quant_wrapper_counts_launches_and_checks_types(dev):
                 F, codes, feat, thr, left, right, leaf.float(), scale, col,
                 1.0, depth=1)
         assert kernel.launches == before + 1
+
+
+def _shap_forest(rng, T, depth, W, M, zero_cover=0.2):
+    """Random heap trees with covers (some leaf covers zero: z = 0 edges),
+    as a CPU `PackedForest`."""
+    h = 2 ** depth - 1
+    feat, thr, left, right, leaf = heap_to_node_arrays(
+        torch.from_numpy(rng.integers(0, M, (T, h)).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 255, (T, h)).astype(np.int32)),
+        torch.from_numpy(rng.normal(size=(T, h + 1, W)).astype(np.float32)))
+    leaf_cover = rng.integers(1, 50, (T, h + 1)).astype(np.float32)
+    leaf_cover[rng.uniform(size=leaf_cover.shape) < zero_cover] = 0.0
+    gain = np.concatenate([rng.random((T, h)), np.zeros((T, h + 1))], 1)
+    return FO.PackedForest(
+        feat=feat, thr=thr, left=left, right=right, leaf=leaf,
+        out_col=torch.zeros(T, dtype=torch.int32),
+        base=torch.zeros(W), lr=torch.tensor(0.1),
+        cover=FO._heap_cover(torch.from_numpy(leaf_cover)),
+        gain=torch.from_numpy(gain.astype(np.float32)),
+        node_count=torch.full((T,), 2 * h + 1, dtype=torch.int32),
+        depth=depth)
+
+
+def _shap_on(dev, codes, pack, out_col, lr, d):
+    return shap_kernel.tree_shap(
+        codes.to(dev), pack.slot_feat.to(dev), pack.slot_lo.to(dev),
+        pack.slot_hi.to(dev), pack.slot_z.to(dev), pack.leaf.to(dev),
+        out_col.to(dev), lr, n_outputs=d)
+
+
+@pytest.mark.parametrize("case", ["wide", "narrow", "pruned", "stump",
+                                  "wide_features", "deep"])
+def test_tree_shap_kernel_bitwise(dev, case):
+    """B6 against its plain version (on the CPU): odd row counts, output
+    widths that are no multiple of the column chunk, z = 0 edges, a narrow
+    block at per-tree columns, a pruned and compacted forest, a stump
+    forest, more features than a chunk of columns, paths deeper than the
+    depths compiled as constants; two runs bitwise."""
+    rng = np.random.default_rng(len(case))
+    n, T, depth, M, d = 333, 5, 6, 37, 700
+    W = 1 if case == "narrow" else d
+    if case == "stump":
+        n, T, depth, M, d, W = 50, 3, 1, 2, 3, 3
+    if case == "wide_features":
+        n, T, depth, M, d, W = 77, 2, 4, 300, 40, 40
+    if case == "deep":
+        n, T, depth, M, d, W = 40, 2, 10, 12, 5, 5
+    pf = _shap_forest(rng, T, depth, W, M)
+    if case == "narrow":
+        pf = pf._replace(out_col=torch.from_numpy(
+            rng.integers(0, d, T).astype(np.int32)))
+    if case == "pruned":
+        pf = FO.compact_forest(FO.prune_forest(pf, 0.5))
+        assert pf.n_nodes < 2 ** (depth + 1) - 1
+    pack = EX.build_path_pack(pf)
+    codes = torch.from_numpy(rng.integers(0, 256, (n, M)).astype(np.uint8))
+    plain = shap_kernel.tree_shap(codes, pack.slot_feat, pack.slot_lo,
+                                  pack.slot_hi, pack.slot_z, pack.leaf,
+                                  pf.out_col, 0.1, n_outputs=d)
+    out = _shap_on(dev, codes, pack, pf.out_col, 0.1, d)
+    again = _shap_on(dev, codes, pack, pf.out_col, 0.1, d)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out.cpu(), plain)
+    # Local accuracy on the card, against the traversal kernel.
+    pfd = pf._replace(**{k: v.to(dev) for k, v in pf._asdict().items()
+                         if torch.is_tensor(v) and k != "lr"})
+    phi, base = EX.shap_values(pfd, codes.to(dev))
+    raw = FO.predict_raw(pfd, codes.to(dev))
+    assert float((base + phi.sum(1) - raw).abs().max()) <= 1e-4
+
+
+def test_tree_shap_wrapper_counts_launches_and_checks_types(dev):
+    rng = np.random.default_rng(0)
+    pf = _shap_forest(rng, 2, 3, 4, 5)
+    pack = EX.build_path_pack(pf)
+    codes = torch.from_numpy(rng.integers(0, 256, (9, 5)).astype(np.uint8))
+    before = shap_kernel.KERNEL.launches
+    _shap_on(dev, codes, pack, pf.out_col, 0.1, 4)
+    assert shap_kernel.KERNEL.launches == before + 1
+    with pytest.raises(ValueError):             # codes are uint8
+        _shap_on(dev, codes.to(torch.int32), pack, pf.out_col, 0.1, 4)
+    with pytest.raises(ValueError):             # deeper than the kernel holds
+        deep = pack._replace(**{k: getattr(pack, k).repeat(1, 1, 12)
+                                for k in ("slot_feat", "slot_lo", "slot_hi",
+                                          "slot_z")})
+        _shap_on(dev, codes, deep, pf.out_col, 0.1, 4)
+    assert shap_kernel.KERNEL.launches == before + 1
+
+
+def test_explain_surface_on_card_matches_cpu(dev):
+    """A model fitted on the card explains as its forest does on the CPU:
+    SHAP bitwise (B6 against its plain version), leaf ids and importances
+    equal, local accuracy within 1e-4."""
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+    from repro_torch.data.pipeline import make_tabular
+    X, y = make_tabular("multiclass", 2000, 10, 6, seed=2, n_informative=10)
+    model = SketchBoost(GBDTConfig(n_trees=6, depth=5, sketch_k=3),
+                        device=dev).fit(X, y)
+    phi, base = model.shap_values(X[:300], check_additivity=True)
+    pf_cpu = model.packed._replace(**{
+        k: v.cpu() for k, v in model.packed._asdict().items()
+        if torch.is_tensor(v)})
+    codes = model._bin(X[:300])
+    phi_c, base_c = EX.shap_values(pf_cpu, codes.cpu())
+    assert torch.equal(phi.cpu(), phi_c) and torch.equal(base.cpu(), base_c)
+    assert torch.equal(model.apply(X[:300]).cpu(),
+                       EX.apply_forest(pf_cpu, codes.cpu()))
+    for kind in EX.IMPORTANCE_KINDS:
+        assert torch.equal(model.feature_importances(kind).cpu(),
+                           EX.feature_importances(pf_cpu, kind=kind,
+                                                  n_features=10))

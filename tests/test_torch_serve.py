@@ -8,8 +8,9 @@ reference's oracle is held to its own replay, in which XLA's CPU backend
 contracts ``acc + lr * deq`` into one rounding (as for B3, see
 tests/test_torch_forest.py), and the two sides differ by at most one
 rounding step per tree.  `ForestServer` of both packages, built from one
-checkpoint, must agree on predictions (atol 1e-4), on every ``stats``
-counter and on the compression record.
+checkpoint, must agree on predictions (atol 1e-4), on SHAP attributions
+(atol 1e-5 + rtol 1e-5, see tests/test_torch_explain.py), on every
+``stats`` counter and on the compression record.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +25,7 @@ from repro.io import checkpoint as JC
 from repro.kernels import ref as JR
 from repro.runtime.chaos import VirtualClock as JClock
 from repro.training import serve_lib as JS
+from repro_torch import explain as TEX
 from repro_torch.core import forest as TF
 from repro_torch.core import quantize as TQ
 from repro_torch.io import convert
@@ -31,6 +33,7 @@ from repro_torch.kernels import predict_quant_kernel, ref as TR
 from repro_torch.launch import serve as launch_serve
 from repro_torch.runtime.chaos import VirtualClock as TClock
 from repro_torch.training import serve_lib as TS
+from test_explain import save_legacy_heap_checkpoint
 from test_torch_checkpoint import _bits, assert_same_forest
 
 N_TREES, DEPTH, D, M = 6, 4, 5, 8
@@ -320,18 +323,102 @@ def test_registry_matches_reference(ckpt):
 
 
 def test_explain_endpoints_name_their_slice(ckpt):
+    """The explain endpoints, which the serving slice left as stubs naming
+    the explain slice, now answer; the float32 twin of a quantized server
+    predicts as it does."""
     t = TS.ForestServer.from_checkpoint(ckpt, device="cpu")
     X = _requests(0, [4])[0]
-    for call in (lambda: t.explain(X), lambda: t.serve_explain([X]),
-                 lambda: t.feature_importances()):
-        with pytest.raises(NotImplementedError, match="explain slice"):
-            call()
-    # The float32 twin of a quantized server predicts as it does.
+    phi, base = t.explain(X)
+    assert phi.shape == (4, M, D) and base.shape == (D,)
+    [(phi1, base1)] = t.serve_explain([X])
+    np.testing.assert_array_equal(phi1, phi)
+    assert t.feature_importances().shape == (M,)
     q = TS.ForestServer.from_checkpoint(ckpt, device="cpu",
                                         quantize="bfloat16")
     codes = q._codes(X)
     assert torch.equal(TF.predict_raw(q.explain_packed, codes),
                        q.predict_codes(codes))
+
+
+def _explain_stats(server):
+    return {k: v for k, v in server.stats.items()
+            if not k.endswith("_time_s")}
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_forest_server_explain_matches_reference(ckpt, fitted, quantize):
+    """`ForestServer.explain` / `serve_explain` / `feature_importances` of
+    both packages on one checkpoint: attributions within the tolerance of
+    tests/test_torch_explain.py, equal stats and bucket records, a split
+    per request equal to the joint call."""
+    jm, X = fitted
+    j, t, _, _ = _servers(ckpt, quantize=quantize, max_batch=64,
+                          max_buckets=2, row_chunk=48)
+    for rows in (X[:11], X[:40], X[:150]):         # buckets 16, 64, streamed
+        (tphi, tbase), (jphi, jbase) = t.explain(rows), j.explain(rows)
+        np.testing.assert_allclose(tphi, np.asarray(jphi), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(tbase, np.asarray(jbase), atol=1e-5,
+                                   rtol=1e-5)
+        assert _explain_stats(t) == _explain_stats(j)
+        assert t.buckets.stats() == j.buckets.stats()
+    reqs = [X[s:s + n] for s, n in ((0, 1), (10, 5), (40, 9))]
+    outs, jouts = t.serve_explain(reqs), j.serve_explain(reqs)
+    assert [o[0].shape[0] for o in outs] == [1, 5, 9]
+    joint, _ = t.explain(np.concatenate(reqs))
+    j.explain(np.concatenate(reqs))
+    np.testing.assert_array_equal(np.concatenate([o[0] for o in outs]),
+                                  joint)
+    for (a, _), (b, _) in zip(outs, jouts):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-5, rtol=1e-5)
+    assert _explain_stats(t) == _explain_stats(j)
+    assert t.stats["explain_requests"] == 3
+    for kind in ("gain", "cover", "split_count"):
+        imp = t.feature_importances(kind)
+        np.testing.assert_array_equal(imp, np.asarray(
+            j.feature_importances(kind)))
+        np.testing.assert_allclose(imp.sum(), 1.0, rtol=1e-6)
+    reg = TS.ModelRegistry(device="cpu")
+    reg.register("m", t)
+    np.testing.assert_array_equal(reg.explain("m", X[:11])[0],
+                                  t.explain(X[:11])[0])
+
+
+def test_quantized_server_explains_its_twin(ckpt, fitted):
+    """An int8 server explains its dequantized twin: local accuracy holds
+    against its own predictions, and its attributions are the twin's."""
+    _, X = fitted
+    t = TS.ForestServer.from_checkpoint(ckpt, device="cpu", quantize="int8",
+                                        prune_alpha=0.0)
+    phi, base = t.explain(X[:50])
+    np.testing.assert_allclose(base + phi.sum(1), t.predict_raw(X[:50]),
+                               atol=1e-4)
+    want, wbase = TEX.shap_values(t.explain_packed, t._codes(X[:50]))
+    np.testing.assert_array_equal(phi, want.numpy())
+    np.testing.assert_array_equal(base, wbase.numpy())
+
+
+def test_v1_checkpoint_disables_path_dependent_explain(fitted, tmp_path):
+    """A format_version 1 checkpoint (no covers) serves, explains
+    interventionally, returns no importances and refuses path-dependent
+    SHAP, as the reference's server does."""
+    jm, X = fitted
+    save_legacy_heap_checkpoint(str(tmp_path), jm, version=1,
+                                metadata={"loss": "multiclass"})
+    t = TS.ForestServer.from_checkpoint(str(tmp_path), device="cpu")
+    j = JS.ForestServer.from_checkpoint(str(tmp_path))
+    assert not t.explainable and t.feature_importances() is None
+    with pytest.raises(RuntimeError, match="cover"):
+        t.explain(X[:4])
+    phi, base = t.explain(X[:20], algorithm="interventional",
+                          background=X[:8])
+    jphi, jbase = j.explain(X[:20], algorithm="interventional",
+                            background=X[:8])
+    assert _explain_stats(t) == _explain_stats(j)
+    np.testing.assert_allclose(phi, np.asarray(jphi), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(base, np.asarray(jbase), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(base + phi.sum(1), t.predict_raw(X[:20]),
+                               atol=1e-4)
 
 
 def test_server_options_and_device_rule(ckpt):
@@ -355,5 +442,8 @@ def test_launch_serve_demo_stream_and_chaos(tmp_path, capsys):
     launch_serve.main(["--chaos", "--device", "cpu", "--ckpt", ck,
                        "--stats-out", str(stats)])
     assert "OK" in capsys.readouterr().out and stats.exists()
-    with pytest.raises(SystemExit, match="explain slice"):
-        launch_serve.main(["--explain", "--device", "cpu", "--ckpt", ck])
+    launch_serve.main(["--explain", "--device", "cpu", "--ckpt", ck,
+                       "--requests", "8", "--topk", "2"])
+    out = capsys.readouterr().out
+    assert "explain latency/request" in out and "rows/s in-shap" in out
+    assert "output 5:" in out and "global gain importances" in out
