@@ -7,12 +7,14 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA build;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, in parallel; B3 and both B5 entry points share
-     ``predict.cu``; B6 is ``shap.cu``) and time the build;
+     ``predict.cu``; B4 is ``hist_direct.cu``, B6 ``shap.cu``) and time the
+     build;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (B5 also against B3 on the dequantized forest; B6
-     wide and with narrow blocks at per-tree columns), and time kernel,
-     plain version and, where one PyTorch call computes the same function,
-     that call;
+     main path's shapes (B4 bitwise at level 5 of the paper's tree; B2's
+     wide kernel at SketchBoost Full's level 5, C = 513; B5 also against B3
+     on the dequantized forest; B6 wide and with narrow blocks at per-tree
+     columns), and time kernel, plain version and, where one
+     PyTorch call computes the same function, that call;
   4. fit the paper's configuration (``configs/sketchboost_tabular.py``) at
      full width, 2,097,152 rows x 100 features, d = 512, k = 5, depth 6,
      256 bins, all 100 rounds, with a 131,072-row eval set;
@@ -30,15 +32,24 @@ Phases (any failure exits non-zero; nothing is caught):
      leaf ids against a CPU walk, importances of each kind, interventional
      SHAP of 256 rows against 64 background rows, and the SHAP endpoint of
      the float32 and int8 servers of phase 7 (windows of 8 x 32 rows);
-  9. print the kernel table as one JSON line, the card's line, and last
+  9. the other histogram engines and sketch methods at full width on phase
+     4's data: 3 rounds each of ``hist_engine`` "direct" (B4), "partition"
+     and "subtract" with the same per-round Pi (valid losses agree within
+     1e-4 relative; split nodes that differ are counted, ties are legal),
+     then 3 rounds each of ``sketch_method`` "top_outputs",
+     "random_sampling" and "truncated_svd" and 2 of "none" (SketchBoost
+     Full, B2's wide kernel); seconds per round, valid loss and peak memory
+     of each; then one more round of Full under the profiler, as in 6;
+ 10. print the kernel table as one JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
 (the Guyon scheme of ``data/pipeline.make_tabular``; numpy would take
 minutes at this size).  Kernel launch counts are set to zero just before
 phase 4 and read just after phase 5 (the fit -> predict path), again just
-before and after phase 7 (the serving path), and again around phase 8 (the
-explain path).
+before and after phase 7 (the serving path), again around phase 8 (the
+explain path), and again around each fit of phase 9 (the direct engine's
+B4, Full's B2-wide).
 """
 from __future__ import annotations
 
@@ -134,6 +145,51 @@ def check_hist(torch, gen, dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=library)
 
 
+def check_hist_direct(torch, gen, dev):
+    """B4 at level 5 of a 2,097,152-row root: 32 nodes, m=100, B=256, C=6,
+    each row's node drawn on the card; bitwise against its plain version
+    (each cell's rows added in row order) and from run to run."""
+    from repro_torch.kernels import hist_kernel, ref
+    n, m, B, C, nodes = N_TRAIN, 100, 256, 6, 32
+    codes_t = torch.randint(0, B, (m, n), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    node_pos = torch.randint(0, nodes, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    stats = torch.randn((n, C), generator=gen, device=dev)
+    stats[:, -1] = 1.0
+    args = (codes_t, node_pos, stats)
+    kw = dict(n_nodes=nodes, n_bins=B)
+    out = hist_kernel.hist_direct(*args, **kw)
+    again = hist_kernel.hist_direct(*args, **kw)
+    plain = ref.histogram_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "B4 is not deterministic run to run"
+    err = float((out - plain).abs().max())
+    assert torch.equal(out, plain), f"B4 differs from plain by {err!r}"
+    del again, plain
+    plain_ms = cuda_ms(lambda: ref.histogram_ref(*args, **kw), 2)
+    # One PyTorch call for the same function: index_add_ over the flat
+    # (node, feature, bin) cells, indices prepared outside the timing.
+    flat = ((node_pos.long()[None, :] * m
+             + torch.arange(m, device=dev)[:, None]) * B
+            + codes_t.long()).reshape(-1)
+    src = stats.repeat(m, 1)
+    cells = torch.zeros((nodes * m * B, C), device=dev)
+    library = cuda_ms(lambda: cells.zero_().index_add_(0, flat, src), 3)
+    torch.testing.assert_close(cells.reshape(out.shape), out, rtol=1e-4,
+                               atol=1e-3)
+    del flat, src, cells
+    b_ms, b_by = bound_ms(m * n + 4 * n + 4 * n * C + 4 * nodes * m * B * C,
+                          m * n * C)
+    return dict(
+        name="hist_direct", route="cuda",
+        source="src/repro_torch/kernels/csrc/hist_direct.cu",
+        replaces="src/repro/kernels/hist_kernel.py:70",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: hist_kernel.hist_direct(*args, **kw)),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library)
+
+
 def check_split(torch, gen, dev):
     """B2 at the main path's deepest level: 32 nodes x 100 x 256 x 6."""
     from repro_torch.kernels import ref, split_kernel
@@ -157,6 +213,37 @@ def check_split(torch, gen, dev):
         max_abs_err=float((gain - pg).abs().max()),
         ms=cuda_ms(lambda: split_kernel.split_scan(hist, 1.0, 1.0, mask)),
         plain_ms=cuda_ms(lambda: ref.split_scan_ref(hist, 1.0, 1.0, mask)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_split_wide(torch, gen, dev):
+    """B2's wide kernel (C > 64) at SketchBoost Full's deepest level: 32
+    nodes x 100 x 256 x 513 (d = 512 gradient channels and the count)."""
+    from repro_torch.kernels import ref, split_kernel
+    nodes, m, B, C = 32, 100, 256, 513
+    hist = torch.randn((nodes, m, B, C), generator=gen, device=dev)
+    hist[..., -1] = torch.randint(0, 40, (nodes, m, B), generator=gen,
+                                  device=dev).float()
+    mask = torch.ones(m, device=dev)
+    mask[7] = 0.0
+    before = split_kernel.WIDE_KERNEL.launches
+    gain, idx = split_kernel.split_scan(hist, 1.0, 1.0, mask)
+    assert split_kernel.WIDE_KERNEL.launches == before + 1, "not the wide path"
+    pg, pi = ref.split_scan_ref(hist, 1.0, 1.0, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pi), "B2-wide split indices differ from plain"
+    torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
+    err = float((gain - pg).abs().max())
+    del pg, pi
+    b_ms, b_by = bound_ms(hist.numel() * 4 + m * 4 + nodes * 8,
+                          nodes * m * B * (4 * C + 12))
+    return dict(
+        name="split_scan_wide", route="cuda",
+        source="src/repro_torch/kernels/csrc/split.cu",
+        replaces="src/repro/kernels/split_kernel.py:95",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: split_kernel.split_scan(hist, 1.0, 1.0, mask)),
+        plain_ms=cuda_ms(lambda: ref.split_scan_ref(hist, 1.0, 1.0, mask), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -369,12 +456,13 @@ def check_small_fit(torch):
     return err
 
 
-def profile_rounds(torch, model, dev, Xtr, ytr, Xev, yev, rounds=2):
+def profile_rounds(torch, model, dev, Xtr, ytr, Xev, yev, rounds=2,
+                   tag="[6]"):
     """Where a full-width round's time goes: ``rounds`` more rounds of the
     fitted model's loop body (``boosting.boost_round`` plus the eval
-    update and loss) under ``torch.profiler``, after the main path's counts
+    update and loss) under ``torch.profiler``, after the path's counts
     were read.  Prints device time by kernel and the device's busy time
-    over the wall time of those rounds."""
+    over the wall time of those rounds, and returns them."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import boosting as BO
@@ -401,11 +489,95 @@ def profile_rounds(torch, model, dev, Xtr, ytr, Xev, yev, rounds=2):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    print(f"[6] profiled {rounds} rounds (profiler on): wall {wall:.4f} s, "
-          f"device busy {busy:.4f} s = {busy / wall:.3f} of wall")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
-        print(f"[6]   {e.self_device_time_total / 1e3:10.3f} ms "
+    print(f"{tag} profiled {rounds} rounds (profiler on): wall {wall:.4f} "
+          f"s, device busy {busy:.4f} s = {busy / wall:.3f} of wall")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
+    for e in top:
+        print(f"{tag}   {e.self_device_time_total / 1e3:10.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}")
+    return dict(rounds=rounds, wall_s=wall, device_busy_s=busy,
+                top_ms=[[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                        for e in top])
+
+
+def engines_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels, rounds=3):
+    """Phase 9: the histogram engines and the sketch methods at full width
+    on phase 4's data, and one profiled round of SketchBoost Full.  Returns
+    the record and the kernel launches of the direct engine's fit and of
+    Full's (counts set to zero just before each)."""
+    import dataclasses
+
+    from repro_torch.core import sketch as SK
+    from repro_torch.core.boosting import SketchBoost
+    gen = torch.Generator(device=dev).manual_seed(9)
+    pis = [SK.random_projection_matrix(cfg.n_outputs, cfg.sketch_k, gen,
+                                       device=dev).cpu().numpy()
+           for _ in range(rounds)]
+
+    def run(n_rounds, draws=None, **kw):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        c = dataclasses.replace(cfg, n_trees=n_rounds, **kw)
+        model = SketchBoost(c, device=dev).fit(
+            Xtr, ytr, eval_set=(Xev, yev), sketch_mats=draws)
+        torch.cuda.synchronize()
+        times = [h["train_time_s"] for h in model.history]
+        return model, dict(
+            round_s=[b - a for a, b in zip([0.0] + times[:-1], times)],
+            valid_loss=[h["valid_loss"] for h in model.history],
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            resident_before_gib=resident,
+            launches={k.name: k.launches for k in kernels})
+
+    rec, models = {}, {}
+    for engine in ("direct", "partition", "subtract"):
+        models[engine], rec[engine] = run(rounds, pis, hist_engine=engine)
+        assert models[engine].cfg.hist_engine == engine
+        print(f"[9] hist_engine={engine}: seconds per round "
+              f"{rec[engine]['round_s']}, valid loss "
+              f"{rec[engine]['valid_loss']}, peak "
+              f"{rec[engine]['peak_gib']:.2f} GiB ("
+              f"{rec[engine]['resident_before_gib']:.2f} resident before), "
+              f"launches "
+              f"{rec[engine]['launches']}")
+    direct_launches = rec["direct"]["launches"]
+    assert direct_launches["hist_direct"] == cfg.depth * rounds, \
+        direct_launches
+    assert direct_launches["hist_nodes"] == 0, direct_launches
+    ref_loss = rec["direct"]["valid_loss"]
+    heap = models["direct"].forest
+    for engine in ("partition", "subtract"):
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(rec[engine]["valid_loss"], ref_loss))
+        f = models[engine].forest
+        differ = int(((f.feat != heap.feat) | (f.thr != heap.thr)).sum())
+        rec[engine].update(valid_loss_rel_to_direct=rel,
+                           split_nodes_differing=differ)
+        print(f"[9] {engine} vs direct: valid loss within {rel!r} relative "
+              f"(limit 1e-4); {differ} of {heap.feat.numel()} split nodes "
+              f"differ (ties are legal)")
+        assert rel <= 1e-4, (engine, rel)
+    del models, heap
+    for method, n_rounds in (("top_outputs", rounds),
+                             ("random_sampling", rounds),
+                             ("truncated_svd", rounds), ("none", 2)):
+        model, r = run(n_rounds, sketch_method=method)
+        rec[method] = r
+        assert all(math.isfinite(v) for v in r["valid_loss"]), (method, r)
+        print(f"[9] sketch_method={method}: seconds per round "
+              f"{r['round_s']}, valid loss {r['valid_loss']}, peak "
+              f"{r['peak_gib']:.2f} GiB ({r['resident_before_gib']:.2f} "
+              f"resident before), launches {r['launches']}")
+    full_launches = rec["none"]["launches"]
+    assert full_launches["split_scan_wide"] == cfg.depth * 2, full_launches
+    assert full_launches["split_scan"] == 0, full_launches
+    assert direct_launches["split_scan_wide"] == 0, direct_launches
+    rec["none"]["profile"] = profile_rounds(torch, model, dev, Xtr, ytr, Xev,
+                                            yev, rounds=1, tag="[9] Full:")
+    return rec, direct_launches, full_launches
 
 
 def make_data(torch, dev, n, m, d, seed):
@@ -681,8 +853,10 @@ def main() -> int:
           predict_quant_kernel.KERNELS[torch.bfloat16]]
     kernels = [hist_kernel.KERNEL, split_kernel.KERNEL, predict_kernel.KERNEL]
     b6 = shap_kernel.KERNEL
+    b4 = hist_kernel.DIRECT_KERNEL
+    b2w = split_kernel.WIDE_KERNEL
     t0 = time.perf_counter()
-    reports = _build.build(kernels + b5 + [b6])
+    reports = _build.build(kernels + b5 + [b6, b4, b2w])
     print(f"[2] built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -697,6 +871,8 @@ def main() -> int:
             check_predict_quant(torch, case, "bfloat16")]
     del case
     rows.append(check_shap(torch, gen, dev))
+    rows.append(check_hist_direct(torch, gen, dev))
+    rows.append(check_split_wide(torch, gen, dev))
     for r in rows:
         print(f"[3] {r['name']}: max_abs_err {r['max_abs_err']!r} kernel "
               f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
@@ -713,7 +889,7 @@ def main() -> int:
     Xev, yev = X[N_TRAIN:N_TRAIN + N_EVAL], y[N_TRAIN:N_TRAIN + N_EVAL]
     Xte = X[N_TRAIN + N_EVAL:]
     cfg = paper.CONFIG
-    for k in kernels + b5 + [b6]:
+    for k in kernels + b5 + [b6, b4, b2w]:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -771,11 +947,19 @@ def main() -> int:
         [predict_kernel.KERNEL, b6])
     assert explain_launches[b6.name] > 0, explain_launches
     del servers
+    engines, direct_launches, full_launches = engines_phase(
+        torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b4, b2w])
     for r in rows:
         if r["name"] in launches:            # B1-B3: the fit -> predict path
             r["launches"], r["path"] = launches[r["name"]], "fit+predict"
         elif r["name"] == b6.name:           # B6: the explain path
             r["launches"], r["path"] = explain_launches[r["name"]], "explain"
+        elif r["name"] == b4.name:           # B4: the direct engine's fit
+            r["launches"] = direct_launches[r["name"]]
+            r["path"] = "fit (hist_engine='direct')"
+        elif r["name"] == b2w.name:          # B2-wide: SketchBoost Full's fit
+            r["launches"] = full_launches[r["name"]]
+            r["path"] = "fit (sketch_method='none', d=512)"
         else:                                # B5: the serving path
             r["launches"], r["path"] = serve_launches[r["name"]], "serve"
     rows[2]["serve_launches"] = serve_launches[rows[2]["name"]]
@@ -783,7 +967,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "fit_s": fit_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
-                      "card": smi}))
+                      "engines_and_sketches": engines, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

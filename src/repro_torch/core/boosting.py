@@ -1,9 +1,10 @@
 """SketchBoost: the gradient-boosting trainer, on PyTorch.
 
-Port of the JAX package's ``core/boosting.py`` for this slice of the port:
-``strategy="single_tree"``, level-wise growth with the subtract histogram
-engine, float32 statistics, ``sketch_method`` ``"random_projection"`` or
-``"none"``, no row or column sampling, no guards and no checkpoints.
+Port of the JAX package's ``core/boosting.py`` for the slices ported so
+far: ``strategy="single_tree"``, level-wise growth with any histogram
+engine (``"direct"``, ``"partition"``, ``"subtract"``), float32
+statistics, every sketch method, no row or column sampling, no guards and
+no checkpoints.
 Options outside the slice raise a ValueError that names the slice that
 brings them.  The fitted model explains itself as the reference's does:
 `SketchBoost.shap_values`, `apply` and `feature_importances` (``explain/``).
@@ -14,10 +15,11 @@ train bit-identical forests, so one loop stands for both here (PyTorch
 runs eagerly; there is nothing to compile).  ``scan_chunk`` has no effect.
 
 RNG seam: the reference draws each round's sketch from threefry keys, which
-``torch.Generator`` cannot reproduce.  A free-running fit draws Pi from a
-generator seeded with ``cfg.seed`` on the fit's device; ``fit(...,
-sketch_mats=...)`` takes the per-round (d, k) matrices instead (the parity
-tests replay the reference's draws through it).
+``torch.Generator`` cannot reproduce.  A free-running fit makes each round's
+draw from a generator seeded with ``cfg.seed`` on the fit's device;
+``fit(..., sketch_mats=...)`` takes the per-round draws instead (the parity
+tests replay the reference's draws through it): Pi (d, k) for
+``random_projection``, the Gumbel noise (k, d) for ``random_sampling``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch import explain as EX
 from repro_torch.core import forest as FO
+from repro_torch.core import histogram as H
 from repro_torch.core import losses as L
 from repro_torch.core import quantize as Q
 from repro_torch.core import sketch as SK
@@ -87,13 +90,8 @@ class GBDTConfig:
              "the one_vs_all slice"),
             (self.growth == "leafwise" or self.max_leaves != 0,
              "growth='leafwise' / max_leaves", "the leaf-wise slice"),
-            (self.hist_engine in ("direct", "partition"),
-             f"hist_engine={self.hist_engine!r}", "the legacy-engine slice"),
             (self.hist_dtype == "bfloat16", "hist_dtype='bfloat16'",
              "the leaf-wise + bf16 slice"),
-            (self.sketch_method in ("top_outputs", "random_sampling",
-                                    "truncated_svd"),
-             f"sketch_method={self.sketch_method!r}", "the sketch slice"),
             (self.subsample < 1.0 or self.goss_a > 0.0 or self.goss_b > 0.0
              or self.colsample < 1.0, "subsample / goss_* / colsample",
              "the sampling slice"),
@@ -114,7 +112,7 @@ class GBDTConfig:
             (self.strategy == "single_tree",
              f"unknown strategy {self.strategy!r}"),
             (self.growth == "levelwise", f"unknown growth {self.growth!r}"),
-            (self.hist_engine in ("auto", "subtract"),
+            (self.hist_engine in ("auto",) + H.HIST_ENGINES,
              f"unknown hist_engine {self.hist_engine!r}"),
             (self.hist_dtype == "float32",
              f"unknown hist_dtype {self.hist_dtype!r}"),
@@ -234,15 +232,20 @@ class SketchBoost:
             sketch_mats: Optional[Sequence] = None) -> "SketchBoost":
         """Train the ensemble.
 
-        ``sketch_mats`` optionally gives round r's (d, k) projection
-        ``sketch_mats[r]`` (a numpy array); without it Pi is drawn from a
-        generator seeded with ``cfg.seed``.
+        ``sketch_mats`` optionally gives round r's sketch draw
+        ``sketch_mats[r]`` (a numpy array): the (d, k) projection for
+        ``random_projection``, the (k, d) Gumbel noise for
+        ``random_sampling``; the other methods draw nothing and ignore it.
+        Without it the draws come from a generator seeded with
+        ``cfg.seed``.
         """
         cfg = self.cfg
         X = validate_features(X)
         y = validate_targets(y, loss=cfg.loss, n_rows=X.shape[0])
         d = self._infer_d(y)
-        cfg = dataclasses.replace(cfg, n_outputs=d)
+        cfg = dataclasses.replace(
+            cfg, n_outputs=d,
+            hist_engine=H.resolve_hist_engine(cfg.hist_engine))
         loss = L.get_loss(cfg.loss)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
@@ -268,9 +271,9 @@ class SketchBoost:
         self.history = []
         t0 = time.perf_counter()
         for it in range(cfg.n_trees):
-            Pi = (None if sketch_mats is None
-                  else np.array(sketch_mats[it], np.float32))
-            tree = boost_round(F, codes, codes_t, Y, cfg, Pi=Pi,
+            draw = (None if sketch_mats is None
+                    else np.array(sketch_mats[it], np.float32))
+            tree = boost_round(F, codes, codes_t, Y, cfg, draw=draw,
                                generator=gen)
             trees.append(tree)
             rec = {"round": it, "train_time_s": time.perf_counter() - t0}
@@ -390,27 +393,27 @@ class SketchBoost:
 
 def boost_round(F: torch.Tensor, codes: torch.Tensor, codes_t: torch.Tensor,
                 Y: torch.Tensor, cfg: GBDTConfig, *,
-                Pi: Optional[np.ndarray] = None,
+                draw: Optional[np.ndarray] = None,
                 generator: Optional[torch.Generator] = None) -> T.Tree:
     """One boosting round: gradients -> sketch -> tree -> leaf values,
     adding the tree's ``lr * value`` to the training scores ``F`` in place.
 
-    ``Pi`` is this round's (d, k) projection, else it is drawn from
-    ``generator``.  Sample weights are all ones in this slice, so the
-    count channel is ones and ``G * w`` is ``G``.
+    ``draw`` is this round's sketch draw (see `SketchBoost.fit`), else it
+    is drawn from ``generator``.  Sample weights are all ones in this
+    slice, so the count channel is ones and ``G * w`` is ``G``.
     """
     loss = L.get_loss(cfg.loss)
     G, Hd = loss.grad_hess(F, Y)
-    Pi_t = None if Pi is None else torch.as_tensor(Pi, device=F.device)
+    draw_t = None if draw is None else torch.as_tensor(draw, device=F.device)
     Gk = SK.build_sketch(G, method=cfg.sketch_method, k=cfg.sketch_k,
-                         Pi=Pi_t, generator=generator)
+                         draw=draw_t, generator=generator)
     ones = torch.ones((F.shape[0], 1), dtype=torch.float32, device=F.device)
     stats = torch.cat([Gk, ones], 1)
     del Gk
     tree, leaf_pos = T.grow_tree(
         codes, codes_t, stats, G, Hd, depth=cfg.depth, n_bins=cfg.n_bins,
         lam=cfg.lambda_l2, min_data_in_leaf=cfg.min_data_in_leaf,
-        min_gain=cfg.min_gain)
+        min_gain=cfg.min_gain, hist_engine=cfg.hist_engine)
     del G, Hd, stats
     contrib = tree.value[leaf_pos.long()]
     contrib.mul_(torch.tensor(cfg.learning_rate, dtype=torch.float32,

@@ -1,21 +1,40 @@
-"""Node-partitioned level engine: row partition, sibling subtraction, sums.
+"""Histogram engines: row partition, sibling subtraction, sums.
 
-Port of the JAX package's ``core/histogram.py`` (subtract engine).  The
-grower carries a stable permutation of rows sorted by node (`LevelState`),
-advanced one level at a time by an O(n) stable 1-bit radix step, so rows of
-each node are contiguous and in dataset order: summation order, and with it
-the float32 histogram bits, is the same run to run.  Only the smaller child
-of each parent is built; its sibling is ``parent - built``.
+Port of the JAX package's ``core/histogram.py``.  Three engines
+(`HIST_ENGINES`): ``"direct"`` rebuilds every node's histogram from the
+rows in dataset order each level (`repro_torch.kernels.ops.histogram`, the
+B4 kernel on the card), the exact reference the others are pinned to; ``"partition"`` and
+``"subtract"`` read rows partitioned by node.  For those the grower
+carries a stable permutation of rows sorted by node (`LevelState`),
+advanced one level at a time by an O(n) stable 1-bit radix step, so rows
+of each node are contiguous and in dataset order: summation order, and
+with it the float32 histogram bits, is the same run to run.  With
+``"subtract"`` only the smaller child of each parent is built; its sibling
+is ``parent - built``.
 
-The level builder itself (the reference's ``build_level_jnp``) is the
-fused `repro_torch.kernels.ops.histogram_splits_level`: the histogram
-kernel on the card, its plain version on the CPU.
+The partitioned level step (the reference's ``build_level_jnp``) is
+the fused `repro_torch.kernels.ops.histogram_splits_level`: the B1 kernel
+on the card, its plain version on the CPU.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+HIST_ENGINES = ("direct", "partition", "subtract")
+
+
+def resolve_hist_engine(engine) -> str:
+    """Normalise an engine request into one of `HIST_ENGINES`: ``"auto"``
+    (or None) is ``"subtract"``: partitioned histograms with sibling
+    subtraction."""
+    if engine in (None, "auto"):
+        return "subtract"
+    if engine not in HIST_ENGINES:
+        raise ValueError(f"unknown hist engine {engine!r}; "
+                         f"expected 'auto' or one of {HIST_ENGINES}")
+    return engine
 
 
 class LevelState(NamedTuple):

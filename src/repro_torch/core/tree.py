@@ -1,5 +1,5 @@
 """Level-wise multivariate trees in heap layout (the JAX package's
-``core/tree.py``, level-wise subtract engine).
+``core/tree.py``, level-wise growth with each histogram engine).
 
 A tree of depth D is a perfect heap: internal nodes ``0 .. 2^D - 2`` (level
 ``l`` at ``[2^l - 1, 2^(l+1) - 1)``) and leaves ``0 .. 2^D - 1``.  Rows that
@@ -64,29 +64,45 @@ def grow_tree(codes: torch.Tensor, codes_t: torch.Tensor,
               stats: torch.Tensor, G: torch.Tensor, H_diag: torch.Tensor, *,
               depth: int, n_bins: int, lam: float,
               min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
-              feature_mask: Optional[torch.Tensor] = None):
-    """Grow one multivariate tree level by level (subtract engine).
+              feature_mask: Optional[torch.Tensor] = None,
+              hist_engine: str = "auto"):
+    """Grow one multivariate tree level by level.
 
     ``codes`` (n, m) and ``codes_t`` (m, n) are the same uint8 codes in
     both layouts; ``stats`` (n, k+1) the sketched gradients and the count
     channel; ``G``/``H_diag`` (n, d) the full gradients for the leaf pass.
-    Each level runs `ops.histogram_splits_level` (histogram kernel, sibling
-    subtraction, split-scan kernel on the card).  Returns
-    ``(Tree, leaf_pos)``.
+    ``hist_engine`` (`histogram.resolve_hist_engine`) picks each level's
+    step: ``"direct"`` runs `ops.histogram_splits` on the rows in dataset
+    order (B4, then B2) and keeps no partition; ``"partition"`` and
+    ``"subtract"`` run `ops.histogram_splits_level` on the node-sorted
+    partition (B1, then B2), ``"subtract"`` building only the smaller child
+    of each parent and deriving its sibling from the previous level.
+    Returns ``(Tree, leaf_pos)``.
     """
     n = codes.shape[0]
     device = codes.device
+    engine = H.resolve_hist_engine(hist_engine)
     heap = 2 ** depth - 1
     feat = torch.zeros(heap, dtype=torch.int32, device=device)
     thr = torch.full((heap,), n_bins - 1, dtype=torch.int32, device=device)
     gain = torch.zeros(heap, dtype=torch.float32, device=device)
     node_pos = torch.zeros(n, dtype=torch.int32, device=device)
-    state = H.init_level_state(n, device=device)
+    state = (None if engine == "direct"
+             else H.init_level_state(n, device=device))
     prev_hist = None
     for lvl in range(depth):
-        best_gain, best_idx, prev_hist = ops.histogram_splits_level(
-            codes_t, stats, state.order, state.counts, prev_hist, lam,
-            min_data_in_leaf, feature_mask, n_bins=n_bins, subtract=lvl > 0)
+        if engine == "direct":
+            best_gain, best_idx = ops.histogram_splits(
+                codes_t, node_pos, stats, lam, min_data_in_leaf,
+                feature_mask, n_nodes=2 ** lvl, n_bins=n_bins)
+        else:
+            subtract = engine == "subtract" and lvl > 0
+            best_gain, best_idx, hist = ops.histogram_splits_level(
+                codes_t, stats, state.order, state.counts, prev_hist, lam,
+                min_data_in_leaf, feature_mask, n_bins=n_bins,
+                subtract=subtract)
+            prev_hist = hist if engine == "subtract" else None
+            del hist
         sp = S.splits_from_flat(best_gain, best_idx, n_bins=n_bins,
                                 min_gain=min_gain)
         off = 2 ** lvl - 1
@@ -95,7 +111,7 @@ def grow_tree(codes: torch.Tensor, codes_t: torch.Tensor,
         gain[off:2 * off + 1] = sp.gain
         bits = route_bits(codes, node_pos, sp.feat, sp.thr)
         node_pos = node_pos * 2 + bits
-        if lvl < depth - 1:
+        if state is not None and lvl < depth - 1:
             state = H.advance_level_state(state, bits)
 
     # Sample weights are all ones in this slice (no SGB/GOSS), so the

@@ -1,10 +1,11 @@
-"""The fused level step of the grower: histograms -> sibling combine -> splits.
+"""The grower's level steps: histograms -> (sibling combine ->) splits.
 
-Port of `histogram_splits_level` and `_tile_plan` of the JAX package's
-``kernels/ops.py``, without the TPU's layout: no 128-lane channel padding,
-no sublane-padded bin axis, and no per-tile histograms in device memory
-(the histogram kernel folds the tile->node sum into itself).  Histograms
-stay ``(n_nodes, m, n_bins, C)`` throughout.
+Port of `histogram`, `histogram_splits`, `histogram_splits_level` and
+`_tile_plan` of the JAX package's ``kernels/ops.py``, without the TPU's
+layout: no 128-lane channel padding, no row or sublane padding, no
+``nb_chunk`` grid, and no per-tile histograms in device memory (the
+histogram kernels fold their tile sums into themselves).  Histograms stay
+``(n_nodes, m, n_bins, C)`` throughout, the layout the split scan reads.
 """
 from __future__ import annotations
 
@@ -14,6 +15,37 @@ import torch
 
 from repro_torch.core.histogram import interleave_children, smaller_children
 from repro_torch.kernels import hist_kernel, split_kernel
+
+
+def histogram(codes_t: torch.Tensor, node_pos: torch.Tensor,
+              stats: torch.Tensor, *, n_nodes: int,
+              n_bins: int) -> torch.Tensor:
+    """Direct whole-level histograms (B4): ``codes_t`` (m, n) uint8,
+    ``node_pos`` (n,) int32 and ``stats`` (n, C) in dataset row order ->
+    ``(n_nodes, m, n_bins, C)`` float32."""
+    return hist_kernel.hist_direct(
+        codes_t, node_pos.to(torch.int32).contiguous(),
+        stats.to(torch.float32).contiguous(), n_nodes=n_nodes, n_bins=n_bins)
+
+
+def histogram_splits(codes_t: torch.Tensor, node_pos: torch.Tensor,
+                     stats: torch.Tensor, lam: float, min_data: float,
+                     feature_mask: Optional[torch.Tensor] = None, *,
+                     n_nodes: int, n_bins: int):
+    """The direct engine's level step: B4, then the split scan (B2) on its
+    output as it is.  Returns per-node ``(best_gain, best_idx)``."""
+    hist = histogram(codes_t, node_pos, stats, n_nodes=n_nodes,
+                     n_bins=n_bins)
+    return split_kernel.split_scan(hist, lam, min_data,
+                                   _mask(feature_mask, codes_t.shape[0],
+                                         stats.device))
+
+
+def _mask(feature_mask: Optional[torch.Tensor], m: int,
+          device) -> torch.Tensor:
+    """(m,) float32 feature mask for the split scan; all ones if None."""
+    return (torch.ones(m, dtype=torch.float32, device=device)
+            if feature_mask is None else feature_mask.to(torch.float32))
 
 
 def tile_plan(counts: torch.Tensor, build_counts: torch.Tensor, *, n: int,
@@ -73,7 +105,6 @@ def histogram_splits_level(codes_t: torch.Tensor, stats: torch.Tensor,
         s = side.reshape(-1, 1, 1, 1)
         built = torch.where(s == 0, pairs[:, 0], pairs[:, 1])
         hist = interleave_children(side, built, prev_hist - built)
-    mask = (torch.ones(m, dtype=torch.float32, device=stats.device)
-            if feature_mask is None else feature_mask.to(torch.float32))
-    gain, idx = split_kernel.split_scan(hist, lam, min_data, mask)
+    gain, idx = split_kernel.split_scan(hist, lam, min_data,
+                                        _mask(feature_mask, m, stats.device))
     return gain, idx, hist

@@ -5,7 +5,7 @@ plain tensor operations: the CPU path of the wrappers and the yardstick the
 kernels are held to on the card.  Counterparts in the JAX package's
 ``kernels/ref.py``: `hist_nodes_ref` is ``histogram_tiles_ref`` followed by
 the tile->node ``segment_sum`` of ``ops.histogram_splits_level``;
-`split_scan_ref` is ``split_scan_ref``; `node_walk_ref`,
+`histogram_ref` (the direct engine), `split_scan_ref`, `node_walk_ref`,
 `forest_apply_ref`, `forest_apply_quant_ref`, the TreeSHAP helpers,
 `tree_shap_ref` and `tree_shap_interventional_ref` are their namesakes.
 """
@@ -63,6 +63,50 @@ def hist_nodes_ref(codes_t: torch.Tensor, order: torch.Tensor,
                       device=stats_p.device)
     out.index_add_(0, tile_node.long(), tiles.transpose(0, 1))
     return out
+
+
+def histogram_ref(codes_t: torch.Tensor, node_pos: torch.Tensor,
+                  stats: torch.Tensor, *, n_nodes: int,
+                  n_bins: int) -> torch.Tensor:
+    """Plain B4: the direct engine's whole-level histograms.
+
+    ``codes_t`` (m, n) codes, ``node_pos`` (n,) node of each row, ``stats``
+    (n, C) float32, all in dataset row order.  ``out[v, f, b, c]`` sums
+    ``stats[i, c]`` over the rows ``i`` with ``node_pos[i] == v`` and
+    ``codes_t[f, i] == b``, adding them one at a time in row order from 0.0
+    (the kernel keeps that order).  Rows are stably sorted by cell; the
+    r-th row of every cell is then added in step r, where no two adds
+    share a cell, so the result is the same on every device.  Returns
+    ``(n_nodes, m, n_bins, C)``.
+    """
+    m, n = codes_t.shape
+    c = stats.shape[1]
+    dev = stats.device
+    out = torch.zeros((n_nodes * m * n_bins, c), dtype=torch.float32,
+                      device=dev)
+    if n == 0 or m == 0:
+        return out.reshape(n_nodes, m, n_bins, c)
+    feat = torch.arange(m, device=dev)[:, None]
+    cell = ((node_pos.long()[None, :] * m + feat) * n_bins
+            + codes_t.long()).reshape(-1)
+    order = torch.sort(cell, stable=True).indices       # by cell, then row
+    sorted_cell = cell[order]
+    pos = torch.arange(order.numel(), device=dev)
+    first = torch.ones_like(sorted_cell, dtype=torch.bool)
+    first[1:] = sorted_cell[1:] != sorted_cell[:-1]
+    start = torch.cummax(torch.where(first, pos, 0), 0).values
+    rank = pos - start                                   # row's step
+    by_rank = torch.sort(rank, stable=True).indices
+    sizes = torch.bincount(rank).tolist()
+    rows = order % n
+    stats = stats.to(torch.float32)
+    s = 0
+    for size in sizes:
+        idx = by_rank[s:s + size]
+        cells = sorted_cell[idx]
+        out[cells] = out[cells] + stats[rows[idx]]
+        s += size
+    return out.reshape(n_nodes, m, n_bins, c)
 
 
 def split_scan_ref(hist: torch.Tensor, lam: float, min_data: float,

@@ -2,7 +2,9 @@
 
 Replaces the JAX package's ``split_scan_pallas``.  A CPU tensor goes to the
 plain version (`ref.split_scan_ref`); a CUDA tensor goes to the kernel, or
-the wrapper raises.  ``KERNEL.launches`` counts the kernel's launches.
+the wrapper raises.  Two kernels share the source: ``KERNEL`` for up to 64
+channels (a sketch), ``WIDE_KERNEL`` for 65 to 1,024 (SketchBoost Full,
+d + 1 channels); each counts its own launches.
 """
 from __future__ import annotations
 
@@ -13,10 +15,13 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import CudaKernel, require
 
-KERNEL = CudaKernel(
-    "split_scan", "split.cu", "split_scan_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2)
-MAX_CHANNELS = 64
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+KERNEL = CudaKernel("split_scan", "split.cu", "split_scan_launch", _ARGS)
+WIDE_KERNEL = CudaKernel(
+    "split_scan_wide", "split.cu", "split_scan_wide_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2)
+NARROW_CHANNELS = 64    # in registers; wider histograms spread over a block
+MAX_CHANNELS = 1024
 
 
 def split_scan(hist: torch.Tensor, lam: float, min_data: float,
@@ -31,9 +36,19 @@ def split_scan(hist: torch.Tensor, lam: float, min_data: float,
     require(mask, torch.float32, (m,), "mask")
     if not 2 <= c <= MAX_CHANNELS:
         raise ValueError(f"split_scan takes 2..{MAX_CHANNELS} channels "
-                         f"(sketch width + 1), got {c}")
+                         f"(sketch width + 1, or d + 1 unsketched), got {c}")
     gain = torch.empty(nodes, dtype=torch.float32, device=hist.device)
     idx = torch.empty(nodes, dtype=torch.int32, device=hist.device)
-    KERNEL.launch(hist.data_ptr(), mask.data_ptr(), gain.data_ptr(),
-                  idx.data_ptr(), nodes, m, B, c, float(lam), float(min_data))
+    if c <= NARROW_CHANNELS:
+        KERNEL.launch(hist.data_ptr(), mask.data_ptr(), gain.data_ptr(),
+                      idx.data_ptr(), nodes, m, B, c, float(lam),
+                      float(min_data))
+        return gain, idx
+    part_gain = torch.empty((nodes, m), dtype=torch.float32,
+                            device=hist.device)
+    part_idx = torch.empty((nodes, m), dtype=torch.int32, device=hist.device)
+    WIDE_KERNEL.launch(hist.data_ptr(), mask.data_ptr(), gain.data_ptr(),
+                       idx.data_ptr(), part_gain.data_ptr(),
+                       part_idx.data_ptr(), nodes, m, B, c, float(lam),
+                       float(min_data))
     return gain, idx

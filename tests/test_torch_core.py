@@ -36,9 +36,9 @@ def test_config_fields_and_defaults_match_reference():
 
 @pytest.mark.parametrize("option", [
     dict(strategy="one_vs_all"), dict(growth="leafwise", max_leaves=8),
-    dict(hist_engine="direct"), dict(hist_engine="partition"),
-    dict(hist_dtype="bfloat16"), dict(sketch_method="top_outputs"),
-    dict(sketch_method="random_sampling"), dict(sketch_method="truncated_svd"),
+    dict(growth="leafwise"), dict(max_leaves=8),
+    dict(hist_dtype="bfloat16"), dict(hessian_floor=0.5),
+    dict(ckpt_dir="ck"), dict(guard_policy="raise"),
     dict(subsample=0.5), dict(goss_a=0.2, goss_b=0.1), dict(colsample=0.5),
     dict(guard_policy="clip"), dict(save_every=2, ckpt_dir="ck"),
     dict(resume_from="ck"), dict(dist_hist_compression="sketch")])
@@ -47,9 +47,37 @@ def test_out_of_slice_options_raise(option):
         TB.SketchBoost(TB.GBDTConfig(**option), device="cpu")
 
 
+@pytest.mark.parametrize("option,slice_name", [
+    (dict(strategy="one_vs_all"), "one_vs_all"),
+    (dict(growth="leafwise", max_leaves=8), "leaf-wise"),
+    (dict(hist_dtype="bfloat16"), "leaf-wise \\+ bf16"),
+    (dict(subsample=0.5), "sampling"), (dict(goss_a=0.2), "sampling"),
+    (dict(colsample=0.5), "sampling"),
+    (dict(guard_policy="skip_round"), "robustness"),
+    (dict(resume_from="ck"), "checkpoint"),
+    (dict(dist_hist_compression="sketch"), "distributed")])
+def test_refusals_name_their_slice(option, slice_name):
+    with pytest.raises(ValueError,
+                       match=f"not ported yet: it comes with the "
+                             f"{slice_name} slice"):
+        TB.GBDTConfig(**option).validate()
+
+
+@pytest.mark.parametrize("option", [
+    dict(hist_engine=e) for e in ("auto", "direct", "partition", "subtract")
+] + [dict(sketch_method=s) for s in ("none", "top_outputs",
+                                     "random_sampling", "random_projection",
+                                     "truncated_svd")])
+def test_ported_options_are_accepted(option):
+    TB.GBDTConfig(**option).validate()
+    assert TB.SketchBoost(TB.GBDTConfig(**option), device="cpu").cfg == \
+        TB.GBDTConfig(**option)
+
+
 def test_unknown_values_raise():
     for bad in (dict(loop="eager"), dict(loss="hinge"),
-                dict(use_kernel="jnp")):
+                dict(use_kernel="jnp"), dict(hist_engine="tiles"),
+                dict(sketch_method="pca")):
         with pytest.raises(ValueError):
             TB.SketchBoost(TB.GBDTConfig(**bad), device="cpu")
 
@@ -125,7 +153,7 @@ def test_sketch_with_injected_projection(d, k, method):
                                      key=key))
     Pi = np.array(JS.random_projection_matrix(d, k, key))
     out = TS.build_sketch(torch.from_numpy(G), method=method, k=k,
-                          Pi=torch.from_numpy(Pi))
+                          draw=torch.from_numpy(Pi))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
 
 

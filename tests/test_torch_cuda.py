@@ -55,7 +55,7 @@ def test_hist_nodes_kernel_matches_plain(dev, n, m, B, C, levels):
 
 
 @pytest.mark.parametrize("nodes,m,B,C", [(32, 9, 256, 6), (5, 4, 31, 17),
-                                         (3, 3, 8, 2)])
+                                         (3, 3, 8, 2), (4, 5, 64, 513)])
 def test_split_scan_kernel_matches_plain(dev, nodes, m, B, C):
     g = torch.Generator(device=dev).manual_seed(C)
     hist = torch.randn((nodes, m, B, C), generator=g, device=dev)
@@ -68,6 +68,27 @@ def test_split_scan_kernel_matches_plain(dev, nodes, m, B, C):
         pg, pi = ref.split_scan_ref(hist.cpu(), 1.0, min_data, mask.cpu())
         assert torch.equal(idx.cpu(), pi)
         torch.testing.assert_close(gain.cpu(), pg, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("C,wide", [(2, False), (64, False), (65, True),
+                                    (1024, True)])
+def test_split_scan_wrapper_counts_each_path(dev, C, wide):
+    """Up to 64 channels go to ``KERNEL``, more to ``WIDE_KERNEL``; each
+    launch adds one to that kernel's count only."""
+    hist = torch.randn((2, 3, 8, C), device=dev)
+    hist[..., -1] = 4.0
+    mask = torch.ones(3, device=dev)
+    narrow, wide_n = (split_kernel.KERNEL.launches,
+                      split_kernel.WIDE_KERNEL.launches)
+    gain, idx = split_kernel.split_scan(hist, 1.0, 1.0, mask)
+    pg, pi = ref.split_scan_ref(hist.cpu(), 1.0, 1.0, mask.cpu())
+    assert torch.equal(idx.cpu(), pi)
+    torch.testing.assert_close(gain.cpu(), pg, rtol=1e-5, atol=0)
+    assert split_kernel.KERNEL.launches == narrow + (not wide)
+    assert split_kernel.WIDE_KERNEL.launches == wide_n + wide
+    with pytest.raises(ValueError):
+        split_kernel.split_scan(torch.zeros((1, 3, 8, 1025), device=dev),
+                                1.0, 1.0, mask)
 
 
 @pytest.mark.parametrize("n,D,W,T,depth", [(1000, 512, 512, 5, 6),
@@ -361,3 +382,83 @@ def test_explain_surface_on_card_matches_cpu(dev):
         assert torch.equal(model.feature_importances(kind).cpu(),
                            EX.feature_importances(pf_cpu, kind=kind,
                                                   n_features=10))
+
+
+def _direct_case(dev, n, m, nodes, B, C, seed):
+    """Codes, node of each row (every other node left empty when there are
+    four or more) and stats on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    codes_t = torch.randint(0, B, (m, n), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    used = torch.arange(0, nodes, 2 if nodes >= 4 else 1, device=dev)
+    node_pos = used[torch.randint(0, used.numel(), (n,), generator=g,
+                                  device=dev)].to(torch.int32)
+    stats = torch.randn((n, C), generator=g, device=dev)
+    stats[:, -1] = 1.0
+    return codes_t, node_pos, stats
+
+
+@pytest.mark.parametrize("n,m,nodes,B,C", [
+    (1, 3, 1, 256, 6), (1000, 4, 32, 256, 6), (4096, 3, 1, 2, 1),
+    (777, 5, 4, 37, 13), (3000, 2, 64, 256, 8), (513, 6, 8, 17, 2)])
+def test_hist_direct_kernel_bitwise(dev, n, m, nodes, B, C):
+    """B4 against its plain version, bitwise, on the card and on the CPU
+    (each cell adds its rows in row order in both), and bitwise from run to
+    run; 13 channels take two windows, 64 nodes at C=8 three chunks."""
+    args = _direct_case(dev, n, m, nodes, B, C, n + C)
+    out = hist_kernel.hist_direct(*args, n_nodes=nodes, n_bins=B)
+    again = hist_kernel.hist_direct(*args, n_nodes=nodes, n_bins=B)
+    plain = ref.histogram_ref(*args, n_nodes=nodes, n_bins=B)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out, plain)
+    assert torch.equal(out.cpu(), ref.histogram_ref(
+        *[a.cpu() for a in args], n_nodes=nodes, n_bins=B))
+    if nodes >= 4:
+        assert not out[1::2].any()                  # empty nodes stay zero
+
+
+def test_hist_direct_wrapper_counts_launches_and_checks_types(dev):
+    args = _direct_case(dev, 300, 2, 2, 16, 10, 0)
+    before = hist_kernel.DIRECT_KERNEL.launches
+    hist_kernel.hist_direct(*args, n_nodes=2, n_bins=16)
+    assert hist_kernel.DIRECT_KERNEL.launches == before + 2   # two windows
+    codes_t, node_pos, stats = args
+    for bad in ((codes_t.int(), node_pos, stats),
+                (codes_t, node_pos.long(), stats),
+                (codes_t, node_pos, stats.double()),
+                (codes_t, node_pos[:-1], stats)):
+        with pytest.raises(ValueError):
+            hist_kernel.hist_direct(*bad, n_nodes=2, n_bins=16)
+    assert hist_kernel.DIRECT_KERNEL.launches == before + 2
+
+
+@pytest.mark.parametrize("cfg", [dict(hist_engine="direct"),
+                                 dict(hist_engine="partition"),
+                                 dict(sketch_method="truncated_svd"),
+                                 dict(sketch_method="random_sampling"),
+                                 dict(sketch_method="top_outputs")])
+def test_fit_on_card_matches_cpu(dev, cfg):
+    """The whole fit on the card against the CPU (plain versions), same
+    data and injected draws: predictions within atol 1e-4, same best
+    round; the direct engine launches B4 once a level."""
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+    from repro_torch.data.pipeline import make_tabular
+    X, y = make_tabular("multiclass", 3000, 12, 8, seed=3, n_informative=12)
+    rng = np.random.default_rng(0)
+    draws = ([rng.gumbel(size=(3, 8)).astype(np.float32) for _ in range(6)]
+             if cfg.get("sketch_method") == "random_sampling" else
+             [rng.normal(size=(8, 3)).astype(np.float32) / np.sqrt(3.0)
+              for _ in range(6)])
+    config = GBDTConfig(n_trees=6, depth=4, sketch_k=3, min_data_in_leaf=20,
+                        early_stopping_rounds=2, **cfg)
+    before = hist_kernel.DIRECT_KERNEL.launches
+    fits = [SketchBoost(config, device=d).fit(
+        X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]), sketch_mats=draws)
+        for d in (dev, "cpu")]
+    if cfg.get("hist_engine") == "direct":
+        assert (hist_kernel.DIRECT_KERNEL.launches - before
+                == 4 * len(fits[0].history))
+    pred = [f.predict_raw(X[2400:]).cpu() for f in fits]
+    assert float((pred[0] - pred[1]).abs().max()) <= 1e-4
+    assert fits[0].best_round == fits[1].best_round
