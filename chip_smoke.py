@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port of SketchBoost on one CUDA card, end to end.
+"""Run the PyTorch port of SketchBoost, and its dense-LM prefill, on one
+CUDA card, end to end.
 
     python3 chip_smoke.py
 
@@ -7,14 +8,18 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA build;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, in parallel; B3 and both B5 entry points share
-     ``predict.cu``; B4 is ``hist_direct.cu``, B6 ``shap.cu``) and time the
-     build;
+     ``predict.cu``; B4 is ``hist_direct.cu``, B6 ``shap.cu``, B7
+     ``flash_attention.cu``) and time the build;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (B4 bitwise at level 5 of the paper's tree; B2's
      wide kernel at SketchBoost Full's level 5, C = 513; B5 also against B3
      on the dequantized forest; B6 wide and with narrow blocks at per-tree
-     columns), and time kernel, plain version and, where one
-     PyTorch call computes the same function, that call;
+     columns; B7 at the prefill's layer, 1 x 32 heads over 8 x 32,768 x
+     120 with a 4,096 window, in bf16 each output within one bf16 ulp of
+     its own plain value plus 1e-5 and in float32 within 1e-5, and in
+     float32 without the causal mask at 1,000 rows), and time kernel, plain
+     version and, where one PyTorch call computes the same function, that
+     call;
   4. fit the paper's configuration (``configs/sketchboost_tabular.py``) at
      full width, 2,097,152 rows x 100 features, d = 512, k = 5, depth 6,
      256 bins, all 100 rounds, with a 131,072-row eval set;
@@ -40,7 +45,17 @@ Phases (any failure exits non-zero; nothing is caught):
      "random_sampling" and "truncated_svd" and 2 of "none" (SketchBoost
      Full, B2's wide kernel); seconds per round, valid loss and peak memory
      of each; then one more round of Full under the profiler, as in 6;
- 10. print the kernel table as one JSON line, the card's line, and last
+ 10. the dense-LM prefill (memory of phases 4-9 freed first):
+     h2o-danube-3-4b at full width in bf16 (24 layers, d_model 3840, 3.84 B
+     parameters from a seeded ``torch.Generator``) through
+     ``lm_serve.make_prefill_step``, 4 requests of 1 x 32,768 tokens (the
+     first untimed) and 2 of 8 x 2,048 from ``lm_batches(seed=0)``: ms a
+     request, tokens/s, peak memory, greedy next token, finite logits, 24
+     B7 launches a request; one more 32k request under the profiler (B7's
+     share of device time); a 2-layer float32 copy with a 256-token window
+     at 1 x 640 tokens on the card against the CPU, logits within 1e-4 of
+     the largest;
+ 11. print the kernel table as one JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
@@ -48,11 +63,12 @@ Phase 4's data are made on the card from a seeded ``torch.Generator``
 minutes at this size).  Kernel launch counts are set to zero just before
 phase 4 and read just after phase 5 (the fit -> predict path), again just
 before and after phase 7 (the serving path), again around phase 8 (the
-explain path), and again around each fit of phase 9 (the direct engine's
-B4, Full's B2-wide).
+explain path), again around each fit of phase 9 (the direct engine's
+B4, Full's B2-wide), and again around phase 10's prefill requests (B7).
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -68,11 +84,16 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 N_TRAIN, N_EVAL, N_TEST = 2_097_152, 131_072, 262_144
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+def bound_ms(n_bytes: float, n_ops: float, n_bf16_ops: float = 0.0):
+    """The least time for the work: bytes over the memory rate, or ``n_ops``
+    at the fp32 rate plus ``n_bf16_ops`` (products of bf16 inputs, exact on
+    the tensor cores) at the bf16 tensor-core rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / FP32_OPS_PER_S + n_bf16_ops / BF16_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -431,6 +452,100 @@ def check_shap(torch, gen, dev):
         ms=cuda_ms(lambda: kernel(pack.leaf, pf.out_col)),
         plain_ms=cuda_ms(lambda: plain(pack.leaf, pf.out_col), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one head: what B7 must compute."""
+    import numpy as np
+    qpos = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def bf16_ulps(x):
+    """One bf16 ulp of each element's own magnitude (0 where it is 0)."""
+    import torch
+    m, e = torch.frexp(x.float())
+    return torch.where(m == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def check_flash(torch, gen, dev):
+    """B7 at the prefill's layer shape: b=1, hq=32, hkv=8, sq=sk=32,768,
+    dh=120, causal, window 4,096.  In bf16 each output within one bf16 ulp
+    of its own plain value plus 1e-5 (the float32 limit); in float32 within
+    atol 1e-5 of plain at the same shape.  Also float32 at (1, 8, 2, 1,000,
+    120) without the causal mask (keys past sk masked) within atol 1e-5."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    b, hq, hkv, s, dh, window = 1, 32, 8, 32_768, 120, 4096
+    kw = dict(causal=True, window=window)
+    q32, k32, v32 = (torch.randn((b, h, s, dh), generator=gen, device=dev)
+                     for h in (hq, hkv, hkv))
+    o32 = FA.flash_attention(q32, k32, v32, **kw)
+    p32 = ref.flash_attention_ref(q32, k32, v32, **kw)
+    torch.cuda.synchronize()
+    err_layer32 = float((o32 - p32).abs().max())
+    assert err_layer32 <= 1e-5, (
+        f"B7 float32 at the layer shape differs from plain by "
+        f"{err_layer32!r}")
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+    del q32, k32, v32, o32, p32
+    out = FA.flash_attention(q, k, v, **kw)
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    diff = (out.float() - plain.float()).abs()
+    limit = bf16_ulps(plain) + 1e-5
+    err = float(diff.max())
+    worst = float((diff / limit).max())
+    assert worst <= 1.0, (
+        f"B7 differs from plain by up to {worst!r} of one bf16 ulp of each "
+        f"output plus 1e-5 (max abs err {err!r})")
+    del diff, limit
+    qf, kf, vf = (torch.randn((1, h, 1000, dh), generator=gen, device=dev)
+                  for h in (8, 2, 2))
+    of = FA.flash_attention(qf, kf, vf, causal=False)
+    pf = ref.flash_attention_ref(qf, kf, vf, causal=False)
+    torch.cuda.synchronize()
+    err32 = float((of - pf).abs().max())
+    assert err32 <= 1e-5, f"B7 float32 differs from plain by {err32!r}"
+    pairs = attention_pairs(s, s, True, window)
+    # QK^T takes bf16 inputs (exact on the tensor cores); PV takes the
+    # float32 probabilities, so it is held to the fp32 rate.
+    half_ops = 2 * dh * hq * b * pairs
+    n_bytes = 2 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)
+    b_ms, b_by = bound_ms(n_bytes, half_ops, n_bf16_ops=half_ops)
+    # The library yardstick, used nowhere in the port: one SDPA call with
+    # GQA and a boolean band mask, on a fused kernel (the math one would
+    # hold every score).  It skips no masked block.
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qpos = torch.arange(s, device=dev)[:, None]
+    kpos = torch.arange(s, device=dev)[None, :]
+    mask = (kpos <= qpos) & (qpos - kpos < window)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        lib_err = float((library().float() - plain.float()).abs().max())
+        lib_ms = cuda_ms(library, 3)
+    del mask, plain, out
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:76",
+        max_abs_err=err, share_of_bf16_ulp_limit=worst,
+        f32_layer_max_abs_err=err_layer32,
+        f32_tail_mask_max_abs_err=err32,
+        ms=cuda_ms(lambda: FA.flash_attention(q, k, v, **kw)),
+        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 2),
+        bound_ms=b_ms, bound_by=b_by, pairs_per_head=pairs, ops=2 * half_ops,
+        bf16_tensor_core_bound_ms=1e3 * 2 * half_ops / BF16_OPS_PER_S,
+        library_ms=lib_ms, library_max_abs_err=lib_err)
 
 
 def check_small_fit(torch):
@@ -826,14 +941,125 @@ def explain_phase(torch, model, dev, Xte, raw, pf_cpu, servers, kernels):
     return rec, launches
 
 
+def prefill_phase(torch, dev, b7, kernels, arch="h2o-danube-3-4b",
+                  mixes=((1, 32_768, 4), (8, 2_048, 2)), check_tokens=640):
+    """Phase 10: the dense-LM prefill at full width.  ``arch`` in bf16 from
+    a seeded ``torch.Generator`` on the card, then ``make_prefill_step``
+    over requests from ``lm_batches(seed=0)`` for each mix (batch, tokens,
+    requests; the first request of the first mix is untimed).  Every
+    kernel count is set to 0 just before the requests and read just after;
+    B7 must launch once a layer a request.  Then one more request of the
+    first mix under ``torch.profiler`` (B7's share of device time), and
+    the card-vs-CPU check: a 2-layer copy at full width in float32 with a
+    256-token window, ``check_tokens`` tokens, on the card and through the
+    port's plain path on the CPU, logits within 1e-4 max|logit|."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models import lm
+    from repro_torch.training.lm_serve import make_prefill_step
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in lm._flatten(params).values())
+    assert n_params == cfg.n_params(), (n_params, cfg.n_params())
+    print(f"[10] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, d_ff "
+          f"{cfg.d_ff}, window {cfg.window}; {n_params} parameters in "
+          f"{cfg.dtype} made on the card in {time.perf_counter() - t0:.2f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB resident)")
+    step = make_prefill_step(cfg)
+    rec = {"arch": arch, "n_params": n_params}
+    for k in kernels:
+        k.launches = 0
+    for i, (b, s, n_req) in enumerate(mixes):
+        stream = lm_batches(cfg.vocab_size, b, s, seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        times, next_tok = [], []
+        for r in range(n_req):
+            batch = next(stream)
+            before = b7.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = step(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            assert b7.launches - before == cfg.n_layers, b7.launches
+            assert logits.shape == (b, cfg.padded_vocab), logits.shape
+            assert bool(logits.isfinite().all()), "prefill logits not finite"
+            next_tok.append(logits.argmax(-1).tolist())
+        timed = times[1:] if i == 0 else times
+        ms = 1e3 * statistics.median(timed)
+        mix = dict(batch=b, tokens=s, requests=n_req, request_s=times,
+                   ms_per_request=ms, tokens_per_s=b * s / (ms / 1e3),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   greedy_next_token=next_tok, logits_finite=True)
+        rec[f"{b}x{s}"] = mix
+        print(f"[10] prefill {b} x {s}: seconds a request {times} "
+              f"({'first untimed, ' if i == 0 else ''}median "
+              f"{ms:.2f} ms = {mix['tokens_per_s']:.0f} tokens/s), peak "
+              f"{mix['peak_gib']:.2f} GiB, greedy next token {next_tok}, "
+              f"logits finite")
+    launches = {k.name: k.launches for k in kernels}
+    print(f"[10] launches in the prefill phase: {launches}")
+    b, s, _ = mixes[0]
+    batch = next(lm_batches(cfg.vocab_size, b, s, seed=1))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    b7_s = sum(e.self_device_time_total for e in events
+               if "flash_attention_kernel" in e.key) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    print(f"[10] profiled prefill {b} x {s} (profiler on): wall {wall:.4f} "
+          f"s, device busy {busy:.4f} s = {busy / wall:.3f} of wall; B7 "
+          f"{b7_s:.4f} s = {b7_s / busy:.3f} of device time")
+    for e in top:
+        print(f"[10]   {e.self_device_time_total / 1e3:10.3f} ms "
+              f"x{e.count:<5d} {e.key[:90]}")
+    rec["profile"] = dict(wall_s=wall, device_busy_s=busy, b7_s=b7_s,
+                          b7_share=b7_s / busy,
+                          top_ms=[[e.key[:90], e.self_device_time_total / 1e3,
+                                   e.count] for e in top])
+    del params
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32", window=256)
+    model = lm.TransformerLM.random(
+        small, torch.Generator(device=dev).manual_seed(2))
+    toks = next(lm_batches(cfg.vocab_size, 1, check_tokens, seed=2))
+    on_card = model.forward(toks)
+    on_cpu = model.to("cpu").forward(toks)
+    scale = float(on_cpu.abs().max())
+    err = float((on_card.cpu() - on_cpu).abs().max())
+    print(f"[10] 2 layers at full width, float32, window 256, 1 x "
+          f"{check_tokens} tokens: card vs CPU max |diff| {err!r}, max "
+          f"|logit| {scale!r} (limit 1e-4 of it)")
+    assert err <= 1e-4 * scale, (err, scale)
+    rec["card_vs_cpu"] = dict(max_abs_diff=err, max_abs_logit=scale)
+    return rec, launches
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import sketchboost_tabular as paper
     from repro_torch.core import losses as L
     from repro_torch.core.boosting import SketchBoost
     from repro_torch.kernels import _build, hist_kernel, predict_kernel
-    from repro_torch.kernels import (predict_quant_kernel, shap_kernel,
-                                     split_kernel)
+    from repro_torch.kernels import (flash_attention, predict_quant_kernel,
+                                     shap_kernel, split_kernel)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -855,8 +1081,9 @@ def main() -> int:
     b6 = shap_kernel.KERNEL
     b4 = hist_kernel.DIRECT_KERNEL
     b2w = split_kernel.WIDE_KERNEL
+    b7 = flash_attention.KERNEL
     t0 = time.perf_counter()
-    reports = _build.build(kernels + b5 + [b6, b4, b2w])
+    reports = _build.build(kernels + b5 + [b6, b4, b2w, b7])
     print(f"[2] built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -873,6 +1100,7 @@ def main() -> int:
     rows.append(check_shap(torch, gen, dev))
     rows.append(check_hist_direct(torch, gen, dev))
     rows.append(check_split_wide(torch, gen, dev))
+    rows.append(check_flash(torch, gen, dev))
     for r in rows:
         print(f"[3] {r['name']}: max_abs_err {r['max_abs_err']!r} kernel "
               f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
@@ -889,7 +1117,7 @@ def main() -> int:
     Xev, yev = X[N_TRAIN:N_TRAIN + N_EVAL], y[N_TRAIN:N_TRAIN + N_EVAL]
     Xte = X[N_TRAIN + N_EVAL:]
     cfg = paper.CONFIG
-    for k in kernels + b5 + [b6, b4, b2w]:
+    for k in kernels + b5 + [b6, b4, b2w, b7]:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -949,6 +1177,14 @@ def main() -> int:
     del servers
     engines, direct_launches, full_launches = engines_phase(
         torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b4, b2w])
+    # Phase 10 runs alone on the card: free the tabular phases' memory.
+    del X, y, Xtr, ytr, Xev, yev, Xte, model, raw, pf_cpu, codes_te, Ytr
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill, prefill_launches = prefill_phase(
+        torch, dev, b7, kernels + b5 + [b6, b4, b2w, b7])
+    assert prefill_launches[b7.name] == 24 * 6, prefill_launches
+    assert sum(prefill_launches.values()) == 24 * 6, prefill_launches
     for r in rows:
         if r["name"] in launches:            # B1-B3: the fit -> predict path
             r["launches"], r["path"] = launches[r["name"]], "fit+predict"
@@ -960,6 +1196,8 @@ def main() -> int:
         elif r["name"] == b2w.name:          # B2-wide: SketchBoost Full's fit
             r["launches"] = full_launches[r["name"]]
             r["path"] = "fit (sketch_method='none', d=512)"
+        elif r["name"] == b7.name:           # B7: the LM prefill
+            r["launches"], r["path"] = prefill_launches[r["name"]], "lm prefill"
         else:                                # B5: the serving path
             r["launches"], r["path"] = serve_launches[r["name"]], "serve"
     rows[2]["serve_launches"] = serve_launches[rows[2]["name"]]
@@ -967,7 +1205,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "fit_s": fit_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
-                      "engines_and_sketches": engines, "card": smi}))
+                      "engines_and_sketches": engines, "prefill": prefill,
+                      "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
-"""Synthetic tabular data (paper App. B.7 protocol, Guyon 2003 scheme).
+"""Synthetic data: tabular (paper App. B.7 protocol, Guyon 2003 scheme)
+and an LM token stream.
 
 A copy of the numpy generators of the JAX package's ``data/pipeline.py``,
 so that the two packages see identical inputs from one seed.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -47,3 +48,27 @@ def train_test_split(X, y, test_frac: float = 0.2, seed: int = 0):
     cut = int(len(X) * (1 - test_frac))
     tr, te = idx[:cut], idx[cut:]
     return X[tr], X[te], y[tr], y[te]
+
+
+def lm_batches(vocab_size: int, batch: int, seq: int, *, seed: int = 0,
+               embed_dim: int = 0, image_tokens: int = 0,
+               d_model: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite Zipf-token batches (plus stub embeddings for audio/vlm)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1)
+    p = 1.0 / ranks
+    p /= p.sum()
+    while True:
+        toks = rng.choice(vocab_size, size=(batch, seq + 1), p=p)
+        out: Dict[str, np.ndarray] = {
+            "labels": toks[:, 1:].astype(np.int32),
+        }
+        if embed_dim:
+            out["inputs"] = rng.normal(
+                size=(batch, seq, embed_dim)).astype(np.float32)
+        else:
+            out["inputs"] = toks[:, :-1].astype(np.int32)
+        if image_tokens:
+            out["image_embeds"] = rng.normal(
+                size=(batch, image_tokens, d_model)).astype(np.float32)
+        yield out

@@ -2,13 +2,13 @@
 
 The JAX package's fitted objects are given as numpy arrays (``np.asarray``
 of each field), so this module needs nothing of JAX.  Both packages then
-compute on the same forest, quantizer, tree or path pack.  Every helper
-places its tensors by the device rule: CUDA unless ``device`` names another
-device.
+compute on the same forest, quantizer, tree, path pack or LM parameters.
+Every helper places its tensors by the device rule: CUDA unless ``device``
+names another device.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -18,6 +18,8 @@ from repro_torch.core.forest import PackedForest
 from repro_torch.core.quantize import QuantizedForest, Quantizer
 from repro_torch.core.tree import Tree
 from repro_torch.explain.paths import PathPack
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import check_family, unstack
 
 _INT_FIELDS = ("feat", "thr", "left", "right", "out_col", "node_count")
 _FLOAT_FIELDS = ("leaf", "base", "cover", "gain")
@@ -99,3 +101,34 @@ def path_pack_from_arrays(arrays: Mapping[str, np.ndarray], *,
     return PathPack(**{k: torch.as_tensor(np.array(arrays[k]), dtype=dtype,
                                           device=device)
                        for k, dtype in dtypes.items()})
+
+
+def _array_to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a)
+    if a.dtype == np.uint16:                   # bfloat16 as its bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    if a.dtype != np.float32:
+        raise ValueError(f"LM parameters are float32, or bfloat16 as uint16 "
+                         f"bits, got {a.dtype}")
+    return torch.from_numpy(a).to(device)
+
+
+def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
+                          device=None):
+    """The port's LM parameters (`models.lm`) from the reference's tree:
+    nested dicts of numpy arrays as ``lm.init`` lays them out, bfloat16
+    leaves given as their ``uint16`` bit view (``np.asarray(a).view(
+    np.uint16)``).  The stacked ``blocks`` subtree is unstacked into one
+    dict per layer."""
+    check_family(cfg)
+    device = resolve_device(device)
+
+    def convert(t):
+        if isinstance(t, Mapping):
+            return {k: convert(v) for k, v in t.items()}
+        return _array_to_tensor(t, device)
+
+    params = convert(tree)
+    params["blocks"] = unstack(params["blocks"], cfg.n_layers)
+    return params

@@ -7,7 +7,9 @@ kernels are held to on the card.  Counterparts in the JAX package's
 the tile->node ``segment_sum`` of ``ops.histogram_splits_level``;
 `histogram_ref` (the direct engine), `split_scan_ref`, `node_walk_ref`,
 `forest_apply_ref`, `forest_apply_quant_ref`, the TreeSHAP helpers,
-`tree_shap_ref` and `tree_shap_interventional_ref` are their namesakes.
+`tree_shap_ref` and `tree_shap_interventional_ref` are their namesakes;
+`flash_attention_ref` is B7's function (``_flash_kernel``, checked there
+against ``mha_ref``).
 """
 from __future__ import annotations
 
@@ -322,3 +324,49 @@ def tree_shap_interventional_ref(phi: torch.Tensor, codes: torch.Tensor,
         _scatter_contribs(phi, contrib.sum(1) / n_bg, slot_feat[t], leaf[t],
                           col, lr_t)
     return phi
+
+
+NEG_INF = -1e30         # B7's masked score
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window=None,
+                        chunk: int = 512) -> torch.Tensor:
+    """Plain B7: GQA attention of q (b, hq, sq, dh) over k, v (b, hkv, sk,
+    dh), in float32, returned in q's dtype.
+
+    Query head h reads kv head ``h // (hq // hkv)``.  Scores are ``(q . k)
+    * (1 / sqrt(dh))``; a score is ``-1e30`` unless the key lies before
+    ``sk``, at or before the query (``causal``) and less than ``window``
+    behind it.  Each query row's softmax takes its max, ``p = exp(s - m)``,
+    ``l = sum p`` and ``(p @ v) / max(l, 1e-30)``, as ``_flash_kernel``
+    (flash_attention.py:28-70) does tile by tile.  Query rows go in chunks
+    of ``chunk``, each against the band of keys its rows can see (every
+    other key's probability is exactly 0), so a 32k prefill fits on the
+    card.  Every query row must see a key."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, hkv, group, sq, dh)
+    out = torch.empty((b, hkv, group, sq, dh), dtype=q.dtype, device=q.device)
+    for q0 in range(0, sq, chunk):
+        q1 = min(q0 + chunk, sq)
+        lo = 0 if window is None else max(0, q0 - window + 1)
+        hi = min(sk, q1) if causal else sk
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg[:, :, :, q0:q1].float(),
+                         k[:, :, lo:hi].float()) * scale
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(lo, hi, device=q.device)[None, :]
+        mask = torch.ones((q1 - q0, hi - lo), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= qpos - kpos < window
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("bhgqk,bhkd->bhgqd", p, v[:, :, lo:hi].float())
+        out[:, :, :, q0:q1] = (o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+                               ).to(q.dtype)
+    return out.reshape(b, hq, sq, dh)

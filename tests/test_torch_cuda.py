@@ -13,9 +13,9 @@ from repro_torch.core import forest as FO
 from repro_torch.core import histogram as H
 from repro_torch.core import quantize as Q
 from repro_torch.core.tree import heap_to_node_arrays
-from repro_torch.kernels import (hist_kernel, predict_kernel,
-                                 predict_quant_kernel, ref, shap_kernel,
-                                 split_kernel)
+from repro_torch.kernels import (flash_attention, hist_kernel,
+                                 predict_kernel, predict_quant_kernel, ref,
+                                 shap_kernel, split_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -462,3 +462,85 @@ def test_fit_on_card_matches_cpu(dev, cfg):
     pred = [f.predict_raw(X[2400:]).cpu() for f in fits]
     assert float((pred[0] - pred[1]).abs().max()) <= 1e-4
     assert fits[0].best_round == fits[1].best_round
+
+
+# B7: (group, causal, window, s, dh), the shape cases of the CPU tests
+# (tests/test_torch_lm.py) and the prefill layer's head width at 1,000 rows.
+FLASH_CASES = [
+    (1, True, None, 64, 32), (1, False, 50, 200, 120),
+    (1, True, 16, 257, 256), (2, False, None, 64, 120),
+    (2, True, 50, 200, 32), (2, True, None, 257, 120),
+    (4, True, 16, 64, 120), (4, False, 16, 200, 256),
+    (4, False, None, 257, 32), (8, True, 50, 64, 256),
+    (8, False, None, 200, 32), (8, True, 16, 257, 120),
+    (4, True, 256, 1000, 120), (4, False, None, 1000, 120),
+]
+
+
+def bf16_ulps(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element's own magnitude (0 where it is 0)."""
+    m, e = torch.frexp(x.float())
+    return torch.where(m == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,causal,window,s,dh", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(dev, dtype, group, causal,
+                                              window, s, dh):
+    """B7 against its plain version on the card: float32 within atol 1e-5
+    (the order of the sums differs), bfloat16 each output within one bf16
+    ulp of its own plain value plus that 1e-5 (products of bf16 inputs are
+    exact in float32; only the sums' order and the last rounding differ)."""
+    hkv = 8 // group if group < 8 else 1
+    g = torch.Generator(device=dev).manual_seed(s * dh + group)
+    q, k, v = (torch.randn((2, h, s, dh), generator=g, device=dev).to(dtype)
+               for h in (hkv * group, hkv, hkv))
+    before = flash_attention.KERNEL.launches
+    out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    assert flash_attention.KERNEL.launches == before + 1
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    limit = 1e-5 if dtype == torch.float32 else bf16_ulps(plain) + 1e-5
+    diff = (out.float() - plain.float()).abs()
+    assert bool((diff <= limit).all()), float((diff / limit).max())
+
+
+def test_flash_attention_wrapper_checks_inputs(dev):
+    q = torch.randn((1, 4, 16, 32), device=dev)
+    k = torch.randn((1, 2, 16, 32), device=dev)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        flash_attention.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, k)
+    before = flash_attention.KERNEL.launches
+    flash_attention.flash_attention(q, k, k, causal=False, window=3)
+    assert flash_attention.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "granite-34b",
+                                  "musicgen-medium"])
+def test_lm_forward_on_card_matches_cpu(dev, arch):
+    """A smoke-config model in float32 on the card against the same model
+    on the CPU (plain B7): logits within atol 1e-4 + rtol 1e-4, one B7
+    launch a layer."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                              n_kv_heads=2)
+    model = lm.TransformerLM.random(cfg, torch.Generator().manual_seed(1),
+                                    device="cpu")
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(2, 80, cfg.d_model)).astype(np.float32)
+         if cfg.embed_inputs else
+         rng.integers(0, cfg.vocab_size, (2, 80)).astype(np.int32))
+    want = model.forward({"inputs": x})
+    before = flash_attention.KERNEL.launches
+    out = model.to(dev).forward({"inputs": x})
+    assert flash_attention.KERNEL.launches == before + cfg.n_layers
+    torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=1e-4)
