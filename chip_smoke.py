@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port of SketchBoost, and its dense-LM prefill, on one
-CUDA card, end to end.
+"""Run the PyTorch port of SketchBoost, and its dense-LM prefill and
+decode, on one CUDA card, end to end.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, in parallel; B3 and both B5 entry points share
      ``predict.cu``; B4 is ``hist_direct.cu``, B6 ``shap.cu``, B7
-     ``flash_attention.cu``) and time the build;
+     ``flash_attention.cu``, B8 ``decode_attention.cu``) and time the
+     build;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (B4 bitwise at level 5 of the paper's tree; B2's
      wide kernel at SketchBoost Full's level 5, C = 513; B5 also against B3
@@ -17,9 +18,13 @@ Phases (any failure exits non-zero; nothing is caught):
      columns; B7 at the prefill's layer, 1 x 32 heads over 8 x 32,768 x
      120 with a 4,096 window, in bf16 each output within one bf16 ulp of
      its own plain value plus 1e-5 and in float32 within 1e-5, and in
-     float32 without the causal mask at 1,000 rows), and time kernel, plain
-     version and, where one PyTorch call computes the same function, that
-     call;
+     float32 without the causal mask at 1,000 rows; B8 at decode_32k's
+     layer, q 128 x 32 x 120 against a full 4,096-slot ring 128 x 4,096 x 8
+     x 120 in bf16 within one bf16 ulp plus 1e-5, float32 q against it
+     within 1e-5, a ragged 8,192-slot cache with a 4,096 window, and
+     long_500k's batch-1 layer through the split path), and time kernel,
+     plain version and, where one PyTorch call computes the same function,
+     that call;
   4. fit the paper's configuration (``configs/sketchboost_tabular.py``) at
      full width, 2,097,152 rows x 100 features, d = 512, k = 5, depth 6,
      256 bins, all 100 rounds, with a 131,072-row eval set;
@@ -55,7 +60,21 @@ Phases (any failure exits non-zero; nothing is caught):
      share of device time); a 2-layer float32 copy with a 256-token window
      at 1 x 640 tokens on the card against the CPU, logits within 1e-4 of
      the largest;
- 11. print the kernel table as one JSON line, the card's line, and last
+ 11. the dense-LM decode (phase 10's memory freed first): h2o-danube-3-4b
+     at full width in bf16 through ``lm_serve.make_serve_step`` over caches
+     from ``lm.init_cache``: 8 prompts of 128 tokens from
+     ``lm_batches(seed=0)`` fed token by token, then 64 greedy tokens;
+     decode_32k (batch 128, ``max_seq_len`` 32,768: a 4,096-slot bf16 ring,
+     45 GiB, filled at random at length 32,767; 16 timed steps, peak
+     memory, one profiled step with B8's and the matmuls' shares); long_500k
+     (batch 1 at length 524,287; 16 timed steps); ms a step and tokens/s of
+     each, 24 B8 launches a step, finite logits; then a 2-layer float32 copy
+     with a 256-token window over 320 tokens (the ring wraps): decode vs
+     ``forward`` on the card and card vs CPU with a float32 cache, logits
+     within 1e-4 of the largest; with the default bf16 cache, the CPU
+     attending over the card's cache bits within 1e-4 of it, and card vs
+     CPU running free within 1e-3 of it;
+ 12. print the kernel table as one JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
@@ -64,7 +83,8 @@ minutes at this size).  Kernel launch counts are set to zero just before
 phase 4 and read just after phase 5 (the fit -> predict path), again just
 before and after phase 7 (the serving path), again around phase 8 (the
 explain path), again around each fit of phase 9 (the direct engine's
-B4, Full's B2-wide), and again around phase 10's prefill requests (B7).
+B4, Full's B2-wide), again around phase 10's prefill requests (B7), and
+again around phase 11's decode steps (B8).
 """
 from __future__ import annotations
 
@@ -548,6 +568,117 @@ def check_flash(torch, gen, dev):
         library_ms=lib_ms, library_max_abs_err=lib_err)
 
 
+def check_decode(torch, gen, dev, b=128, hq=32, hkv=8, s=4096, dh=120):
+    """B8 at decode_32k's layer: q (128, 32, 120) bf16 against a full ring
+    of 4,096 slots, (128, 4,096, 8, 120) bf16 in the cache's layout, window
+    4,096: each output within one bf16 ulp of its own plain value plus 1e-5,
+    and equal from run to run.  Also float32 q against the same bf16 cache
+    within 1e-5; a ragged 8,192-slot cache without a ring (window 4,096,
+    lengths drawn in [1, 8,192]) in bf16; and long_500k's layer, batch 1,
+    whose 8 (row, kv head) pairs take the split path.  Times the kernel,
+    the plain version and one SDPA call (GQA, boolean length mask, on
+    views of the cache)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref
+    window, bf = s, torch.bfloat16
+
+    def cache(b, s):
+        return [torch.randn((b, s, hkv, dh), generator=gen, device=dev,
+                            dtype=bf) for _ in "kv"]
+
+    def held(out, plain):
+        diff = (out.float() - plain.float()).abs()
+        worst = float((diff / (bf16_ulps(plain) + 1e-5)).max())
+        assert worst <= 1.0, (
+            f"B8 differs from plain by up to {worst!r} of one bf16 ulp of "
+            f"each output plus 1e-5 (max abs err {float(diff.max())!r})")
+        return float(diff.max()), worst
+
+    def n_bytes(b, lengths, win):
+        seen = int(torch.clamp(lengths, max=win).sum())
+        return 2 * 2 * seen * hkv * dh + 2 * 2 * b * hq * dh, seen
+
+    q32 = torch.randn((b, hq, dh), generator=gen, device=dev)
+    q = q32.to(bf)
+    k, v = cache(b, s)
+    full = torch.full((b,), s, dtype=torch.int32, device=dev)
+    out = DA.decode_attention(q, k, v, s, window=window)
+    again = DA.decode_attention(q, k, v, s, window=window)
+    plain = ref.decode_attention_ref(q, k, v, full, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "B8 is not deterministic run to run"
+    err, worst = held(out, plain)
+    o32 = DA.decode_attention(q32, k, v, s, window=window)
+    p32 = ref.decode_attention_ref(q32, k, v, full, window=window)
+    torch.cuda.synchronize()
+    err32 = float((o32 - p32).abs().max())
+    assert err32 <= 1e-5, f"B8 float32 q differs from plain by {err32!r}"
+    ms = cuda_ms(lambda: DA.decode_attention(q, k, v, s, window=window), 20)
+    plain_ms = cuda_ms(
+        lambda: ref.decode_attention_ref(q, k, v, full, window=window), 3)
+    # The library yardstick, used nowhere in the port: one SDPA call with
+    # GQA and a boolean length mask on (b, hq, 1, dh) q and (b, hkv, s, dh)
+    # views of the cache.
+    kpos = torch.arange(s, device=dev)[None, :]
+    mask = ((kpos < full[:, None]) & (full[:, None] - 1 - kpos < window)
+            )[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+            attn_mask=mask, enable_gqa=True)
+    lib_err = float((library()[:, :, 0].float() - plain.float()).abs().max())
+    lib_ms = cuda_ms(library, 5)
+    nb, seen = n_bytes(b, full, window)
+    b_ms, b_by = bound_ms(nb, 4 * dh * (hq // hkv) * hkv * seen)
+    del k, v, out, again, plain, o32, p32, mask
+
+    # Ragged, no ring: 8,192 slots, window 4,096.
+    k, v = cache(b, 2 * s)
+    lengths = torch.randint(1, 2 * s + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    out = DA.decode_attention(q, k, v, lengths, window=window)
+    plain = ref.decode_attention_ref(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    err_ragged, worst_ragged = held(out, plain)
+    ragged_ms = cuda_ms(
+        lambda: DA.decode_attention(q, k, v, lengths, window=window), 20)
+    ragged_bound, _ = bound_ms(n_bytes(b, lengths, window)[0], 0)
+    del k, v, out, plain
+
+    # long_500k's layer: batch 1, the same full ring.
+    k, v = cache(1, s)
+    q1 = q[:1].contiguous()
+    out = DA.decode_attention(q1, k, v, s, window=window)
+    again = DA.decode_attention(q1, k, v, s, window=window)
+    plain = ref.decode_attention_ref(q1, k, v, full[:1], window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "B8's split path is not deterministic"
+    err_long, worst_long = held(out, plain)
+    long_ms = cuda_ms(lambda: DA.decode_attention(q1, k, v, s, window=window),
+                      50)
+    long_bound, _ = bound_ms(n_bytes(1, full[:1], window)[0], 0)
+    splits = DA.splits_for(dev, hkv, s)
+    del k, v, out, again, plain
+    torch.cuda.empty_cache()
+    return dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:66",
+        max_abs_err=err, share_of_bf16_ulp_limit=worst,
+        f32_q_max_abs_err=err32, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, cache_bytes=nb,
+        library_ms=lib_ms, library_max_abs_err=lib_err,
+        ragged=dict(max_abs_err=err_ragged,
+                    share_of_bf16_ulp_limit=worst_ragged, ms=ragged_ms,
+                    bound_ms=ragged_bound),
+        long_500k=dict(max_abs_err=err_long,
+                       share_of_bf16_ulp_limit=worst_long, ms=long_ms,
+                       bound_ms=long_bound, splits=splits))
+
+
 def check_small_fit(torch):
     """The whole path at a small size: the CUDA fit against the CPU fit
     (plain versions), same data and injected sketches, predictions within
@@ -941,6 +1072,37 @@ def explain_phase(torch, model, dev, Xte, raw, pf_cpu, servers, kernels):
     return rec, launches
 
 
+def profile_step(torch, fn, kernel_key: str):
+    """Run ``fn()`` once under ``torch.profiler``: wall seconds, device
+    busy seconds, the device seconds of the kernels whose name holds
+    ``kernel_key`` and of the matmuls, and the top 12 kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    kernel_s = sum(e.self_device_time_total for e in events
+                   if kernel_key in e.key) / 1e6
+    mm_s = sum(e.self_device_time_total for e in events
+               if any(n in e.key.lower() for n in
+                      ("gemm", "gemv", "nvjet", "cutlass", "xmma"))) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    return dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+                kernels=sum(e.count for e in events),
+                kernel_s=kernel_s, kernel_share=kernel_s / busy,
+                matmul_s=mm_s,
+                matmul_share=mm_s / busy,
+                top_ms=[[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                        for e in top])
+
+
 def prefill_phase(torch, dev, b7, kernels, arch="h2o-danube-3-4b",
                   mixes=((1, 32_768, 4), (8, 2_048, 2)), check_tokens=640):
     """Phase 10: the dense-LM prefill at full width.  ``arch`` in bf16 from
@@ -954,8 +1116,6 @@ def prefill_phase(torch, dev, b7, kernels, arch="h2o-danube-3-4b",
     256-token window, ``check_tokens`` tokens, on the card and through the
     port's plain path on the CPU, logits within 1e-4 max|logit|."""
     import dataclasses
-
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import lm_batches
@@ -1009,30 +1169,16 @@ def prefill_phase(torch, dev, b7, kernels, arch="h2o-danube-3-4b",
     print(f"[10] launches in the prefill phase: {launches}")
     b, s, _ = mixes[0]
     batch = next(lm_batches(cfg.vocab_size, b, s, seed=1))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(params, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    b7_s = sum(e.self_device_time_total for e in events
-               if "flash_attention_kernel" in e.key) / 1e6
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    print(f"[10] profiled prefill {b} x {s} (profiler on): wall {wall:.4f} "
-          f"s, device busy {busy:.4f} s = {busy / wall:.3f} of wall; B7 "
-          f"{b7_s:.4f} s = {b7_s / busy:.3f} of device time")
-    for e in top:
-        print(f"[10]   {e.self_device_time_total / 1e3:10.3f} ms "
-              f"x{e.count:<5d} {e.key[:90]}")
-    rec["profile"] = dict(wall_s=wall, device_busy_s=busy, b7_s=b7_s,
-                          b7_share=b7_s / busy,
-                          top_ms=[[e.key[:90], e.self_device_time_total / 1e3,
-                                   e.count] for e in top])
+    prof = profile_step(torch, lambda: step(params, batch),
+                        "flash_attention_kernel")
+    print(f"[10] profiled prefill {b} x {s} (profiler on): wall "
+          f"{prof['wall_s']:.4f} s, device busy {prof['device_busy_s']:.4f} s"
+          f" = {prof['busy_share']:.3f} of wall; B7 {prof['kernel_s']:.4f} s"
+          f" = {prof['kernel_share']:.3f} of device time")
+    for key, t, count in prof["top_ms"]:
+        print(f"[10]   {t:10.3f} ms x{count:<5d} {key}")
+    rec["profile"] = dict(prof, b7_s=prof["kernel_s"],
+                          b7_share=prof["kernel_share"])
     del params
     torch.cuda.empty_cache()
 
@@ -1052,14 +1198,288 @@ def prefill_phase(torch, dev, b7, kernels, arch="h2o-danube-3-4b",
     return rec, launches
 
 
+def decode_phase(torch, dev, b8, kernels, arch="h2o-danube-3-4b",
+                 requests=(8, 128, 64),
+                 mixes=(("decode_32k", 128, 32_768),
+                        ("long_500k", 1, 524_288)), check_tokens=320):
+    """Phase 11: the dense-LM decode at full width through
+    ``lm_serve.make_serve_step`` over caches from ``lm.init_cache``.
+    ``arch`` in bf16 from a seeded ``torch.Generator`` on the card.  Every
+    kernel count is set to 0 just before (a) and read just after (c); B8
+    must launch once a layer a step.
+    (a) 8 prompts of 128 tokens from ``lm_batches(seed=0)`` fed through the
+        cache token by token, then 64 greedy tokens (ms a step, tokens/s),
+        and one more ``decode_step`` whose logits must be finite;
+    (b) decode_32k: batch 128, ``max_seq_len`` 32,768 (a 4,096-slot ring,
+        45 GiB of bf16 cache), filled at random at length 32,767; 1 untimed
+        and 16 timed steps (ms a step, tokens/s, peak memory), then one
+        profiled step (B8's and the matmuls' shares of device time, the
+        device's busy share);
+    (c) long_500k: batch 1 at length 524,287 over the same ring; 16 timed
+        steps (ms a token) and one profiled.
+    (d) A 2-layer float32 copy at full width with a 256-token window over
+        ``check_tokens`` tokens (the ring wraps): decode logits at every
+        position against ``forward``'s (B7) on the card, and against the
+        CPU's decode, with a float32 cache, each within 1e-4 of the largest
+        logit.  With the default bf16 cache: the CPU attending at every
+        position over the card's cache bits (each layer's new k and v
+        replaced by the card's before B8's plain version reads them) within
+        1e-4 of it, and card against CPU, each running free, within 1e-3 of
+        it.  A k or v whose float32 value differs in its last bits between
+        the card's and the CPU's matmuls can round to the neighbouring bf16
+        value (2^-8 relative) on one side only; the new values apart are
+        counted.  Also printed: the CPU starting each step from the card's
+        bits but attending over its own new k and v."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models import layers as Ly
+    from repro_torch.models import lm
+    from repro_torch.training.lm_serve import ServeConfig, make_serve_step
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init(cfg, gen)
+    torch.cuda.synchronize()
+    print(f"[11] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, window "
+          f"{cfg.window}; parameters in {cfg.dtype} made on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rec = {"arch": arch}
+    n_steps = 0
+
+    def timed(step, cache, tokens, n):
+        """n serve steps, each synchronised and timed; token i is
+        ``tokens[i]`` while there are any, then the step's own output."""
+        nonlocal n_steps
+        times, tok = [], None
+        for i in range(n):
+            before = b8.launches
+            tin = tokens[i] if i < len(tokens) else tok
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, cache = step(params, cache, tin)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            assert b8.launches - before == cfg.n_layers, b8.launches
+            n_steps += 1
+        return times, tok
+
+    def fill(b, s_max, length):
+        cache = lm.init_cache(cfg, b, s_max)
+        for t in (cache["layers"]["k"], cache["layers"]["v"]):
+            for i in range(cfg.n_layers):
+                t[i].normal_(generator=gen)
+        cache["length"] = length
+        return cache
+
+    for k in kernels:
+        k.launches = 0
+    # (a) requests: prompts through the cache, then greedy tokens.
+    b, n_prompt, n_new = requests
+    prompt = torch.as_tensor(next(lm_batches(cfg.vocab_size, b, n_prompt,
+                                             seed=0))["inputs"], device=dev)
+    scfg = ServeConfig(max_seq_len=n_prompt + n_new + 1)
+    cache = lm.init_cache(cfg, b, scfg.max_seq_len)
+    times, tok = timed(make_serve_step(cfg, scfg), cache, list(prompt.t()),
+                       n_prompt + n_new)
+    logits, _ = lm.decode_step(params, cfg, cache, tok)
+    n_steps += 1
+    assert logits.shape == (b, cfg.padded_vocab), logits.shape
+    assert bool(logits.isfinite().all()), "decode logits not finite"
+    ms = 1e3 * statistics.median(times[1:])
+    rec["requests"] = dict(
+        batch=b, prompt_tokens=n_prompt, new_tokens=n_new,
+        ms_per_step=ms, ms_per_step_prompt=1e3 * statistics.median(
+            times[1:n_prompt]),
+        ms_per_step_generate=1e3 * statistics.median(times[n_prompt:]),
+        tokens_per_s=b / (ms / 1e3), last_token=tok.tolist(),
+        logits_finite=True)
+    print(f"[11] requests {b} x ({n_prompt} prompt + {n_new} greedy) tokens:"
+          f" median {ms:.3f} ms a step = {b / (ms / 1e3):.0f} tokens/s "
+          f"(prompt {rec['requests']['ms_per_step_prompt']:.3f}, generate "
+          f"{rec['requests']['ms_per_step_generate']:.3f} ms), last tokens "
+          f"{tok.tolist()}, logits finite")
+    del cache, logits
+
+    # (b) decode_32k and (c) long_500k over a random 4,096-slot ring.
+    for name, b, s_max in mixes:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scfg = ServeConfig(max_seq_len=s_max)
+        step = make_serve_step(cfg, scfg)
+        cache = fill(b, scfg.max_seq_len, s_max - 1)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        cache_gib = 2 * cache["layers"]["k"].numel() * 2 / 2**30
+        toks = [torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                              device=dev, dtype=torch.int32)]
+        times, tok = timed(step, cache, toks, 17)
+        ms = 1e3 * statistics.median(times[1:])
+        prof = profile_step(torch, lambda: step(params, cache, tok),
+                            "decode_attention_kernel")
+        n_steps += 1
+        mix = dict(batch=b, max_seq_len=s_max,
+                   ring_slots=cache["layers"]["k"].shape[2],
+                   cache_gib=cache_gib, fill_s=fill_s, step_s=times,
+                   ms_per_step=ms, tokens_per_s=b / (ms / 1e3),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   profile=prof)
+        rec[name] = mix
+        print(f"[11] {name}: batch {b} at length {s_max - 1}, "
+              f"{mix['ring_slots']}-slot ring ({cache_gib:.2f} GiB, filled in"
+              f" {fill_s:.2f} s); seconds a step {times} (first untimed, "
+              f"median {ms:.3f} ms = {mix['tokens_per_s']:.0f} tokens/s), "
+              f"peak {mix['peak_gib']:.2f} GiB")
+        print(f"[11] {name} profiled step (profiler on): wall "
+              f"{prof['wall_s'] * 1e3:.3f} ms, device busy "
+              f"{prof['device_busy_s'] * 1e3:.3f} ms = "
+              f"{prof['busy_share']:.3f} of wall, {prof['kernels']} kernels;"
+              f" B8 {prof['kernel_share']:.3f}"
+              f" and matmuls {prof['matmul_share']:.3f} of device time")
+        for key, t, count in prof["top_ms"]:
+            print(f"[11]   {t:10.3f} ms x{count:<5d} {key}")
+        del cache
+    launches = {k.name: k.launches for k in kernels}
+    print(f"[11] launches in the decode phase ({n_steps} steps): {launches}")
+    assert launches[b8.name] == cfg.n_layers * n_steps, launches
+    assert sum(launches.values()) == launches[b8.name], launches
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) a 2-layer float32 copy: decode vs forward, card vs CPU.
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32", window=256)
+    model = lm.TransformerLM.random(
+        small, torch.Generator(device=dev).manual_seed(2))
+    toks = torch.as_tensor(next(lm_batches(cfg.vocab_size, 1, check_tokens,
+                                           seed=2))["inputs"])
+
+    def decode_all(model, dtype=torch.bfloat16, forced=None):
+        """Logits at every position, and each step's new k and v (L, 1,
+        hkv, dh each) copied to the CPU.  With ``forced`` (another run's
+        new k and v), each step's own write is replaced by that run's after
+        the step, so every step starts from that run's cache bits."""
+        cache = model.init_cache(1, check_tokens, dtype=dtype)
+        ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+        dev_t = toks.to(ks.device)
+        out, wrote = [], []
+        for i in range(check_tokens):
+            out.append(model.decode_step(cache, dev_t[:, i])[0][0])
+            slot = i % ks.shape[2]
+            wrote.append((ks[:, :, slot].to("cpu", copy=True),
+                          vs[:, :, slot].to("cpu", copy=True)))
+            if forced is not None:
+                ks[:, :, slot], vs[:, :, slot] = forced[i]
+        return torch.stack(out), wrote
+
+    def on_card_bits(model, card_w):
+        """The CPU's bf16-cache decode with each layer's new k and v
+        replaced by the card's (``card_w``) before B8's plain version reads
+        them, so that every step attends over the card's cache bits, its
+        own token's included.  Returns the logits and the CPU's own new k
+        and v, as `decode_all` does."""
+        real, calls, own = Ly.decode_attention, [0], []
+
+        def attend(q, k, v, lengths, *, window=None):
+            i, j = divmod(calls[0], small.n_layers)
+            calls[0] += 1
+            slot = i % k.shape[1]
+            if j == 0:
+                own.append(([], []))
+            own[i][0].append(k[:, slot].clone())
+            own[i][1].append(v[:, slot].clone())
+            k[:, slot], v[:, slot] = card_w[i][0][j], card_w[i][1][j]
+            return real(q, k, v, lengths, window=window)
+
+        Ly.decode_attention = attend
+        try:
+            logits, _ = decode_all(model)
+        finally:
+            Ly.decode_attention = real
+        return logits, [(torch.stack(a), torch.stack(b)) for a, b in own]
+
+    def apart(w1, w2):
+        """Over every step's new k and v: the values that differ, the share
+        of those one bf16 ulp apart (the bits mapped to an order in which
+        neighbouring values differ by 1), the largest gap and the largest
+        value."""
+        def ordered(t):
+            i = t.view(torch.int16).to(torch.int32)
+            return torch.where(i < 0, -(i & 0x7FFF), i)
+        pairs = [(a, b) for x, y in zip(w1, w2) for a, b in zip(x, y)]
+        ulps = torch.cat([(ordered(a) - ordered(b)).abs().flatten()
+                          for a, b in pairs])
+        n = int((ulps > 0).sum())
+        return dict(values=n,
+                    one_ulp_share=int((ulps == 1).sum()) / max(n, 1),
+                    max_gap=max(float((a.float() - b.float()).abs().max())
+                                for a, b in pairs),
+                    max_abs=max(float(b.float().abs().max())
+                                for _, b in pairs))
+
+    fwd = model.forward({"inputs": toks})[0]
+    card32, _ = decode_all(model, torch.float32)
+    scale = float(fwd.abs().max())
+    err_fwd = float((card32 - fwd).abs().max())
+    card32 = card32.cpu()
+    card16, card_w = decode_all(model)
+    card16 = card16.cpu()
+    model.to("cpu")
+    cpu32, _ = decode_all(model, torch.float32)
+    cpu16, cpu_w = decode_all(model)
+    forced16, _ = decode_all(model, forced=card_w)
+    subst16, subst_w = on_card_bits(model, card_w)
+    scale_cpu = float(cpu32.abs().max())
+    err_cpu32 = float((card32 - cpu32).abs().max())
+    err_cpu16 = float((card16 - cpu16).abs().max())
+    err_forced = float((card16 - forced16).abs().max())
+    err_subst = float((card16 - subst16).abs().max())
+    at = int((card16 - cpu16).abs().amax(-1).argmax())
+    free, subst = apart(cpu_w, card_w), apart(subst_w, card_w)
+    n_kv = 2 * check_tokens * card_w[0][0].numel()
+    print(f"[11] 2 layers at full width, float32, window 256, 1 x "
+          f"{check_tokens} tokens, max |logit| {scale!r}: decode vs forward "
+          f"on the card (float32 cache) max |diff| {err_fwd!r}; card vs CPU "
+          f"max |diff| {err_cpu32!r} with a float32 cache, {err_subst!r} "
+          f"with the bf16 cache and the CPU attending over the card's cache "
+          f"bits, its own token's included (limits 1e-4 of the largest "
+          f"logit); {err_cpu16!r} with the bf16 cache, each running free, "
+          f"largest at position {at} (limit 1e-3 of it); {err_forced!r} with "
+          f"the CPU starting each step from the card's cache bits but "
+          f"writing its own (no limit)")
+    print(f"[11] bf16 cache, of {n_kv} new k and v values: running free, "
+          f"{free['values']} differ between card and CPU; attending over "
+          f"the card's bits, the CPU's own differ in {subst['values']}, "
+          f"{subst['one_ulp_share']:.4f} of them one bf16 ulp apart, the "
+          f"largest gap {subst['max_gap']!r} against values up to "
+          f"{subst['max_abs']!r}")
+    assert err_fwd <= 1e-4 * scale, (err_fwd, scale)
+    assert err_cpu32 <= 1e-4 * scale_cpu, (err_cpu32, scale_cpu)
+    assert err_subst <= 1e-4 * scale_cpu, (err_subst, scale_cpu)
+    assert err_cpu16 <= 1e-3 * scale_cpu, (err_cpu16, scale_cpu)
+    rec["checks"] = dict(max_abs_logit=scale, decode_vs_forward=err_fwd,
+                         card_vs_cpu_f32_cache=err_cpu32,
+                         card_vs_cpu_bf16_cache=err_cpu16,
+                         card_vs_cpu_bf16_cache_position=at,
+                         card_vs_cpu_bf16_cache_on_card_bits=err_subst,
+                         card_vs_cpu_bf16_cache_from_card_bits=err_forced,
+                         bf16_kv_values=n_kv, bf16_kv_apart_free=free,
+                         bf16_kv_apart_on_card_bits=subst)
+    return rec, launches
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import sketchboost_tabular as paper
     from repro_torch.core import losses as L
     from repro_torch.core.boosting import SketchBoost
     from repro_torch.kernels import _build, hist_kernel, predict_kernel
-    from repro_torch.kernels import (flash_attention, predict_quant_kernel,
-                                     shap_kernel, split_kernel)
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     predict_quant_kernel, shap_kernel,
+                                     split_kernel)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1082,8 +1502,10 @@ def main() -> int:
     b4 = hist_kernel.DIRECT_KERNEL
     b2w = split_kernel.WIDE_KERNEL
     b7 = flash_attention.KERNEL
+    b8 = decode_attention.KERNEL
+    every = kernels + b5 + [b6, b4, b2w, b7, b8]
     t0 = time.perf_counter()
-    reports = _build.build(kernels + b5 + [b6, b4, b2w, b7])
+    reports = _build.build(every)
     print(f"[2] built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -1101,6 +1523,7 @@ def main() -> int:
     rows.append(check_hist_direct(torch, gen, dev))
     rows.append(check_split_wide(torch, gen, dev))
     rows.append(check_flash(torch, gen, dev))
+    rows.append(check_decode(torch, gen, dev))
     for r in rows:
         print(f"[3] {r['name']}: max_abs_err {r['max_abs_err']!r} kernel "
               f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
@@ -1117,7 +1540,7 @@ def main() -> int:
     Xev, yev = X[N_TRAIN:N_TRAIN + N_EVAL], y[N_TRAIN:N_TRAIN + N_EVAL]
     Xte = X[N_TRAIN + N_EVAL:]
     cfg = paper.CONFIG
-    for k in kernels + b5 + [b6, b4, b2w, b7]:
+    for k in every:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1181,10 +1604,13 @@ def main() -> int:
     del X, y, Xtr, ytr, Xev, yev, Xte, model, raw, pf_cpu, codes_te, Ytr
     gc.collect()
     torch.cuda.empty_cache()
-    prefill, prefill_launches = prefill_phase(
-        torch, dev, b7, kernels + b5 + [b6, b4, b2w, b7])
+    prefill, prefill_launches = prefill_phase(torch, dev, b7, every)
     assert prefill_launches[b7.name] == 24 * 6, prefill_launches
     assert sum(prefill_launches.values()) == 24 * 6, prefill_launches
+    # Phase 11 runs alone on the card too: free phase 10's memory.
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode, decode_launches = decode_phase(torch, dev, b8, every)
     for r in rows:
         if r["name"] in launches:            # B1-B3: the fit -> predict path
             r["launches"], r["path"] = launches[r["name"]], "fit+predict"
@@ -1198,6 +1624,8 @@ def main() -> int:
             r["path"] = "fit (sketch_method='none', d=512)"
         elif r["name"] == b7.name:           # B7: the LM prefill
             r["launches"], r["path"] = prefill_launches[r["name"]], "lm prefill"
+        elif r["name"] == b8.name:           # B8: the LM decode
+            r["launches"], r["path"] = decode_launches[r["name"]], "lm decode"
         else:                                # B5: the serving path
             r["launches"], r["path"] = serve_launches[r["name"]], "serve"
     rows[2]["serve_launches"] = serve_launches[rows[2]["name"]]
@@ -1206,7 +1634,7 @@ def main() -> int:
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
                       "engines_and_sketches": engines, "prefill": prefill,
-                      "card": smi}))
+                      "decode": decode, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

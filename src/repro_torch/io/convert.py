@@ -2,7 +2,8 @@
 
 The JAX package's fitted objects are given as numpy arrays (``np.asarray``
 of each field), so this module needs nothing of JAX.  Both packages then
-compute on the same forest, quantizer, tree, path pack or LM parameters.
+compute on the same forest, quantizer, tree, path pack, LM parameters or
+LM KV cache.
 Every helper places its tensors by the device rule: CUDA unless ``device``
 names another device.
 """
@@ -109,8 +110,8 @@ def _array_to_tensor(a: np.ndarray, device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
             device)
     if a.dtype != np.float32:
-        raise ValueError(f"LM parameters are float32, or bfloat16 as uint16 "
-                         f"bits, got {a.dtype}")
+        raise ValueError(f"LM parameters and caches are float32, or bfloat16 "
+                         f"as uint16 bits, got {a.dtype}")
     return torch.from_numpy(a).to(device)
 
 
@@ -132,3 +133,45 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
     params = convert(tree)
     params["blocks"] = unstack(params["blocks"], cfg.n_layers)
     return params
+
+
+def lm_cache_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
+                         device=None):
+    """The port's KV cache (`models.lm.init_cache`) from the reference's:
+    ``{"layers": {"k", "v", "length"}}`` as numpy arrays, k and v (L, b,
+    s_alloc, hkv, dh) in float32 or as the ``uint16`` bits of bfloat16,
+    ``length`` (L,).  The reference's per-layer lengths must all be equal;
+    the port keeps one host int."""
+    check_family(cfg)
+    device = resolve_device(device)
+    layers = tree["layers"]
+    lengths = np.asarray(layers["length"]).reshape(-1)
+    if lengths.shape != (cfg.n_layers,) or (lengths != lengths[0]).any():
+        raise ValueError(f"the cache must hold one length a layer, all "
+                         f"equal, for {cfg.n_layers} layers; got "
+                         f"{lengths.tolist()}")
+    k = _array_to_tensor(layers["k"], device)
+    v = _array_to_tensor(layers["v"], device)
+    want = (cfg.n_layers, k.shape[1], k.shape[2], cfg.n_kv_heads,
+            cfg.head_dim_)
+    if tuple(k.shape) != want or v.shape != k.shape or v.dtype != k.dtype:
+        raise ValueError(f"k and v must both be {want}, got "
+                         f"{tuple(k.shape)} {k.dtype} and {tuple(v.shape)} "
+                         f"{v.dtype}")
+    return {"layers": {"k": k, "v": v}, "length": int(lengths[0])}
+
+
+def lm_cache_to_arrays(cache) -> dict:
+    """The reference's cache layout from the port's, as numpy arrays
+    (bfloat16 as its ``uint16`` bits, ``length`` repeated per layer as
+    int32): the inverse of `lm_cache_from_arrays`."""
+    def arr(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    k, v = cache["layers"]["k"], cache["layers"]["v"]
+    return {"layers": {
+        "k": arr(k), "v": arr(v),
+        "length": np.full((k.shape[0],), int(cache["length"]), np.int32)}}

@@ -9,7 +9,9 @@ the tile->node ``segment_sum`` of ``ops.histogram_splits_level``;
 `forest_apply_ref`, `forest_apply_quant_ref`, the TreeSHAP helpers,
 `tree_shap_ref` and `tree_shap_interventional_ref` are their namesakes;
 `flash_attention_ref` is B7's function (``_flash_kernel``, checked there
-against ``mha_ref``).
+against ``mha_ref``); `decode_attention_ref` is B8's (``_decode_kernel``,
+checked there against ``decode_attention_ref``), in the cache's own
+``(b, s, hkv, dh)`` layout.
 """
 from __future__ import annotations
 
@@ -326,7 +328,7 @@ def tree_shap_interventional_ref(phi: torch.Tensor, codes: torch.Tensor,
     return phi
 
 
-NEG_INF = -1e30         # B7's masked score
+NEG_INF = -1e30         # B7's and B8's masked score
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -370,3 +372,40 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out[:, :, :, q0:q1] = (o / p.sum(-1, keepdim=True).clamp_min(1e-30)
                                ).to(q.dtype)
     return out.reshape(b, hq, sq, dh)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor, *, window=None) -> torch.Tensor:
+    """Plain B8: one query token per sequence against a KV cache.
+
+    q is (b, hq, dh); k and v are (b, s, hkv, dh), the cache's layout;
+    ``lengths`` (b,) int holds each row's valid keys (ragged allowed).
+    Query head h reads kv head ``h // (hq // hkv)``.  In float32: scores
+    ``(q . k) * (1 / sqrt(dh))``, ``-1e30`` unless ``kpos < length`` and,
+    with a window, ``length - 1 - kpos < window``; ``p = exp(s - m)`` and
+    ``(p @ v) / max(sum p, 1e-30)``, as ``_decode_kernel``
+    (decode_attention.py:25-61) does tile by tile; returned in q's dtype.
+    Batch rows go in chunks that keep the float32 copy of their cache near
+    256 MiB."""
+    b, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(dh)
+    kpos = torch.arange(s, device=q.device)[None, :]
+    ln = lengths.to(device=q.device, dtype=torch.long)[:, None]
+    valid = kpos < ln
+    if window is not None:
+        valid &= (ln - 1 - kpos) < window
+    qg = q.reshape(b, hkv, group, dh)
+    out = torch.empty((b, hkv, group, dh), dtype=q.dtype, device=q.device)
+    rows = max(1, (1 << 26) // max(1, s * hkv * dh))
+    for b0 in range(0, b, rows):
+        b1 = min(b0 + rows, b)
+        sc = torch.einsum("bhgd,bshd->bhgs", qg[b0:b1].float(),
+                          k[b0:b1].float()) * scale
+        sc = torch.where(valid[b0:b1, None, None, :], sc, NEG_INF)
+        p = torch.exp(sc - sc.amax(-1, keepdim=True))
+        o = torch.einsum("bhgs,bshd->bhgd", p, v[b0:b1].float())
+        out[b0:b1] = (o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+                      ).to(q.dtype)
+    return out.reshape(b, hq, dh)

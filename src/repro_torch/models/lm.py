@@ -1,4 +1,4 @@
-"""Decoder-only LM: parameters, forward and prefill.
+"""Decoder-only LM: parameters, forward, prefill and one-token decode.
 
 The port of the JAX package's ``models/lm.py`` for the families whose
 blocks are all ``_dense_block``: ``dense`` and ``audio`` (musicgen's
@@ -11,10 +11,19 @@ reference's).  `TransformerLM` holds such a tree as an ``nn.Module``.
 
 ``cfg.use_pallas`` is kept with the reference's default, so that configs
 compare equal, but nothing branches on it: every attention layer runs B7
-(`kernels.flash_attention`), whose device picks the kernel or its plain
-version.  ``attn_chunk``, ``causal_skip``, ``remat`` and ``scan_layers``
-shape the reference's compiled graph and have no counterpart here.
-Forward and prefill run under ``torch.inference_mode()``.
+(`kernels.flash_attention`) in forward and prefill and B8
+(`kernels.decode_attention`) in decode, whose device picks the kernel or
+its plain version.  ``attn_chunk``, ``causal_skip``, ``remat`` and
+``scan_layers`` shape the reference's compiled graph and have no
+counterpart here.  Forward, prefill and decode run under
+``torch.inference_mode()``.
+
+The KV cache (`init_cache`) is the reference's: ``k`` and ``v`` stacked
+over layers, (L, b, s_alloc, hkv, dh), bf16 by default.  Where the
+reference keeps one ``length`` array per layer (always equal), the port
+keeps one host int for the cache, so a decode step reads nothing back from
+the card.  Like the reference's, `prefill` fills no cache: a prompt enters
+it token by token through `decode_step`.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
+from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as Ly
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDecl, init_params, stack
@@ -173,6 +183,54 @@ def vocab_mask(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# KV cache and decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """A zeroed cache for ``batch`` sequences of up to ``s_max`` tokens:
+    ``{"layers": {"k", "v"}, "length": 0}`` with k and v (L, batch,
+    s_alloc, hkv, dh), ``s_alloc = min(s_max, window)`` with a window (a
+    ring that decodes past ``s_max``) and ``s_max`` without; on CUDA unless
+    ``device`` names another device."""
+    check_family(cfg)
+    one = Ly.attention_cache(batch, s_max, cfg.n_kv_heads, cfg.head_dim_,
+                             dtype, window=cfg.window,
+                             device=resolve_device(device),
+                             n_layers=cfg.n_layers)
+    return {"layers": {"k": one["k"], "v": one["v"]}, "length": 0}
+
+
+def _dense_block_decode(bp, x: torch.Tensor, lc, cfg: ModelConfig):
+    h = Ly.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    h, _ = Ly.attention_decode(bp["attn"], h, lc, n_heads=cfg.n_heads,
+                               n_kv_heads=cfg.n_kv_heads,
+                               head_dim=cfg.head_dim_,
+                               rope_theta=cfg.rope_theta, window=cfg.window)
+    x = x + h
+    h = Ly.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + Ly.mlp_apply(bp["mlp"], h, act=cfg.act)
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
+                token_or_embed):
+    """One token per sequence: (B,) ids, or (B, d_model) embeddings with
+    ``embed_inputs`` -> (float32 logits (B, padded_vocab), cache).  The
+    returned cache is the same dict, updated in place: each layer's new k
+    and v written at its slot, ``length`` one more."""
+    check_family(cfg)
+    x = embed_tokens(params, cfg, token_or_embed)
+    length = int(cache["length"])
+    ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+    for i, bp in enumerate(params["blocks"]):
+        x = _dense_block_decode(bp, x, {"k": ks[i], "v": vs[i],
+                                        "length": length}, cfg)
+    cache["length"] = length + 1
+    return logits_from_hidden(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
 # nn.Module
 # ---------------------------------------------------------------------------
 
@@ -227,3 +285,12 @@ class TransformerLM(nn.Module):
 
     def prefill(self, batch: Dict[str, Any]) -> torch.Tensor:
         return prefill(self.params, self.cfg, batch)
+
+    def init_cache(self, batch: int, s_max: int,
+                   dtype=torch.bfloat16) -> Dict[str, Any]:
+        """`init_cache` on the module's device."""
+        return init_cache(self.cfg, batch, s_max, dtype,
+                          device=self.weights["embed"].device)
+
+    def decode_step(self, cache: Dict[str, Any], token_or_embed):
+        return decode_step(self.params, self.cfg, cache, token_or_embed)

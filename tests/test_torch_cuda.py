@@ -13,9 +13,10 @@ from repro_torch.core import forest as FO
 from repro_torch.core import histogram as H
 from repro_torch.core import quantize as Q
 from repro_torch.core.tree import heap_to_node_arrays
-from repro_torch.kernels import (flash_attention, hist_kernel,
-                                 predict_kernel, predict_quant_kernel, ref,
-                                 shap_kernel, split_kernel)
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 hist_kernel, predict_kernel,
+                                 predict_quant_kernel, ref, shap_kernel,
+                                 split_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -544,3 +545,97 @@ def test_lm_forward_on_card_matches_cpu(dev, arch):
     out = model.to(dev).forward({"inputs": x})
     assert flash_attention.KERNEL.launches == before + cfg.n_layers
     torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# B8: (batch, hkv, group, s, dh, window, ragged).  Batch x kv heads of 2 to
+# 16 split the key axis across blocks; 320 do not.  Groups 1-8 and 6 (three
+# chunks of 2 heads), dh 32/120/256 and 36 (no 16-byte loads for bf16).
+DECODE_CASES = [
+    (1, 8, 4, 4096, 120, 4096, False), (2, 1, 1, 519, 32, None, True),
+    (3, 2, 2, 200, 120, 16, True), (40, 8, 4, 600, 120, 256, True),
+    (2, 2, 8, 300, 64, None, True), (2, 1, 6, 130, 36, 50, True),
+    (2, 2, 4, 77, 256, None, True), (40, 8, 1, 128, 256, 100, True),
+    (1, 2, 4, 8, 120, None, False),
+]
+DECODE_DTYPES = [(torch.float32, torch.float32),
+                 (torch.float32, torch.bfloat16),
+                 (torch.bfloat16, torch.bfloat16),
+                 (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("qt,kt", DECODE_DTYPES)
+@pytest.mark.parametrize("b,hkv,group,s,dh,window,ragged", DECODE_CASES)
+def test_decode_attention_kernel_matches_plain(dev, qt, kt, b, hkv, group, s,
+                                               dh, window, ragged):
+    """B8 against its plain version on the card, from run to run too: a
+    float32 output within atol 1e-5, a bf16 one within one bf16 ulp of its
+    own plain value plus 1e-5 (products of bf16 inputs are exact in
+    float32; only the sums' order and the last rounding differ)."""
+    g = torch.Generator(device=dev).manual_seed(s * dh + group)
+    q = torch.randn((b, hkv * group, dh), generator=g, device=dev).to(qt)
+    k, v = (torch.randn((b, s, hkv, dh), generator=g, device=dev).to(kt)
+            for _ in "kv")
+    lengths = (torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                             dtype=torch.int32) if ragged else s)
+    before = decode_attention.KERNEL.launches
+    out = decode_attention.decode_attention(q, k, v, lengths, window=window)
+    again = decode_attention.decode_attention(q, k, v, lengths, window=window)
+    assert decode_attention.KERNEL.launches == before + 2
+    full = (lengths if ragged else
+            torch.full((b,), s, dtype=torch.int32, device=dev))
+    plain = ref.decode_attention_ref(q, k, v, full, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert out.dtype == qt and out.shape == q.shape
+    limit = 1e-5 if qt == torch.float32 else bf16_ulps(plain) + 1e-5
+    diff = (out.float() - plain.float()).abs()
+    assert bool((diff <= limit).all()), float((diff / limit).max())
+
+
+def test_decode_attention_wrapper_checks_inputs(dev):
+    q = torch.randn((2, 4, 32), device=dev)
+    k = torch.randn((2, 16, 2, 32), device=dev)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        decode_attention.decode_attention(q, k.cpu(), k, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention.decode_attention(
+            q, k.transpose(1, 2).contiguous().transpose(1, 2), k, 3)
+    with pytest.raises(ValueError, match=r"lengths must lie in \[1, 16\]"):
+        decode_attention.decode_attention(
+            q, k, k, torch.tensor([3, 17], dtype=torch.int32, device=dev))
+    before = decode_attention.KERNEL.launches
+    a = decode_attention.decode_attention(q, k, k, 9, window=3)
+    b = decode_attention.decode_attention(
+        q, k, k, torch.tensor([9, 9], dtype=torch.int32, device=dev),
+        window=3)
+    assert decode_attention.KERNEL.launches == before + 2
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "musicgen-medium"])
+def test_lm_decode_on_card_matches_cpu(dev, arch):
+    """A smoke-config model in float32 decodes 40 tokens on the card (a
+    16-slot ring for h2o-danube, float32 cache) against the same model on
+    the CPU (plain B8): logits within atol 1e-4 + rtol 1e-4, one B8 launch
+    a layer a step."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                              n_kv_heads=2)
+    model = lm.TransformerLM.random(cfg, torch.Generator().manual_seed(1),
+                                    device="cpu")
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(2, 40, cfg.d_model)).astype(np.float32)
+         if cfg.embed_inputs else
+         rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    caches = [model.init_cache(2, 64, dtype=torch.float32)]
+    want = [model.decode_step(caches[0], x[:, i])[0] for i in range(40)]
+    model = model.to(dev)
+    caches.append(model.init_cache(2, 64, dtype=torch.float32))
+    before = decode_attention.KERNEL.launches
+    for i in range(40):
+        out, _ = model.decode_step(caches[1], x[:, i])
+        torch.testing.assert_close(out.cpu(), want[i], atol=1e-4, rtol=1e-4)
+    assert decode_attention.KERNEL.launches == before + 40 * cfg.n_layers
