@@ -7,12 +7,14 @@ decode, on one CUDA card, end to end.
 Phases (any failure exits non-zero; nothing is caught):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA build;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-     per source, in parallel; B3 and both B5 entry points share
-     ``predict.cu``; B4 is ``hist_direct.cu``, B6 ``shap.cu``, B7
-     ``flash_attention.cu``, B8 ``decode_attention.cu``) and time the
-     build;
+     per source, in parallel; B1 and B1-bf16 share ``hist.cu``, B3 and both
+     B5 entry points ``predict.cu``; B4 is ``hist_direct.cu``, B6
+     ``shap.cu``, B7 ``flash_attention.cu``, B8 ``decode_attention.cu``)
+     and time the build;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (B4 bitwise at level 5 of the paper's tree; B2's
+     main path's shapes (B1-bf16 at B1's level-1 shape also bitwise against
+     fp32 B1 fed the bf16-rounded statistics, and timed beside it; B4
+     bitwise at level 5 of the paper's tree; B2's
      wide kernel at SketchBoost Full's level 5, C = 513; B5 also against B3
      on the dequantized forest; B6 wide and with narrow blocks at per-tree
      columns; B7 at the prefill's layer, 1 x 32 heads over 8 x 32,768 x
@@ -50,7 +52,21 @@ Phases (any failure exits non-zero; nothing is caught):
      "random_sampling" and "truncated_svd" and 2 of "none" (SketchBoost
      Full, B2's wide kernel); seconds per round, valid loss and peak memory
      of each; then one more round of Full under the profiler, as in 6;
- 10. the dense-LM prefill (memory of phases 4-9 freed first):
+  9b. leaf-wise growth, bf16 statistics and staged prediction on phase 4's
+     data, 3 rounds a fit with one set of per-round Pi: (a) leaf-wise at
+     ``max_leaves=64`` (= 2^6) against level-wise ``"subtract"``: every
+     tree puts the rows into the same leaves and the eval predictions are
+     bitwise equal; (b) leaf-wise at ``max_leaves=32``: seconds per round,
+     valid loss, peak memory, launches, and each tree's host syncs
+     (counted under CUDA's sync debug mode, as in every fit here); (c)
+     ``hist_dtype="bfloat16"`` level-wise and leaf-wise at 32 beside their
+     fp32 fits (valid losses within 1e-3 relative, node slots that split
+     differently counted, B1-bf16 launched and fp32 B1 not); (d)
+     ``forest.predict_staged`` and ``staged_eval`` of (b)'s model on the
+     eval set (the history within 1e-5 relative, the last stage bitwise
+     ``predict_raw``); (e) one leaf-wise round under the profiler (device
+     busy share, B1's and B2's shares) and the host syncs of one more;
+ 10. the dense-LM prefill (memory of phases 4-9b freed first):
      h2o-danube-3-4b at full width in bf16 (24 layers, d_model 3840, 3.84 B
      parameters from a seeded ``torch.Generator``) through
      ``lm_serve.make_prefill_step``, 4 requests of 1 x 32,768 tokens (the
@@ -83,8 +99,9 @@ minutes at this size).  Kernel launch counts are set to zero just before
 phase 4 and read just after phase 5 (the fit -> predict path), again just
 before and after phase 7 (the serving path), again around phase 8 (the
 explain path), again around each fit of phase 9 (the direct engine's
-B4, Full's B2-wide), again around phase 10's prefill requests (B7), and
-again around phase 11's decode steps (B8).
+B4, Full's B2-wide) and of phase 9b (B1-bf16 in the bf16 fits), again
+around phase 10's prefill requests (B7), and again around phase 11's
+decode steps (B8).
 """
 from __future__ import annotations
 
@@ -98,6 +115,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -133,11 +151,11 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_hist(torch, gen, dev):
-    """B1 at the main path's level 1: m=100, B=256, C=6, the smaller child
-    of a 2,097,152-row root (S ~ n/2)."""
+def hist_case(torch, gen, dev):
+    """B1's inputs at the main path's level 1: m=100, B=256, C=6, the
+    smaller child of a 2,097,152-row root (S ~ n/2), and the flat
+    (node, feature, bin) cells of its rows for one ``index_add_``."""
     from repro_torch.core import histogram as H
-    from repro_torch.kernels import hist_kernel, ref
     n, m, B, C = N_TRAIN, 100, 256, 6
     codes_t = torch.randint(0, B, (m, n), generator=gen, device=dev,
                             dtype=torch.int32).to(torch.uint8)
@@ -150,7 +168,24 @@ def check_hist(torch, gen, dev):
     side, is_built = H.smaller_children(state.counts)
     build_counts = torch.where(is_built, state.counts, 0).to(torch.int32)
     stats_p = stats[state.order.long()].contiguous()
-    args = (codes_t, state.order, stats_p, state.counts, build_counts)
+    pos = torch.arange(n, device=dev)
+    node = state.node_perm.long()
+    keep = build_counts.long()[node] > 0
+    pos, node = pos[keep], node[keep]
+    flat = ((node[None, :] * m + torch.arange(m, device=dev)[:, None]) * B
+            + codes_t.long()[:, state.order.long()[pos]]).reshape(-1)
+    return dict(codes_t=codes_t, state=state, build_counts=build_counts,
+                stats_p=stats_p, pos=pos, flat=flat, m=m, B=B, C=C)
+
+
+def check_hist(torch, case):
+    """B1 at the main path's level 1 (`hist_case`)."""
+    from repro_torch.kernels import hist_kernel, ref
+    m, B, C = case["m"], case["B"], case["C"]
+    state, build_counts = case["state"], case["build_counts"]
+    stats_p = case["stats_p"]
+    args = (case["codes_t"], state.order, stats_p, state.counts,
+            build_counts)
     out = hist_kernel.hist_nodes(*args, n_bins=B)
     again = hist_kernel.hist_nodes(*args, n_bins=B)
     torch.cuda.synchronize()
@@ -162,18 +197,13 @@ def check_hist(torch, gen, dev):
     s_b = int(build_counts.sum())
     # One PyTorch call for the same function: index_add_ over flat
     # (node, feature, bin) cells, indices prepared outside the timing.
-    pos = torch.arange(n, device=dev)
-    node = state.node_perm.long()
-    keep = build_counts.long()[node] > 0
-    pos, node = pos[keep], node[keep]
-    flat = ((node[None, :] * m + torch.arange(m, device=dev)[:, None]) * B
-            + codes_t.long()[:, state.order.long()[pos]]).reshape(-1)
-    src = stats_p[pos].repeat(m, 1)
-    cells = torch.zeros((2 * m * B, C), device=dev)
-    library = cuda_ms(lambda: cells.zero_().index_add_(0, flat, src), 3)
+    src = stats_p[case["pos"]].repeat(m, 1)
+    cells = torch.zeros((2 * m * B, C), device=stats_p.device)
+    library = cuda_ms(lambda: cells.zero_().index_add_(0, case["flat"], src),
+                      3)
     torch.testing.assert_close(cells.reshape(out.shape), out, rtol=1e-5,
                                atol=0)
-    del flat, src, cells
+    del src, cells
     b_ms, b_by = bound_ms(s_b * (m + 4 + 4 * C) + 2 * m * B * C * 4,
                           s_b * m * C)
     return dict(
@@ -184,6 +214,53 @@ def check_hist(torch, gen, dev):
         ms=cuda_ms(lambda: hist_kernel.hist_nodes(*args, n_bins=B)),
         plain_ms=cuda_ms(lambda: ref.hist_nodes_ref(*args, n_bins=B), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=library)
+
+
+def check_hist_bf16(torch, case):
+    """B1-bf16 on `hist_case`'s inputs with the statistics in bf16: bitwise
+    fp32 B1 fed the bf16-rounded statistics, the same run to run, and held
+    to its plain version as B1 is (rtol 1e-5, counts bitwise); timed beside
+    fp32 B1 at the same shape."""
+    from repro_torch.kernels import hist_kernel, ref
+    m, B, C = case["m"], case["B"], case["C"]
+    state, build_counts = case["state"], case["build_counts"]
+    stats_bf = case["stats_p"].to(torch.bfloat16)
+    rounded = stats_bf.float()
+    args = (case["codes_t"], state.order, stats_bf, state.counts,
+            build_counts)
+    kw = dict(n_bins=B, hist_dtype="bfloat16")
+    out = hist_kernel.hist_nodes(*args, **kw)
+    again = hist_kernel.hist_nodes(*args, **kw)
+    fp32_args = (case["codes_t"], state.order, rounded, state.counts,
+                 build_counts)
+    fp32 = hist_kernel.hist_nodes(*fp32_args, n_bins=B)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "B1-bf16 is not deterministic"
+    assert torch.equal(out, fp32), "B1-bf16 differs from fp32 B1 on bf16 stats"
+    plain = ref.hist_nodes_ref(*args, **kw)
+    torch.testing.assert_close(out[..., :-1], plain[..., :-1], rtol=1e-5,
+                               atol=0)
+    assert torch.equal(out[..., -1], plain[..., -1]), "B1-bf16 counts differ"
+    s_b = int(build_counts.sum())
+    src = rounded[case["pos"]].repeat(m, 1)
+    cells = torch.zeros((2 * m * B, C), device=rounded.device)
+    library = cuda_ms(lambda: cells.zero_().index_add_(0, case["flat"], src),
+                      3)
+    torch.testing.assert_close(cells.reshape(out.shape), out, rtol=1e-5,
+                               atol=0)
+    del src, cells
+    b_ms, b_by = bound_ms(s_b * (m + 4 + 2 * C) + 2 * m * B * C * 4,
+                          s_b * m * C)
+    return dict(
+        name="hist_nodes_bf16", route="cuda",
+        source="src/repro_torch/kernels/csrc/hist.cu",
+        replaces="src/repro/kernels/hist_kernel.py:150",
+        max_abs_err=float((out - plain).abs().max()),
+        ms=cuda_ms(lambda: hist_kernel.hist_nodes(*args, **kw)),
+        plain_ms=cuda_ms(lambda: ref.hist_nodes_ref(*args, **kw), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=library,
+        fp32_b1_ms=cuda_ms(lambda: hist_kernel.hist_nodes(*fp32_args,
+                                                          n_bins=B)))
 
 
 def check_hist_direct(torch, gen, dev):
@@ -826,6 +903,200 @@ def engines_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels, rounds=3):
     return rec, direct_launches, full_launches
 
 
+def same_leaves(torch, ids_a, ids_b) -> bool:
+    """Whether two forests put the rows into the same leaves, tree by
+    tree: ``(n, T)`` leaf ids whose pairs map one to one."""
+    for t in range(ids_a.shape[1]):
+        a, b = ids_a[:, t].long(), ids_b[:, t].long()
+        pairs = torch.unique(a * (int(b.max()) + 1) + b).numel()
+        if not pairs == torch.unique(a).numel() == torch.unique(b).numel():
+            return False
+    return True
+
+
+def count_syncs(torch, fn, out):
+    """Run ``fn()`` with CUDA's sync debug mode warning at every host
+    sync, append the number of those warnings to ``out`` and return
+    ``fn()``'s result."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    out.append(sum("synchroniz" in str(w.message) for w in caught))
+    return result
+
+
+def leafwise_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels, rounds=3):
+    """Phase 9b: leaf-wise growth, bf16 statistics and staged prediction
+    at full width on phase 4's data, 3 rounds a fit with one set of
+    per-round Pi.  Returns the record and the kernel launches of the
+    bf16 fits (counts set to zero just before each fit)."""
+    import dataclasses
+
+    from repro_torch import explain as EX
+    from repro_torch.core import boosting as BO
+    from repro_torch.core import forest as FO
+    from repro_torch.core import sketch as SK
+    from repro_torch.core import tree as TR
+    from repro_torch.core.boosting import SketchBoost
+    gen = torch.Generator(device=dev).manual_seed(19)
+    pis = [SK.random_projection_matrix(cfg.n_outputs, cfg.sketch_k, gen,
+                                       device=dev).cpu().numpy()
+           for _ in range(rounds)]
+
+    def run(**kw):
+        """A fit, each tree's grower run under CUDA's sync debug mode so
+        that its host syncs (reads of the card, blocking copies) are
+        counted tree by tree."""
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c = dataclasses.replace(cfg, n_trees=rounds, **kw)
+        name = ("grow_tree_leafwise" if c.growth == "leafwise"
+                else "grow_tree")
+        grower, syncs = getattr(TR, name), []
+        setattr(TR, name, lambda *a, **k: count_syncs(
+            torch, lambda: grower(*a, **k), syncs))
+        try:
+            model = SketchBoost(c, device=dev).fit(
+                Xtr, ytr, eval_set=(Xev, yev), sketch_mats=pis)
+        finally:
+            setattr(TR, name, grower)
+        torch.cuda.synchronize()
+        times = [h["train_time_s"] for h in model.history]
+        nc = (model.packed.node_count.tolist()
+              if c.growth == "leafwise" else None)
+        return model, dict(
+            round_s=[b - a for a, b in zip([0.0] + times[:-1], times)],
+            valid_loss=[h["valid_loss"] for h in model.history],
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches={k.name: k.launches for k in kernels}, node_count=nc,
+            host_syncs_per_tree=syncs)
+
+    def show(tag, r):
+        print(f"[9b] {tag}: seconds per round {r['round_s']}, valid loss "
+              f"{r['valid_loss']}, peak {r['peak_gib']:.2f} GiB, launches "
+              f"{r['launches']}, node counts {r['node_count']}, host syncs "
+              f"per tree (measured) {r['host_syncs_per_tree']}")
+
+    rec = {}
+    # (a) leaf-wise at the full budget = level-wise subtract, bit for bit.
+    lvl, rec["levelwise"] = run(hist_engine="subtract")
+    lw64, rec["leafwise_64"] = run(growth="leafwise",
+                                   max_leaves=2 ** cfg.depth)
+    show("levelwise subtract", rec["levelwise"])
+    show(f"leafwise max_leaves={2 ** cfg.depth}", rec["leafwise_64"])
+    codes_tr = lvl._bin(Xtr)
+    same = same_leaves(torch, EX.apply_forest(lvl.packed, codes_tr),
+                       EX.apply_forest(lw64.packed, codes_tr))
+    raw_lvl, raw_lw = lvl.predict_raw(Xev), lw64.predict_raw(Xev)
+    bitwise = bool(torch.equal(raw_lvl, raw_lw))
+    print(f"[9b] (a) leaf-wise at {2 ** cfg.depth} leaves vs level-wise: "
+          f"same rows in every tree {same}, eval predictions bitwise equal "
+          f"{bitwise}, valid losses equal "
+          f"{rec['levelwise']['valid_loss'] == rec['leafwise_64']['valid_loss']}")
+    assert same and bitwise, "leaf-wise at the full budget is not level-wise"
+    del lw64, raw_lw
+    # (b) leaf-wise under budget.
+    lw32, rec["leafwise_32"] = run(growth="leafwise", max_leaves=32)
+    show("(b) leafwise max_leaves=32", rec["leafwise_32"])
+    assert rec["leafwise_32"]["launches"]["hist_nodes"] > 0
+    assert all(math.isfinite(v) for v in rec["leafwise_32"]["valid_loss"])
+    assert len(rec["leafwise_32"]["host_syncs_per_tree"]) == rounds
+    # (c) bf16 statistics, both growth modes, the fp32 fits' Pi.
+    bf16_launches = {}
+    for tag, kw, fp32_model, fp32_rec in (
+            ("levelwise", dict(hist_engine="subtract"), lvl,
+             rec["levelwise"]),
+            ("leafwise_32", dict(growth="leafwise", max_leaves=32), lw32,
+             rec["leafwise_32"])):
+        m16, r = run(hist_dtype="bfloat16", **kw)
+        rec[f"{tag}_bf16"] = r
+        bf16_launches[tag] = r["launches"]
+        a, b = m16.forest, fp32_model.forest
+        differ = (a.feat != b.feat) | (a.thr != b.thr)
+        if tag != "levelwise":
+            differ |= a.left != b.left
+        rel = max(abs(x - y) / abs(y) for x, y in
+                  zip(r["valid_loss"], fp32_rec["valid_loss"]))
+        r.update(split_nodes_differing=int(differ.sum()),
+                 valid_loss_rel_to_fp32=rel)
+        show(f"(c) {tag} bf16", r)
+        print(f"[9b] (c) {tag}: bf16 valid loss {r['valid_loss']} beside "
+              f"fp32 {fp32_rec['valid_loss']}, within {rel!r} relative "
+              f"(limit 1e-3); {int(differ.sum())} of {differ.numel()} node "
+              f"slots split differently (near-ties may flip)")
+        assert r["launches"]["hist_nodes_bf16"] > 0, r["launches"]
+        assert r["launches"]["hist_nodes"] == 0, r["launches"]
+        # Leaf values come from the full float32 gradients, so bf16 moves
+        # the loss only through the splits: a near-tie closer than bf16's
+        # 2^-8 rounding may flip, trading one split for another of nearly
+        # equal gain.  1e-3 of the loss is a few percent of what a round
+        # gains here; B1-bf16's sums themselves are held bitwise in phase 3.
+        assert rel <= 1e-3, (tag, rel)
+        del m16
+    # (d) staged prediction of (b)'s model on the eval set.
+    codes_v = lw32._bin(Xev)
+    Yv = lw32._targets(yev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = FO.predict_staged(lw32.packed, codes_v)
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vloss = FO.staged_eval(lw32.packed, codes_v, Yv, cfg.loss)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    hist = torch.tensor(rec["leafwise_32"]["valid_loss"])
+    err = float(((vloss.cpu() - hist).abs() / hist.abs()).max())
+    last_bitwise = bool(torch.equal(staged[-1], lw32.predict_raw(Xev)))
+    rec["staged"] = dict(predict_staged_s=staged_s, staged_eval_s=eval_s,
+                         staged_eval_rel_to_history=err,
+                         last_bitwise_predict_raw=last_bitwise)
+    print(f"[9b] (d) predict_staged {tuple(staged.shape)} in {staged_s:.4f} "
+          f"s, staged_eval in {eval_s:.4f} s, within {err!r} relative of the "
+          f"fit's history (limit 1e-5), staged[-1] bitwise predict_raw "
+          f"{last_bitwise}")
+    assert err <= 1e-5 and last_bitwise
+    del staged
+    # (e) one leaf-wise round under the profiler, and the host syncs of
+    # one more round (CUDA's sync debug mode warns at each).
+    codes, codes_t = lw32._codes(Xtr)
+    Y = lw32._targets(ytr)
+    F = lw32.base_score.expand(len(Xtr), -1).contiguous()
+    c = lw32.cfg
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prof = profile_step(
+        torch, lambda: BO.boost_round(F, codes, codes_t, Y, c,
+                                      generator=gen),
+        "hist_nodes_kernel<float>", extra_keys=("split_scan_kernel",))
+    torch.cuda.synchronize()
+    counted = []
+    tree = count_syncs(torch, lambda: BO.boost_round(
+        F, codes, codes_t, Y, c, generator=gen), counted)
+    syncs = counted[0]
+    prof.update(host_syncs_per_round=syncs,
+                node_count=int(tree.node_count),
+                b2_s=prof["by_key"]["split_scan_kernel"],
+                b2_share=prof["by_key"]["split_scan_kernel"]
+                / prof["device_busy_s"])
+    rec["profile"] = prof
+    print(f"[9b] (e) one leaf-wise round (max_leaves=32) profiled: wall "
+          f"{prof['wall_s']:.4f} s, device busy {prof['device_busy_s']:.4f} "
+          f"s = {prof['busy_share']:.3f}, B1 {prof['kernel_s']:.4f} s = "
+          f"{prof['kernel_share']:.3f} of device time, B2 "
+          f"{prof['b2_s']:.4f} s = {prof['b2_share']:.3f}; host syncs in "
+          f"one more round {syncs} ({int(tree.node_count)} nodes)")
+    for name, ms, count in prof["top_ms"]:
+        print(f"[9b]   {ms:10.3f} ms x{count:<5d} {name}")
+    del lw32, lvl, codes, codes_t, F, Y, codes_tr
+    return rec, bf16_launches
+
+
 def make_data(torch, dev, n, m, d, seed):
     """Guyon-scheme multiclass table on the card (make_tabular's recipe)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1072,10 +1343,11 @@ def explain_phase(torch, model, dev, Xte, raw, pf_cpu, servers, kernels):
     return rec, launches
 
 
-def profile_step(torch, fn, kernel_key: str):
+def profile_step(torch, fn, kernel_key: str, extra_keys=()):
     """Run ``fn()`` once under ``torch.profiler``: wall seconds, device
     busy seconds, the device seconds of the kernels whose name holds
-    ``kernel_key`` and of the matmuls, and the top 12 kernels."""
+    ``kernel_key`` (and, in ``by_key``, each of ``extra_keys``) and of the
+    matmuls, and the top 12 kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1093,8 +1365,11 @@ def profile_step(torch, fn, kernel_key: str):
     mm_s = sum(e.self_device_time_total for e in events
                if any(n in e.key.lower() for n in
                       ("gemm", "gemv", "nvjet", "cutlass", "xmma"))) / 1e6
+    by_key = {k: sum(e.self_device_time_total for e in events
+                     if k in e.key) / 1e6 for k in extra_keys}
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     return dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+                by_key=by_key,
                 kernels=sum(e.count for e in events),
                 kernel_s=kernel_s, kernel_share=kernel_s / busy,
                 matmul_s=mm_s,
@@ -1503,7 +1778,8 @@ def main() -> int:
     b2w = split_kernel.WIDE_KERNEL
     b7 = flash_attention.KERNEL
     b8 = decode_attention.KERNEL
-    every = kernels + b5 + [b6, b4, b2w, b7, b8]
+    b1bf = hist_kernel.KERNEL_BF16
+    every = kernels + b5 + [b6, b4, b2w, b7, b8, b1bf]
     t0 = time.perf_counter()
     reports = _build.build(every)
     print(f"[2] built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
@@ -1513,8 +1789,11 @@ def main() -> int:
                 print(f"[2] {name}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    hcase = hist_case(torch, gen, dev)
+    rows = [check_hist(torch, hcase), check_hist_bf16(torch, hcase)]
+    del hcase
     case = predict_case(torch, gen, dev)
-    rows = [check_hist(torch, gen, dev), check_split(torch, gen, dev),
+    rows += [check_split(torch, gen, dev),
             check_predict(torch, case),
             check_predict_quant(torch, case, "int8"),
             check_predict_quant(torch, case, "bfloat16")]
@@ -1600,6 +1879,8 @@ def main() -> int:
     del servers
     engines, direct_launches, full_launches = engines_phase(
         torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b4, b2w])
+    leafwise, bf16_launches = leafwise_phase(
+        torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b1bf])
     # Phase 10 runs alone on the card: free the tabular phases' memory.
     del X, y, Xtr, ytr, Xev, yev, Xte, model, raw, pf_cpu, codes_te, Ytr
     gc.collect()
@@ -1626,14 +1907,19 @@ def main() -> int:
             r["launches"], r["path"] = prefill_launches[r["name"]], "lm prefill"
         elif r["name"] == b8.name:           # B8: the LM decode
             r["launches"], r["path"] = decode_launches[r["name"]], "lm decode"
+        elif r["name"] == b1bf.name:         # B1-bf16: the bf16 fits
+            r["launches"] = sum(v[r["name"]] for v in bf16_launches.values())
+            r["path"] = "fit (hist_dtype='bfloat16', levelwise + leafwise)"
         else:                                # B5: the serving path
             r["launches"], r["path"] = serve_launches[r["name"]], "serve"
-    rows[2]["serve_launches"] = serve_launches[rows[2]["name"]]
-    rows[2]["explain_launches"] = explain_launches[rows[2]["name"]]
+    b3_row = next(r for r in rows if r["name"] == predict_kernel.KERNEL.name)
+    b3_row["serve_launches"] = serve_launches[b3_row["name"]]
+    b3_row["explain_launches"] = explain_launches[b3_row["name"]]
     print(json.dumps({"kernels": rows, "fit_s": fit_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
-                      "engines_and_sketches": engines, "prefill": prefill,
+                      "engines_and_sketches": engines,
+                      "leafwise_bf16_staged": leafwise, "prefill": prefill,
                       "decode": decode, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 Port of the JAX package's ``core/boosting.py`` for the slices ported so
 far: ``strategy="single_tree"``, level-wise growth with any histogram
-engine (``"direct"``, ``"partition"``, ``"subtract"``), float32
-statistics, every sketch method, no row or column sampling, no guards and
-no checkpoints.
+engine (``"direct"``, ``"partition"``, ``"subtract"``) and leaf-wise
+(best-first) growth under a ``max_leaves`` budget, float32 or bfloat16
+histogram statistics, every sketch method, no row or column sampling, no
+guards and no checkpoints.
 Options outside the slice raise a ValueError that names the slice that
 brings them.  The fitted model explains itself as the reference's does:
 `SketchBoost.shap_values`, `apply` and `feature_importances` (``explain/``).
@@ -39,6 +40,7 @@ from repro_torch.core import sketch as SK
 from repro_torch.core import tree as T
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import predict_kernel
+from repro_torch.kernels.ref import HIST_DTYPES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,10 +90,6 @@ class GBDTConfig:
         later = [
             (self.strategy == "one_vs_all", "strategy='one_vs_all'",
              "the one_vs_all slice"),
-            (self.growth == "leafwise" or self.max_leaves != 0,
-             "growth='leafwise' / max_leaves", "the leaf-wise slice"),
-            (self.hist_dtype == "bfloat16", "hist_dtype='bfloat16'",
-             "the leaf-wise + bf16 slice"),
             (self.subsample < 1.0 or self.goss_a > 0.0 or self.goss_b > 0.0
              or self.colsample < 1.0, "subsample / goss_* / colsample",
              "the sampling slice"),
@@ -107,15 +105,35 @@ class GBDTConfig:
             if out_of_slice:
                 raise ValueError(f"{what} is not ported yet: it comes with "
                                  f"{slice_name} of repro_torch")
+        leafwise = self.growth == "leafwise"
         checks = [
             (self.loss in L.LOSSES, f"unknown loss {self.loss!r}"),
             (self.strategy == "single_tree",
              f"unknown strategy {self.strategy!r}"),
-            (self.growth == "levelwise", f"unknown growth {self.growth!r}"),
+            (self.growth in ("levelwise", "leafwise"),
+             f"unknown growth {self.growth!r}; expected 'levelwise' or "
+             "'leafwise'"),
+            (leafwise or not self.max_leaves,
+             f"max_leaves={self.max_leaves} is set but growth='levelwise' "
+             "grows full 2^depth-leaf levels and would silently ignore it; "
+             "set growth='leafwise' or drop max_leaves"),
+            (not leafwise or self.max_leaves >= 2,
+             "growth='leafwise' needs max_leaves >= 2 (the leaf budget of "
+             f"each best-first tree); got {self.max_leaves}"),
+            (not leafwise or self.max_leaves <= 2 ** self.depth,
+             f"max_leaves={self.max_leaves} exceeds 2^depth="
+             f"{2 ** self.depth}: the depth bound makes the extra budget "
+             "unreachable; raise depth or lower max_leaves"),
+            (not leafwise or self.hist_engine in ("auto", "subtract"),
+             f"hist_engine={self.hist_engine!r} has no leaf-wise "
+             "implementation (the best-first grower is node-partitioned "
+             "with sibling subtraction); use 'auto'/'subtract' or "
+             "growth='levelwise'"),
             (self.hist_engine in ("auto",) + H.HIST_ENGINES,
              f"unknown hist_engine {self.hist_engine!r}"),
-            (self.hist_dtype == "float32",
-             f"unknown hist_dtype {self.hist_dtype!r}"),
+            (self.hist_dtype in HIST_DTYPES,
+             f"unknown hist_dtype {self.hist_dtype!r}; expected one of "
+             f"{tuple(HIST_DTYPES)}"),
             (self.sketch_method in SK.SKETCH_METHODS,
              f"unknown sketch_method {self.sketch_method!r}"),
             (self.loop in ("scan", "python"), f"unknown loop {self.loop!r}; "
@@ -303,8 +321,9 @@ class SketchBoost:
         self.best_round = best_round if best_round >= 0 else len(trees) - 1
         self.cfg = cfg
         self.forest = T.stack_trees(trees)
-        self.packed = FO.pack_forest(self.forest, self.base_score,
-                                     cfg.learning_rate)
+        self.packed = FO.pack_forest(
+            self.forest, self.base_score, cfg.learning_rate,
+            max_depth=cfg.depth if cfg.growth == "leafwise" else None)
         self._path_pack = None
         return self
 
@@ -394,9 +413,11 @@ class SketchBoost:
 def boost_round(F: torch.Tensor, codes: torch.Tensor, codes_t: torch.Tensor,
                 Y: torch.Tensor, cfg: GBDTConfig, *,
                 draw: Optional[np.ndarray] = None,
-                generator: Optional[torch.Generator] = None) -> T.Tree:
+                generator: Optional[torch.Generator] = None):
     """One boosting round: gradients -> sketch -> tree -> leaf values,
     adding the tree's ``lr * value`` to the training scores ``F`` in place.
+    The tree is a heap `tree.Tree` (level-wise) or a `tree.NodeTree`
+    (``growth="leafwise"``).
 
     ``draw`` is this round's sketch draw (see `SketchBoost.fit`), else it
     is drawn from ``generator``.  Sample weights are all ones in this
@@ -410,10 +431,15 @@ def boost_round(F: torch.Tensor, codes: torch.Tensor, codes_t: torch.Tensor,
     ones = torch.ones((F.shape[0], 1), dtype=torch.float32, device=F.device)
     stats = torch.cat([Gk, ones], 1)
     del Gk
-    tree, leaf_pos = T.grow_tree(
-        codes, codes_t, stats, G, Hd, depth=cfg.depth, n_bins=cfg.n_bins,
-        lam=cfg.lambda_l2, min_data_in_leaf=cfg.min_data_in_leaf,
-        min_gain=cfg.min_gain, hist_engine=cfg.hist_engine)
+    kw = dict(depth=cfg.depth, n_bins=cfg.n_bins, lam=cfg.lambda_l2,
+              min_data_in_leaf=cfg.min_data_in_leaf, min_gain=cfg.min_gain,
+              hist_dtype=cfg.hist_dtype)
+    if cfg.growth == "leafwise":
+        tree, leaf_pos = T.grow_tree_leafwise(
+            codes, codes_t, stats, G, Hd, max_leaves=cfg.max_leaves, **kw)
+    else:
+        tree, leaf_pos = T.grow_tree(codes, codes_t, stats, G, Hd,
+                                     hist_engine=cfg.hist_engine, **kw)
     del G, Hd, stats
     contrib = tree.value[leaf_pos.long()]
     contrib.mul_(torch.tensor(cfg.learning_rate, dtype=torch.float32,
@@ -422,12 +448,17 @@ def boost_round(F: torch.Tensor, codes: torch.Tensor, codes_t: torch.Tensor,
     return tree
 
 
-def _apply_tree(tree: T.Tree, codes: torch.Tensor, F: torch.Tensor,
+def _apply_tree(tree, codes: torch.Tensor, F: torch.Tensor,
                 cfg: GBDTConfig) -> torch.Tensor:
     """Add one round's tree to the raw scores ``F`` of new data, through
-    the same traversal kernel as serving (in place)."""
-    feat, thr, left, right, leaf = T.heap_to_node_arrays(
-        tree.feat, tree.thr, tree.value)
+    the same traversal kernel as serving (in place).  A heap tree is
+    mapped onto pointer nodes; a `tree.NodeTree` carries its pointers."""
+    if isinstance(tree, T.NodeTree):
+        feat, thr, left, right, leaf = (tree.feat, tree.thr, tree.left,
+                                        tree.right, tree.value)
+    else:
+        feat, thr, left, right, leaf = T.heap_to_node_arrays(
+            tree.feat, tree.thr, tree.value)
     out_col = torch.zeros(1, dtype=torch.int32, device=F.device)
     return predict_kernel.forest_traverse(
         F, codes, feat[None], thr[None], left[None], right[None],

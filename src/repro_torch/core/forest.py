@@ -15,8 +15,10 @@ trees of the level-wise grower; any multiple of 8 after `compact_forest`):
   node_count   (T,) int32       nodes used per tree
   depth        int              walk bound
 
-Both producers number children after their parent, so one forward sweep
-over node ids visits every parent before its children.  Prune and compact
+Both producers (heap trees of the level-wise grower, `tree.NodeTree`s of
+the leaf-wise grower, numbered in creation order) number children after
+their parent, so one forward sweep over node ids visits every parent
+before its children.  Prune and compact
 are numpy array surgery on the host, as in the reference, and their result
 goes back to the forest's device.
 
@@ -32,6 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import losses as L
 from repro_torch.core import tree as T
 from repro_torch.kernels import predict_kernel, predict_quant_kernel
 
@@ -113,10 +116,30 @@ def _heap_cover(leaf_cover: torch.Tensor) -> torch.Tensor:
     return torch.cat(levels, 1)
 
 
-def pack_forest(forest: T.Forest, base_score: torch.Tensor,
-                learning_rate: float) -> PackedForest:
-    """Canonicalize stacked heap trees (``single_tree``) into a
-    `PackedForest` over the global node numbering."""
+def pack_forest(forest, base_score: torch.Tensor, learning_rate: float, *,
+                max_depth: Optional[int] = None) -> PackedForest:
+    """Canonicalize stacked training trees (``single_tree``) into a
+    `PackedForest`: heap `tree.Forest` buffers map onto the global node
+    numbering; a stacked `tree.NodeTree` packs as it is.  ``max_depth``
+    overrides the walk bound (the leaf-wise trainer passes its depth
+    limit); by default it comes from the heap's shape or, for node trees,
+    from a host-side sweep of the pointers."""
+    if isinstance(forest, T.NodeTree):
+        left = forest.left.to(torch.int32)
+        right = forest.right.to(torch.int32)
+        if max_depth is None:
+            max_depth = _pointer_max_depth(_np(left), _np(right))
+        return PackedForest(
+            feat=forest.feat.to(torch.int32), thr=forest.thr.to(torch.int32),
+            left=left, right=right, leaf=forest.value.to(torch.float32),
+            out_col=torch.zeros(forest.n_trees, dtype=torch.int32,
+                                device=left.device),
+            base=base_score.to(torch.float32).reshape(-1),
+            lr=torch.tensor(learning_rate, dtype=torch.float32),
+            cover=forest.cover.to(torch.float32),
+            gain=forest.gain.to(torch.float32),
+            node_count=forest.node_count.to(torch.int32),
+            depth=int(max_depth))
     feat, thr, left, right, leaf = T.heap_to_node_arrays(
         forest.feat.to(torch.int32), forest.thr.to(torch.int32),
         forest.value.to(torch.float32))
@@ -136,7 +159,36 @@ def pack_forest(forest: T.Forest, base_score: torch.Tensor,
         cover=cover, gain=gain,
         node_count=torch.full((n_trees,), h + n_leaves, dtype=torch.int32,
                               device=device),
-        depth=n_leaves.bit_length() - 1)
+        depth=(n_leaves.bit_length() - 1 if max_depth is None
+               else int(max_depth)))
+
+
+def unpack_forest(pf: PackedForest):
+    """Inverse of `pack_forest`: ``(forest, strategy)``.  A heap-canonical
+    forest unpacks into heap `tree.Forest` buffers (leaf covers as packed;
+    internal covers were derived), any other into a stacked
+    `tree.NodeTree`.  A one-vs-all forest (width-1 leaves) comes back with
+    a per-output axis, ``(rounds, d, ...)``."""
+    one_vs_all = pf.leaf_width != pf.n_outputs
+    d = pf.n_outputs
+    strategy = "one_vs_all" if one_vs_all else "single_tree"
+
+    def unfold(x):
+        if x is None or not one_vs_all:
+            return x
+        return x.reshape((pf.n_trees // d, d) + tuple(x.shape[1:]))
+    if pf.is_heap:
+        h = (pf.n_nodes - 1) // 2
+        fields = dict(
+            feat=pf.feat[:, :h], thr=pf.thr[:, :h], value=pf.leaf[:, h:],
+            gain=None if pf.gain is None else pf.gain[:, :h],
+            cover=None if pf.cover is None else pf.cover[:, h:])
+        return T.Forest(**{k: unfold(v) for k, v in fields.items()}), \
+            strategy
+    fields = dict(feat=pf.feat, thr=pf.thr, left=pf.left, right=pf.right,
+                  value=pf.leaf, gain=pf.gain, cover=pf.cover,
+                  node_count=pf.node_count)
+    return T.NodeTree(**{k: unfold(v) for k, v in fields.items()}), strategy
 
 
 def _pointer_max_depth(left, right) -> int:
@@ -392,4 +444,44 @@ def predict_raw_pipelined(pf, rows, *, row_chunk: int = 8192,
         main.wait_event(ready)
         part.record_stream(main)
         _apply(pf, out[s:s + chunk], prepare(part))
+    return out
+
+
+def _round_groups(pf):
+    """Each boosting round's trees as a forest of their own, in order."""
+    k = pf.trees_per_round
+    for r in range(pf.n_rounds):
+        yield pf._replace(**{f: v[r * k:(r + 1) * k]
+                             for f, v in pf._asdict().items()
+                             if f in _TREE_AXIS_FIELDS and v is not None})
+
+
+def predict_staged(pf, codes: torch.Tensor) -> torch.Tensor:
+    """Cumulative raw scores after every boosting round: ``(n_rounds, n,
+    d)``.  One traversal launch per round group adds that round's trees to
+    the running scores, so ``staged[r]`` equals `predict_raw` of
+    `slice_rounds` ``(pf, r + 1)`` bit for bit.  Holds the whole trajectory:
+    meant for validation-sized inputs."""
+    n, d = codes.shape[0], pf.n_outputs
+    F = pf.base.to(codes.device).expand(n, d).contiguous()
+    staged = torch.empty((pf.n_rounds, n, d), dtype=torch.float32,
+                         device=codes.device)
+    for r, group in enumerate(_round_groups(pf)):
+        F = _apply(group, F, codes)
+        staged[r] = F
+    return staged
+
+
+def staged_eval(pf, codes: torch.Tensor, Y: torch.Tensor,
+                loss_name: str) -> torch.Tensor:
+    """Validation loss after every boosting round, ``(n_rounds,)`` float32,
+    without holding the staged scores: the arg-min gives the best
+    iteration.  The scores are `predict_staged`'s."""
+    loss = L.get_loss(loss_name)
+    n, d = codes.shape[0], pf.n_outputs
+    F = pf.base.to(codes.device).expand(n, d).contiguous()
+    out = torch.zeros(pf.n_rounds, dtype=torch.float32, device=codes.device)
+    for r, group in enumerate(_round_groups(pf)):
+        F = _apply(group, F, codes)
+        out[r] = loss.value(F, Y)
     return out

@@ -15,6 +15,10 @@ is ``parent - built``.
 The partitioned level step (the reference's ``build_level_jnp``) is
 the fused `repro_torch.kernels.ops.histogram_splits_level`: the B1 kernel
 on the card, its plain version on the CPU.
+
+The leaf-wise grower carries a `NodePartition` instead: the same stable
+row order, split one node's segment at a time (`split_partition_at`); its
+one-node builds are `repro_torch.kernels.ops.node_histogram`.
 """
 from __future__ import annotations
 
@@ -97,6 +101,66 @@ def advance_level_state(state: LevelState,
     node_new[dest] = child.to(torch.int32)
     return LevelState(order=order_new, node_perm=node_new,
                       counts=counts_new.to(torch.int32))
+
+
+class NodePartition(NamedTuple):
+    """Row partition over the leaf-wise grower's node ids.
+
+    ``order`` is a permutation of ``[0, n)`` whose positions ``[starts[j],
+    starts[j] + counts[j])`` hold the rows of node ``j`` in dataset order;
+    ``node_perm[i]`` is the node of ``order[i]``.  A split leaves its
+    children where the parent's segment was, so segments are not sorted
+    by node id.  ``order`` and ``node_perm`` (n,) int32 lie on the data's
+    device; ``starts`` and ``counts`` (n_slots,) int32 are host (CPU)
+    tensors, which the grower reads to cut segments without a device read.
+    """
+    order: torch.Tensor
+    node_perm: torch.Tensor
+    starts: torch.Tensor
+    counts: torch.Tensor
+
+
+def init_node_partition(n: int, n_slots: int, device=None) -> NodePartition:
+    """Every row in root node 0, identity order; the other slots empty."""
+    counts = torch.zeros(n_slots, dtype=torch.int32)
+    counts[0] = n
+    return NodePartition(
+        order=torch.arange(n, dtype=torch.int32, device=device),
+        node_perm=torch.zeros(n, dtype=torch.int32, device=device),
+        starts=torch.zeros(n_slots, dtype=torch.int32), counts=counts)
+
+
+def split_partition_at(part: NodePartition, p: int, c1: int, c2: int,
+                       go_right: torch.Tensor) -> NodePartition:
+    """Split node ``p``'s segment stably into children ``c1`` (its
+    left-routed rows, first) and ``c2``, each keeping dataset order.
+
+    ``go_right`` (n,) is the routing bit in ORIGINAL row order.  Only the
+    segment is touched (the reference scans all n rows under a mask to keep
+    its shapes fixed; the result is the same).  One host read: the left
+    count.  Returns a new partition; ``part`` is unchanged.
+    """
+    s0, cnt = int(part.starts[p]), int(part.counts[p])
+    seg = part.order[s0:s0 + cnt]
+    bit = go_right[seg.long()].to(torch.uint8)
+    n_left = cnt - int(bit.sum())
+    order = part.order.clone()
+    order[s0:s0 + cnt] = seg[torch.argsort(bit, stable=True)]
+    node_perm = part.node_perm.clone()
+    node_perm[s0:s0 + n_left] = c1
+    node_perm[s0 + n_left:s0 + cnt] = c2
+    counts, starts = part.counts.clone(), part.starts.clone()
+    counts[c1], counts[c2], counts[p] = n_left, cnt - n_left, 0
+    starts[c1], starts[c2] = s0, s0 + n_left
+    return NodePartition(order=order, node_perm=node_perm, starts=starts,
+                         counts=counts)
+
+
+def gather_node_rows(part: NodePartition, node: int) -> torch.Tensor:
+    """The dataset rows of ``node``, in partition order: exactly its
+    ``counts[node]`` rows (a view of ``order``)."""
+    s0 = int(part.starts[node])
+    return part.order[s0:s0 + int(part.counts[node])]
 
 
 def smaller_children(counts: torch.Tensor):

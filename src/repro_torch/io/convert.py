@@ -17,7 +17,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.forest import PackedForest
 from repro_torch.core.quantize import QuantizedForest, Quantizer
-from repro_torch.core.tree import Tree
+from repro_torch.core.tree import NodeTree, Tree
 from repro_torch.explain.paths import PathPack
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import check_family, unstack
@@ -89,6 +89,21 @@ def tree_from_arrays(feat, thr, value, gain, cover=None,
     return Tree(feat=t(feat, torch.int32), thr=t(thr, torch.int32),
                 value=t(value, torch.float32), gain=t(gain, torch.float32),
                 cover=None if cover is None else t(cover, torch.float32))
+
+
+def node_tree_from_arrays(arrays: Mapping[str, np.ndarray], *,
+                          device=None) -> NodeTree:
+    """A leaf-wise `NodeTree` (or a stacked one) from the reference's
+    fields: feat, thr, left, right, node_count as int32; value, gain,
+    cover as float32."""
+    device = resolve_device(device)
+    dtypes = dict(feat=torch.int32, thr=torch.int32, left=torch.int32,
+                  right=torch.int32, value=torch.float32,
+                  gain=torch.float32, cover=torch.float32,
+                  node_count=torch.int32)
+    return NodeTree(**{k: torch.as_tensor(np.array(arrays[k]), dtype=dtype,
+                                          device=device)
+                       for k, dtype in dtypes.items()})
 
 
 def path_pack_from_arrays(arrays: Mapping[str, np.ndarray], *,

@@ -30,6 +30,18 @@
 // deterministic kill+resume of training requires.  Codes are read as uint8.
 // A launch handles at most CW channels (from c0); the wrapper launches once
 // per window of CW channels.
+//
+// B1-bf16 (`hist_nodes_bf16_launch`) replaces the same TPU kernel with
+// `hist_dtype="bfloat16"` (src/repro/kernels/hist_kernel.py:150), whose
+// contract is bf16 inputs with float32 accumulation.  It is this kernel body
+// instantiated for `__nv_bfloat16` statistics: each value is widened exactly
+// with `__bfloat162float` as it is staged, and every sum is the float32 sum
+// of B1 in B1's order.  So it is bit for bit fp32 B1 run on the statistics
+// rounded to bf16, and it reads half of B1's statistics bytes (2 C bytes a
+// row instead of 4 C).  No bf16 tensor-core product: that would change the
+// order of the sums, and the tie to fp32 B1 with it.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
@@ -38,10 +50,16 @@ constexpr int TILE = 256;   // rows per tile, and the largest bin count
 constexpr int GROUPS = 4;   // tiles in flight per block
 constexpr int CW = 8;       // channels per launch
 
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(TILE * GROUPS)
 hist_nodes_kernel(const uint8_t* __restrict__ codes_t,
                   const int32_t* __restrict__ order,
-                  const float* __restrict__ stats_p,
+                  const T* __restrict__ stats_p,
                   const int32_t* __restrict__ counts,
                   const int32_t* __restrict__ build_counts,
                   float* __restrict__ out, int n, int m, int n_bins, int C,
@@ -75,9 +93,9 @@ hist_nodes_kernel(const uint8_t* __restrict__ codes_t,
     if (b < len) {
       const long long p = start + row0 + b;
       s_code[g][b] = col[order[p]];
-      const float* s = stats_p + p * C + c0;
+      const T* s = stats_p + p * C + c0;
 #pragma unroll
-      for (int c = 0; c < CW; ++c) s_buf[g][b][c] = c < cw ? s[c] : 0.0f;
+      for (int c = 0; c < CW; ++c) s_buf[g][b][c] = c < cw ? widen(s[c]) : 0.0f;
     }
     __syncthreads();
 
@@ -114,6 +132,22 @@ hist_nodes_kernel(const uint8_t* __restrict__ codes_t,
   }
 }
 
+template <typename T>
+int launch(const void* codes_t, const void* order, const void* stats_p,
+           const void* counts, const void* build_counts, void* out, int n,
+           int m, int n_nodes, int n_bins, int C, int c0, int cw,
+           void* stream) {
+  if (n_bins > TILE || cw > CW || cw < 1) return cudaErrorInvalidValue;
+  dim3 grid(n_nodes, m);
+  hist_nodes_kernel<T><<<grid, TILE * GROUPS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes_t), static_cast<const int32_t*>(order),
+      static_cast<const T*>(stats_p), static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(build_counts), static_cast<float*>(out), n,
+      m, n_bins, C, c0, cw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int hist_nodes_launch(const void* codes_t, const void* order,
@@ -121,12 +155,15 @@ extern "C" int hist_nodes_launch(const void* codes_t, const void* order,
                                  const void* build_counts, void* out, int n,
                                  int m, int n_nodes, int n_bins, int C, int c0,
                                  int cw, void* stream) {
-  if (n_bins > TILE || cw > CW || cw < 1) return cudaErrorInvalidValue;
-  dim3 grid(n_nodes, m);
-  hist_nodes_kernel<<<grid, TILE * GROUPS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes_t), static_cast<const int32_t*>(order),
-      static_cast<const float*>(stats_p), static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(build_counts), static_cast<float*>(out), n,
-      m, n_bins, C, c0, cw);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(codes_t, order, stats_p, counts, build_counts, out, n,
+                       m, n_nodes, n_bins, C, c0, cw, stream);
+}
+
+extern "C" int hist_nodes_bf16_launch(const void* codes_t, const void* order,
+                                      const void* stats_p, const void* counts,
+                                      const void* build_counts, void* out,
+                                      int n, int m, int n_nodes, int n_bins,
+                                      int C, int c0, int cw, void* stream) {
+  return launch<__nv_bfloat16>(codes_t, order, stats_p, counts, build_counts,
+                               out, n, m, n_nodes, n_bins, C, c0, cw, stream);
 }

@@ -1,7 +1,8 @@
 """The grower's level steps: histograms -> (sibling combine ->) splits.
 
-Port of `histogram`, `histogram_splits`, `histogram_splits_level` and
-`_tile_plan` of the JAX package's ``kernels/ops.py``, without the TPU's
+Port of `histogram`, `histogram_splits`, `histogram_splits_level`,
+`node_histogram` and `_tile_plan` of the JAX package's ``kernels/ops.py``,
+without the TPU's
 layout: no 128-lane channel padding, no row or sublane padding, no
 ``nb_chunk`` grid, and no per-tile histograms in device memory (the
 histogram kernels fold their tile sums into themselves).  Histograms stay
@@ -14,7 +15,22 @@ from typing import Optional
 import torch
 
 from repro_torch.core.histogram import interleave_children, smaller_children
-from repro_torch.kernels import hist_kernel, split_kernel
+from repro_torch.kernels import hist_kernel, ref, split_kernel
+
+
+def stats_for(stats: torch.Tensor, hist_dtype: str) -> torch.Tensor:
+    """``stats`` in the storage type of ``hist_dtype``'s kernel: float32
+    for B1, bfloat16 (rounded to nearest even) for B1-bf16.  The one cast:
+    a grower makes it once per tree, and the builders below take its
+    result as it is."""
+    return stats.to(ref.stats_dtype(hist_dtype))
+
+
+def _require_cast(stats: torch.Tensor, hist_dtype: str) -> None:
+    dtype = ref.stats_dtype(hist_dtype)
+    if stats.dtype != dtype:
+        raise ValueError(f"stats must be {dtype} for hist_dtype="
+                         f"{hist_dtype!r} (see stats_for), got {stats.dtype}")
 
 
 def histogram(codes_t: torch.Tensor, node_pos: torch.Tensor,
@@ -36,16 +52,18 @@ def histogram_splits(codes_t: torch.Tensor, node_pos: torch.Tensor,
     output as it is.  Returns per-node ``(best_gain, best_idx)``."""
     hist = histogram(codes_t, node_pos, stats, n_nodes=n_nodes,
                      n_bins=n_bins)
-    return split_kernel.split_scan(hist, lam, min_data,
-                                   _mask(feature_mask, codes_t.shape[0],
-                                         stats.device))
+    return split_scan(hist, lam, min_data, feature_mask)
 
 
-def _mask(feature_mask: Optional[torch.Tensor], m: int,
-          device) -> torch.Tensor:
-    """(m,) float32 feature mask for the split scan; all ones if None."""
-    return (torch.ones(m, dtype=torch.float32, device=device)
+def split_scan(hist: torch.Tensor, lam: float, min_data: float,
+               feature_mask: Optional[torch.Tensor] = None):
+    """The split scan (B2) of ``(nodes, m, n_bins, C)`` histograms, with
+    all features legal when ``feature_mask`` is None.  Returns per-node
+    ``(best_gain, best_idx)``."""
+    mask = (torch.ones(hist.shape[1], dtype=torch.float32,
+                       device=hist.device)
             if feature_mask is None else feature_mask.to(torch.float32))
+    return split_kernel.split_scan(hist, lam, min_data, mask)
 
 
 def tile_plan(counts: torch.Tensor, build_counts: torch.Tensor, *, n: int,
@@ -81,30 +99,60 @@ def histogram_splits_level(codes_t: torch.Tensor, stats: torch.Tensor,
                            prev_hist: Optional[torch.Tensor], lam: float,
                            min_data: float,
                            feature_mask: Optional[torch.Tensor] = None, *,
-                           n_bins: int, subtract: bool):
+                           n_bins: int, subtract: bool,
+                           hist_dtype: str = "float32"):
     """One level of split search over the node-sorted row partition.
 
-    ``codes_t`` (m, n) uint8, ``stats`` (n, C) float32 in row order,
-    ``order``/``counts`` the `core.histogram.LevelState` partition.  With
-    ``subtract`` only the smaller child of each parent is built (ties ->
-    left) and its sibling is ``prev_hist - built``.  Returns ``(best_gain,
-    best_idx, hist)``: per-node results of the split scan and this level's
-    ``(n_nodes, m, n_bins, C)`` histograms, the next level's ``prev_hist``.
+    ``codes_t`` (m, n) uint8, ``stats`` (n, C) in row order and in
+    ``hist_dtype``'s storage type (`stats_for`), ``order``/``counts`` the
+    `core.histogram.LevelState` partition.  With ``subtract`` only the
+    smaller child of each parent is built (ties -> left) and its sibling is
+    ``prev_hist - built``.  Under ``hist_dtype="bfloat16"`` the statistics
+    are bf16 before the partition gather (so the gather moves half the
+    bytes) and the build runs B1-bf16; the histograms stay float32.  Returns ``(best_gain, best_idx, hist)``:
+    per-node results of the split scan and this level's ``(n_nodes, m,
+    n_bins, C)`` histograms, the next level's ``prev_hist``.
     """
-    m = codes_t.shape[0]
     if subtract:
         side, is_built = smaller_children(counts)
         build_counts = torch.where(is_built, counts, 0).to(torch.int32)
     else:
         build_counts = counts
-    stats_p = stats.to(torch.float32).index_select(0, order.long())
+    _require_cast(stats, hist_dtype)
+    stats_p = stats.index_select(0, order.long())
     hist = hist_kernel.hist_nodes(codes_t, order, stats_p.contiguous(),
-                                  counts, build_counts, n_bins=n_bins)
+                                  counts, build_counts, n_bins=n_bins,
+                                  hist_dtype=hist_dtype)
     if subtract:
         pairs = hist.reshape((-1, 2) + hist.shape[1:])
         s = side.reshape(-1, 1, 1, 1)
         built = torch.where(s == 0, pairs[:, 0], pairs[:, 1])
         hist = interleave_children(side, built, prev_hist - built)
-    gain, idx = split_kernel.split_scan(hist, lam, min_data,
-                                        _mask(feature_mask, m, stats.device))
+    gain, idx = split_scan(hist, lam, min_data, feature_mask)
     return gain, idx, hist
+
+
+def node_histogram(codes_t: torch.Tensor, rows: torch.Tensor,
+                   stats: torch.Tensor, *, n_bins: int,
+                   hist_dtype: str = "float32") -> torch.Tensor:
+    """One node's histogram ``(m, n_bins, C)`` float32: B1 (or B1-bf16)
+    over the node's rows, the leaf-wise grower's builder.
+
+    ``codes_t`` (m, n) uint8 and ``stats`` (n, C) in dataset row order and
+    in ``hist_dtype``'s storage type (`stats_for`); ``rows`` (S,) int32 the
+    node's rows in partition order, gathered exactly (no fixed buffer), so
+    the one node's count is S.  The sums run in
+    ``rows`` order in 256-row tiles, tiles in order: the level engine's
+    sums for the same rows.  Semantics of the reference's
+    ``ops.node_histogram`` and ``histogram.node_hist_jnp``.
+    """
+    _require_cast(stats, hist_dtype)
+    m, s, c = codes_t.shape[0], rows.shape[0], stats.shape[1]
+    if s == 0:
+        return torch.zeros((m, n_bins, c), dtype=torch.float32,
+                           device=stats.device)
+    rows = rows.to(torch.int32).contiguous()
+    stats_p = stats.index_select(0, rows.long()).contiguous()
+    one = torch.full((1,), s, dtype=torch.int32, device=stats.device)
+    return hist_kernel.hist_nodes(codes_t, rows, stats_p, one, one,
+                                  n_bins=n_bins, hist_dtype=hist_dtype)[0]

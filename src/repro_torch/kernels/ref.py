@@ -37,20 +37,39 @@ def histogram_tiles_ref(codes_g: torch.Tensor, stats_g: torch.Tensor, *,
     return out.reshape(m, n_tiles, n_bins, c)
 
 
+# The statistics' storage type for each ``hist_dtype``: float32 for B1,
+# bfloat16 for B1-bf16.
+HIST_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def stats_dtype(hist_dtype: str) -> torch.dtype:
+    """The statistics' storage type of ``hist_dtype``; any other name
+    raises, as the reference's ``hist_tiles_pallas`` does."""
+    if hist_dtype not in HIST_DTYPES:
+        raise ValueError(f"unknown hist_dtype {hist_dtype!r}; "
+                         f"expected one of {tuple(HIST_DTYPES)}")
+    return HIST_DTYPES[hist_dtype]
+
+
 def hist_nodes_ref(codes_t: torch.Tensor, order: torch.Tensor,
                    stats_p: torch.Tensor, counts: torch.Tensor,
                    build_counts: torch.Tensor, *, n_bins: int,
-                   row_tile: int = 256) -> torch.Tensor:
+                   row_tile: int = 256,
+                   hist_dtype: str = "float32") -> torch.Tensor:
     """Plain B1: per-node histograms of node-contiguous rows.
 
     Node ``v`` contributes the first ``build_counts[v]`` rows of its
     segment of the partition (``order``, segment sizes ``counts``); the rows
     are laid into node-contiguous ``row_tile`` tiles (`ops.tile_plan`),
     histogrammed per tile, and the tiles summed into their node in tile
-    order.  ``stats_p`` is (n, C) in partition order.  Returns
-    ``(n_nodes, m, n_bins, C)``.
+    order.  ``stats_p`` is (n, C) in partition order.  With ``hist_dtype
+    = "bfloat16"`` (B1's bf16 variant) the statistics are first rounded to
+    bfloat16, to nearest even, and the sums stay float32: the one-hot
+    products of the reference's bf16 contraction are exact, so this is its
+    function.  Returns ``(n_nodes, m, n_bins, C)`` float32.
     """
     from repro_torch.kernels.ops import tile_plan
+    stats_p = stats_p.to(stats_dtype(hist_dtype)).to(torch.float32)
     n = order.shape[0]
     m = codes_t.shape[0]
     n_nodes = counts.shape[0]

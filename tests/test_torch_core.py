@@ -35,9 +35,7 @@ def test_config_fields_and_defaults_match_reference():
 
 
 @pytest.mark.parametrize("option", [
-    dict(strategy="one_vs_all"), dict(growth="leafwise", max_leaves=8),
-    dict(growth="leafwise"), dict(max_leaves=8),
-    dict(hist_dtype="bfloat16"), dict(hessian_floor=0.5),
+    dict(strategy="one_vs_all"), dict(hessian_floor=0.5),
     dict(ckpt_dir="ck"), dict(guard_policy="raise"),
     dict(subsample=0.5), dict(goss_a=0.2, goss_b=0.1), dict(colsample=0.5),
     dict(guard_policy="clip"), dict(save_every=2, ckpt_dir="ck"),
@@ -49,8 +47,6 @@ def test_out_of_slice_options_raise(option):
 
 @pytest.mark.parametrize("option,slice_name", [
     (dict(strategy="one_vs_all"), "one_vs_all"),
-    (dict(growth="leafwise", max_leaves=8), "leaf-wise"),
-    (dict(hist_dtype="bfloat16"), "leaf-wise \\+ bf16"),
     (dict(subsample=0.5), "sampling"), (dict(goss_a=0.2), "sampling"),
     (dict(colsample=0.5), "sampling"),
     (dict(guard_policy="skip_round"), "robustness"),
@@ -67,7 +63,10 @@ def test_refusals_name_their_slice(option, slice_name):
     dict(hist_engine=e) for e in ("auto", "direct", "partition", "subtract")
 ] + [dict(sketch_method=s) for s in ("none", "top_outputs",
                                      "random_sampling", "random_projection",
-                                     "truncated_svd")])
+                                     "truncated_svd")] + [
+    dict(growth="leafwise", max_leaves=8), dict(hist_dtype="bfloat16"),
+    dict(growth="leafwise", max_leaves=64, hist_dtype="bfloat16"),
+    dict(growth="leafwise", max_leaves=2, hist_engine="subtract")])
 def test_ported_options_are_accepted(option):
     TB.GBDTConfig(**option).validate()
     assert TB.SketchBoost(TB.GBDTConfig(**option), device="cpu").cfg == \

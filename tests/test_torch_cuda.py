@@ -639,3 +639,138 @@ def test_lm_decode_on_card_matches_cpu(dev, arch):
         out, _ = model.decode_step(caches[1], x[:, i])
         torch.testing.assert_close(out.cpu(), want[i], atol=1e-4, rtol=1e-4)
     assert decode_attention.KERNEL.launches == before + 40 * cfg.n_layers
+
+
+# B1-bf16 at several node layouts (the cases of the B1 test above).
+@pytest.mark.parametrize("n,m,B,C,levels", [(3000, 5, 256, 6, 3),
+                                            (2500, 3, 37, 11, 4),
+                                            (700, 2, 16, 2, 5)])
+def test_hist_nodes_bf16_kernel(dev, n, m, B, C, levels):
+    """B1-bf16 is fp32 B1 on the bf16-rounded statistics, bit for bit, the
+    same run to run, and within rtol 1e-6 of its plain version on the CPU
+    (the same sums; the plain version's ``index_add_``), the count channel
+    bitwise."""
+    g = torch.Generator(device=dev).manual_seed(n + 1)
+    codes_t = torch.randint(0, B, (m, n), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    stats = torch.randn((n, C), generator=g, device=dev)
+    stats[:, -1] = 1.0
+    state = H.init_level_state(n, device=dev)
+    for lvl in range(levels):
+        if lvl:
+            state = H.advance_level_state(
+                state, torch.rand(n, generator=g, device=dev) < 0.3)
+        built = (H.smaller_children(state.counts)[1] if lvl
+                 else torch.ones(1, dtype=torch.bool, device=dev))
+        bc = torch.where(built, state.counts, 0).to(torch.int32)
+        stats_p = stats[state.order.long()].to(torch.bfloat16).contiguous()
+        args = (codes_t, state.order, stats_p, state.counts, bc)
+        out = hist_kernel.hist_nodes(*args, n_bins=B, hist_dtype="bfloat16")
+        again = hist_kernel.hist_nodes(*args, n_bins=B, hist_dtype="bfloat16")
+        fp32 = hist_kernel.hist_nodes(codes_t, state.order, stats_p.float(),
+                                      state.counts, bc, n_bins=B)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert torch.equal(out, fp32)
+        plain = ref.hist_nodes_ref(*[a.cpu() for a in args], n_bins=B,
+                                   hist_dtype="bfloat16")
+        np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        assert torch.equal(out[..., -1].cpu(), plain[..., -1])
+
+
+def test_hist_nodes_bf16_wrapper_counts_launches_and_checks_types(dev):
+    n, m, C = 600, 3, 10
+    codes_t = torch.randint(0, 16, (m, n), device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    order = torch.arange(n, dtype=torch.int32, device=dev)
+    counts = torch.full((1,), n, dtype=torch.int32, device=dev)
+    stats = torch.randn((n, C), device=dev)
+    b1, b1_bf16 = hist_kernel.KERNEL.launches, hist_kernel.KERNEL_BF16.launches
+    hist_kernel.hist_nodes(codes_t, order, stats.to(torch.bfloat16), counts,
+                           counts, n_bins=16, hist_dtype="bfloat16")
+    assert hist_kernel.KERNEL_BF16.launches == b1_bf16 + 2    # 2 windows
+    assert hist_kernel.KERNEL.launches == b1
+    with pytest.raises(ValueError, match="bfloat16"):
+        hist_kernel.hist_nodes(codes_t, order, stats, counts, counts,
+                               n_bins=16, hist_dtype="bfloat16")
+    with pytest.raises(ValueError, match="float32"):
+        hist_kernel.hist_nodes(codes_t, order, stats.to(torch.bfloat16),
+                               counts, counts, n_bins=16)
+    with pytest.raises(ValueError, match="unknown hist_dtype"):
+        hist_kernel.hist_nodes(codes_t, order, stats, counts, counts,
+                               n_bins=16, hist_dtype="float16")
+
+
+def test_hist_nodes_refuses_an_order_longer_than_its_rows(dev):
+    """An ``order`` past the rows of ``codes_t`` raises before B1 would
+    read past its ends; so does one whose ``stats_p`` differs in length."""
+    n, m, C = 600, 3, 4
+    codes_t = torch.randint(0, 16, (m, n), device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    counts = torch.full((1,), n, dtype=torch.int32, device=dev)
+    order = torch.arange(n + 1, dtype=torch.int32, device=dev) % n
+    stats = torch.randn((n + 1, C), device=dev)
+    with pytest.raises(ValueError, match="more than"):
+        hist_kernel.hist_nodes(codes_t, order, stats, counts, counts,
+                               n_bins=16)
+    with pytest.raises(ValueError, match="stats_p"):
+        hist_kernel.hist_nodes(codes_t, order[:n], stats, counts, counts,
+                               n_bins=16)
+
+
+@pytest.mark.parametrize("hist_dtype", ["float32", "bfloat16"])
+def test_node_histogram_on_card_matches_cpu(dev, hist_dtype):
+    """One node's build (the leaf-wise grower's) on the card against the
+    CPU: rtol 1e-6, count channel bitwise."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, m, B, C = 5000, 4, 256, 6
+    codes_t = torch.randint(0, B, (m, n), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    stats = torch.randn((n, C), generator=g, device=dev)
+    stats[:, -1] = 1.0
+    rows = torch.nonzero(torch.rand(n, generator=g, device=dev) < 0.4)[:, 0]
+    rows = rows.to(torch.int32)
+    stats = ops.stats_for(stats, hist_dtype)
+    out = ops.node_histogram(codes_t, rows, stats, n_bins=B,
+                             hist_dtype=hist_dtype)
+    cpu = ops.node_histogram(codes_t.cpu(), rows.cpu(), stats.cpu(),
+                             n_bins=B, hist_dtype=hist_dtype)
+    np.testing.assert_allclose(out.cpu().numpy(), cpu.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert torch.equal(out[..., -1].cpu(), cpu[..., -1])
+
+
+@pytest.mark.parametrize("cfg", [dict(growth="leafwise", max_leaves=11),
+                                 dict(growth="leafwise", max_leaves=11,
+                                      hist_dtype="bfloat16"),
+                                 dict(hist_dtype="bfloat16")])
+def test_leafwise_and_bf16_fit_on_card_matches_cpu(dev, cfg):
+    """Leaf-wise and bf16 fits on the card against the CPU, same data and
+    injected Pi: predictions within atol 1e-4, same best round and node
+    counts; bf16 fits launch B1-bf16 and not fp32 B1; staged prediction on
+    the card ends bitwise at ``predict_raw``."""
+    from repro_torch.core import forest as FO
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+    from repro_torch.data.pipeline import make_tabular
+    X, y = make_tabular("multiclass", 3000, 12, 8, seed=3, n_informative=12)
+    rng = np.random.default_rng(0)
+    draws = [rng.normal(size=(8, 3)).astype(np.float32) / np.sqrt(3.0)
+             for _ in range(6)]
+    config = GBDTConfig(n_trees=6, depth=4, sketch_k=3, min_data_in_leaf=20,
+                        early_stopping_rounds=2, **cfg)
+    b1, b1_bf16 = hist_kernel.KERNEL.launches, hist_kernel.KERNEL_BF16.launches
+    card = SketchBoost(config, device=dev).fit(
+        X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]), sketch_mats=draws)
+    bf16 = cfg.get("hist_dtype") == "bfloat16"
+    assert (hist_kernel.KERNEL_BF16.launches > b1_bf16) == bf16
+    assert (hist_kernel.KERNEL.launches > b1) == (not bf16)
+    cpu = SketchBoost(config, device="cpu").fit(
+        X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]), sketch_mats=draws)
+    pred = card.predict_raw(X[2400:])
+    assert float((pred.cpu() - cpu.predict_raw(X[2400:])).abs().max()) <= 1e-4
+    assert card.best_round == cpu.best_round
+    assert torch.equal(card.packed.node_count.cpu(), cpu.packed.node_count)
+    staged = FO.predict_staged(card.packed, card._bin(X[2400:]))
+    assert torch.equal(staged[-1], pred)
