@@ -8,13 +8,15 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA build;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, in parallel; B1 and B1-bf16 share ``hist.cu``, B3 and both
-     B5 entry points ``predict.cu``; B4 is ``hist_direct.cu``, B6
-     ``shap.cu``, B7 ``flash_attention.cu``, B8 ``decode_attention.cu``)
-     and time the build;
+     B5 entry points ``predict.cu``; B4 is ``hist_direct.cu``, built with
+     B1 on ``hist_common.cuh``; B6 ``shap.cu``, B7 ``flash_attention.cu``,
+     B8 ``decode_attention.cu``) and time the build;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (B1-bf16 at B1's level-1 shape also bitwise against
      fp32 B1 fed the bf16-rounded statistics, and timed beside it; B4
-     bitwise at level 5 of the paper's tree; B2's
+     bitwise at level 5 of the paper's tree, both summing in tiles of
+     ``ref.TILE_ROWS`` rows, with each build's registers, shared memory a
+     block and blocks an SM; B2's
      wide kernel at SketchBoost Full's level 5, C = 513; B5 also against B3
      on the dequantized forest; B6 wide and with narrow blocks at per-tree
      columns; B7 at the prefill's layer, 1 x 32 heads over 8 x 32,768 x
@@ -213,7 +215,9 @@ def check_hist(torch, case):
         max_abs_err=float((out - plain).abs().max()),
         ms=cuda_ms(lambda: hist_kernel.hist_nodes(*args, n_bins=B)),
         plain_ms=cuda_ms(lambda: ref.hist_nodes_ref(*args, n_bins=B), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=library)
+        bound_ms=b_ms, bound_by=b_by, library_ms=library,
+        build=hist_kernel.launch_info(hist_kernel.KERNEL, c=C,
+                                      n_bins=B))
 
 
 def check_hist_bf16(torch, case):
@@ -260,13 +264,16 @@ def check_hist_bf16(torch, case):
         plain_ms=cuda_ms(lambda: ref.hist_nodes_ref(*args, **kw), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=library,
         fp32_b1_ms=cuda_ms(lambda: hist_kernel.hist_nodes(*fp32_args,
-                                                          n_bins=B)))
+                                                          n_bins=B)),
+        build=hist_kernel.launch_info(hist_kernel.KERNEL_BF16, c=C,
+                                      n_bins=B))
 
 
 def check_hist_direct(torch, gen, dev):
     """B4 at level 5 of a 2,097,152-row root: 32 nodes, m=100, B=256, C=6,
     each row's node drawn on the card; bitwise against its plain version
-    (each cell's rows added in row order) and from run to run."""
+    (each cell's rows added in row order within chunks of
+    ``ref.TILE_ROWS`` rows, chunks in order) and from run to run."""
     from repro_torch.kernels import hist_kernel, ref
     n, m, B, C, nodes = N_TRAIN, 100, 256, 6, 32
     codes_t = torch.randint(0, B, (m, n), generator=gen, device=dev,
@@ -305,7 +312,9 @@ def check_hist_direct(torch, gen, dev):
         replaces="src/repro/kernels/hist_kernel.py:70",
         max_abs_err=err,
         ms=cuda_ms(lambda: hist_kernel.hist_direct(*args, **kw)),
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library)
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library,
+        build=hist_kernel.launch_info(hist_kernel.DIRECT_KERNEL, c=C,
+                                      n_bins=B))
 
 
 def check_split(torch, gen, dev):
@@ -896,6 +905,8 @@ def engines_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels, rounds=3):
               f"resident before), launches {r['launches']}")
     full_launches = rec["none"]["launches"]
     assert full_launches["split_scan_wide"] == cfg.depth * 2, full_launches
+    # Full's d + 1 = 513 channels go in one B1 launch a level.
+    assert full_launches["hist_nodes"] == cfg.depth * 2, full_launches
     assert full_launches["split_scan"] == 0, full_launches
     assert direct_launches["split_scan_wide"] == 0, direct_launches
     rec["none"]["profile"] = profile_rounds(torch, model, dev, Xtr, ytr, Xev,
@@ -1807,7 +1818,11 @@ def main() -> int:
         print(f"[3] {r['name']}: max_abs_err {r['max_abs_err']!r} kernel "
               f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) library "
-              f"{r['library_ms']}")
+              f"{r['library_ms']}" + (f" build {r['build']}"
+                                      if "build" in r else ""))
+        if r["library_ms"] is not None:
+            print(f"[3] {r['name']}: library / kernel time "
+                  f"{r['library_ms'] / r['ms']:.3f}")
     print(f"[3] small fit, cuda vs cpu: max |diff| {check_small_fit(torch)!r}")
 
     t0 = time.perf_counter()
@@ -1839,6 +1854,9 @@ def main() -> int:
     print(f"[4] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     fit_launches = {k.name: k.launches for k in kernels}
     print(f"[4] launches in fit: {fit_launches}")
+    # One B1 launch a level, every channel in it.
+    assert fit_launches["hist_nodes"] == cfg.depth * len(model.history), \
+        fit_launches
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()

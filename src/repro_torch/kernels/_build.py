@@ -4,9 +4,9 @@ Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface (pointers and the stream as ``void*``, a
 ``cudaError_t`` returned as ``int``) under ``build/repro_torch_kernels/`` at
 the repository root.  A library's file name carries a hash of its source,
-the shared header and the flags, so a changed source builds anew and an
-unchanged one is reused.  `build` starts one ``nvcc`` per missing library,
-all together, and waits for them.
+the shared headers (``csrc/*.cuh``) and the flags, so a changed source
+builds anew and an unchanged one is reused.  `build` starts one ``nvcc`` per
+missing library, all together, and waits for them.
 """
 from __future__ import annotations
 
@@ -25,7 +25,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_HEADER = CSRC / "common.cuh"
 _LOCK = threading.Lock()
 
 
@@ -63,7 +62,8 @@ class CudaKernel:
     @property
     def library(self) -> Path:
         h = hashlib.sha256()
-        for part in (self.source.read_bytes(), _HEADER.read_bytes(),
+        headers = [p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
+        for part in (self.source.read_bytes(), *headers,
                      " ".join(self.flags).encode()):
             h.update(part)
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
@@ -79,6 +79,15 @@ class CudaKernel:
             self._lib.repro_error_string.restype = ctypes.c_char_p
             self._fn = fn
         return self._fn
+
+    def call(self, symbol: str, argtypes: Sequence, *args) -> int:
+        """Call another C function of the kernel's library, one that
+        returns an int: a query, not a launch, so it counts nothing."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn(*args)
 
     def launch(self, *args) -> None:
         """Launch on PyTorch's current stream; raise on a CUDA error."""

@@ -142,8 +142,8 @@ def node_histogram(codes_t: torch.Tensor, rows: torch.Tensor,
     in ``hist_dtype``'s storage type (`stats_for`); ``rows`` (S,) int32 the
     node's rows in partition order, gathered exactly (no fixed buffer), so
     the one node's count is S.  The sums run in
-    ``rows`` order in 256-row tiles, tiles in order: the level engine's
-    sums for the same rows.  Semantics of the reference's
+    ``rows`` order in tiles of `ref.TILE_ROWS` rows, tiles in order: the
+    level engine's sums for the same rows.  Semantics of the reference's
     ``ops.node_histogram`` and ``histogram.node_hist_jnp``.
     """
     _require_cast(stats, hist_dtype)

@@ -4,7 +4,8 @@ Each function computes what its kernel computes, with the same inputs, in
 plain tensor operations: the CPU path of the wrappers and the yardstick the
 kernels are held to on the card.  Counterparts in the JAX package's
 ``kernels/ref.py``: `hist_nodes_ref` is ``histogram_tiles_ref`` followed by
-the tile->node ``segment_sum`` of ``ops.histogram_splits_level``;
+the tile->node ``segment_sum`` of ``ops.histogram_splits_level``, with
+tiles of `TILE_ROWS` rows (the reference's are 256);
 `histogram_ref` (the direct engine), `split_scan_ref`, `node_walk_ref`,
 `forest_apply_ref`, `forest_apply_quant_ref`, the TreeSHAP helpers,
 `tree_shap_ref` and `tree_shap_interventional_ref` are their namesakes;
@@ -22,20 +23,11 @@ import torch
 from repro_torch.core import split as S
 
 
-def histogram_tiles_ref(codes_g: torch.Tensor, stats_g: torch.Tensor, *,
-                        n_bins: int, row_tile: int = 256) -> torch.Tensor:
-    """(m, S) codes + (S, C) stats -> (m, S // row_tile, n_bins, C) per-tile
-    histograms, each summed in row order."""
-    m, s = codes_g.shape
-    c = stats_g.shape[1]
-    n_tiles = s // row_tile
-    tile = torch.arange(s, device=codes_g.device) // row_tile
-    out = torch.zeros((m, n_tiles * n_bins, c), dtype=torch.float32,
-                      device=stats_g.device)
-    for f in range(m):
-        out[f].index_add_(0, tile * n_bins + codes_g[f].long(), stats_g)
-    return out.reshape(m, n_tiles, n_bins, c)
-
+# Rows a tile: B1 cuts each node's segment into tiles of this many rows,
+# B4 the dataset order into chunks of it (``kTileRows`` in
+# ``csrc/hist_common.cuh``).  Within a tile every cell adds its rows in row
+# order from 0.0; the tiles' partial sums are added in tile order from 0.0.
+TILE_ROWS = 16384
 
 # The statistics' storage type for each ``hist_dtype``: float32 for B1,
 # bfloat16 for B1-bf16.
@@ -54,15 +46,17 @@ def stats_dtype(hist_dtype: str) -> torch.dtype:
 def hist_nodes_ref(codes_t: torch.Tensor, order: torch.Tensor,
                    stats_p: torch.Tensor, counts: torch.Tensor,
                    build_counts: torch.Tensor, *, n_bins: int,
-                   row_tile: int = 256,
+                   row_tile: int = TILE_ROWS,
                    hist_dtype: str = "float32") -> torch.Tensor:
     """Plain B1: per-node histograms of node-contiguous rows.
 
     Node ``v`` contributes the first ``build_counts[v]`` rows of its
     segment of the partition (``order``, segment sizes ``counts``); the rows
-    are laid into node-contiguous ``row_tile`` tiles (`ops.tile_plan`),
-    histogrammed per tile, and the tiles summed into their node in tile
-    order.  ``stats_p`` is (n, C) in partition order.  With ``hist_dtype
+    are cut into ``row_tile`` tiles from the segment's start
+    (`ops.tile_plan`), each tile histogrammed in row order (``index_add_``,
+    which keeps that order on the CPU), and the tiles added into their node
+    in tile order from 0.0, the k-th tile of every node in step k.
+    ``stats_p`` is (n, C) in partition order.  With ``hist_dtype
     = "bfloat16"`` (B1's bf16 variant) the statistics are first rounded to
     bfloat16, to nearest even, and the sums stay float32: the one-hot
     products of the reference's bf16 contraction are exact, so this is its
@@ -74,61 +68,91 @@ def hist_nodes_ref(codes_t: torch.Tensor, order: torch.Tensor,
     m = codes_t.shape[0]
     n_nodes = counts.shape[0]
     c = stats_p.shape[1]
-    per_node = torch.clamp((build_counts + row_tile - 1) // row_tile, min=1)
+    dev = stats_p.device
+    per_node = torch.clamp((build_counts.long() + row_tile - 1) // row_tile,
+                           min=1)
     n_tiles = int(per_node.sum())
     tile_node, src, valid = tile_plan(counts, build_counts, n=n,
                                       n_tiles=n_tiles, row_tile=row_tile)
-    codes_g = codes_t[:, order.long()[src.long()]]
-    stats_g = stats_p[src.long()] * valid[:, None]
-    tiles = histogram_tiles_ref(codes_g, stats_g, n_bins=n_bins,
-                                row_tile=row_tile)
+    slot = torch.nonzero(valid)[:, 0]
+    tile = slot // row_tile
+    src = src.long()[slot]
+    codes_g = codes_t[:, order.long()[src]].long()
+    stats_g = stats_p[src]
+    tiles = torch.zeros((m, n_tiles * n_bins, c), dtype=torch.float32,
+                        device=dev)
+    for f in range(m):
+        tiles[f].index_add_(0, tile * n_bins + codes_g[f], stats_g)
+    tiles = tiles.reshape(m, n_tiles, n_bins, c).transpose(0, 1)
+    tile_node = tile_node.long()
+    k_of = (torch.arange(n_tiles, device=dev)
+            - (torch.cumsum(per_node, 0) - per_node)[tile_node])
     out = torch.zeros((n_nodes, m, n_bins, c), dtype=torch.float32,
-                      device=stats_p.device)
-    out.index_add_(0, tile_node.long(), tiles.transpose(0, 1))
+                      device=dev)
+    for k in range(int(per_node.max()) if n_nodes else 0):
+        sel = torch.nonzero(k_of == k)[:, 0]
+        nodes = tile_node[sel]
+        out[nodes] = out[nodes] + tiles[sel]
     return out
 
 
+def _sums_in_order(key: torch.Tensor, values_of, width: int):
+    """For each distinct ``key``, the float32 sum of ``values_of(e)`` (rows
+    of ``width`` values) over its entries ``e`` in entry order, added one at
+    a time from 0.0.  Returns the distinct keys, ascending, and their sums.
+    Entries are stably sorted by key; the r-th entry of every key is added
+    in step r, where no two adds share a key, so the result is the same on
+    every device."""
+    order = torch.sort(key, stable=True).indices
+    sorted_key = key[order]
+    pos = torch.arange(order.numel(), device=key.device)
+    first = torch.ones_like(sorted_key, dtype=torch.bool)
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    group = torch.cumsum(first, 0) - 1
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    by_rank = torch.sort(rank, stable=True).indices
+    sums = torch.zeros((int(first.sum()), width), dtype=torch.float32,
+                       device=key.device)
+    s = 0
+    for size in torch.bincount(rank).tolist():
+        idx = by_rank[s:s + size]
+        g = group[idx]
+        sums[g] = sums[g] + values_of(order[idx])
+        s += size
+    return sorted_key[first], sums
+
+
 def histogram_ref(codes_t: torch.Tensor, node_pos: torch.Tensor,
-                  stats: torch.Tensor, *, n_nodes: int,
-                  n_bins: int) -> torch.Tensor:
+                  stats: torch.Tensor, *, n_nodes: int, n_bins: int,
+                  chunk_rows: int = TILE_ROWS) -> torch.Tensor:
     """Plain B4: the direct engine's whole-level histograms.
 
     ``codes_t`` (m, n) codes, ``node_pos`` (n,) node of each row, ``stats``
     (n, C) float32, all in dataset row order.  ``out[v, f, b, c]`` sums
     ``stats[i, c]`` over the rows ``i`` with ``node_pos[i] == v`` and
-    ``codes_t[f, i] == b``, adding them one at a time in row order from 0.0
-    (the kernel keeps that order).  Rows are stably sorted by cell; the
-    r-th row of every cell is then added in step r, where no two adds
-    share a cell, so the result is the same on every device.  Returns
-    ``(n_nodes, m, n_bins, C)``.
+    ``codes_t[f, i] == b``.  The rows are cut into chunks of ``chunk_rows``
+    rows of the dataset order; within a chunk each cell adds its rows one
+    at a time in row order from 0.0, and the chunks' partial sums are added
+    into the cell in chunk order from 0.0 (the kernel keeps that order).
+    Returns ``(n_nodes, m, n_bins, C)``.
     """
     m, n = codes_t.shape
     c = stats.shape[1]
     dev = stats.device
-    out = torch.zeros((n_nodes * m * n_bins, c), dtype=torch.float32,
-                      device=dev)
+    n_cells = n_nodes * m * n_bins
+    out = torch.zeros((n_cells, c), dtype=torch.float32, device=dev)
     if n == 0 or m == 0:
         return out.reshape(n_nodes, m, n_bins, c)
     feat = torch.arange(m, device=dev)[:, None]
-    cell = ((node_pos.long()[None, :] * m + feat) * n_bins
-            + codes_t.long()).reshape(-1)
-    order = torch.sort(cell, stable=True).indices       # by cell, then row
-    sorted_cell = cell[order]
-    pos = torch.arange(order.numel(), device=dev)
-    first = torch.ones_like(sorted_cell, dtype=torch.bool)
-    first[1:] = sorted_cell[1:] != sorted_cell[:-1]
-    start = torch.cummax(torch.where(first, pos, 0), 0).values
-    rank = pos - start                                   # row's step
-    by_rank = torch.sort(rank, stable=True).indices
-    sizes = torch.bincount(rank).tolist()
-    rows = order % n
+    chunk = torch.arange(n, device=dev)[None, :] // chunk_rows
+    cell = (node_pos.long()[None, :] * m + feat) * n_bins + codes_t.long()
     stats = stats.to(torch.float32)
-    s = 0
-    for size in sizes:
-        idx = by_rank[s:s + size]
-        cells = sorted_cell[idx]
-        out[cells] = out[cells] + stats[rows[idx]]
-        s += size
+    # Each (chunk, cell) in row order: entry f * n + i is row i.
+    keys, part = _sums_in_order((chunk * n_cells + cell).reshape(-1),
+                                lambda e: stats[e % n], c)
+    # Each cell's chunk partials in chunk order (keys ascend chunk-major).
+    cells, sums = _sums_in_order(keys % n_cells, lambda e: part[e], c)
+    out[cells] = sums
     return out.reshape(n_nodes, m, n_bins, c)
 
 

@@ -28,9 +28,14 @@ def dev():
     return torch.device("cuda")
 
 
+R = ref.TILE_ROWS
+
+
 @pytest.mark.parametrize("n,m,B,C,levels", [(3000, 5, 256, 6, 3),
                                             (2500, 3, 37, 11, 4),
-                                            (700, 2, 16, 2, 5)])
+                                            (700, 2, 16, 2, 5),
+                                            (3 * R + 17, 4, 256, 6, 3),
+                                            (3 * R + 17, 2, 37, 13, 2)])
 def test_hist_nodes_kernel_matches_plain(dev, n, m, B, C, levels):
     g = torch.Generator(device=dev).manual_seed(n)
     codes_t = torch.randint(0, B, (m, n), generator=g, device=dev,
@@ -53,6 +58,7 @@ def test_hist_nodes_kernel_matches_plain(dev, n, m, B, C, levels):
         # Same summation order as the plain version on the CPU.
         np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(),
                                    rtol=1e-6)
+        assert torch.equal(out[..., -1].cpu(), plain[..., -1])
 
 
 @pytest.mark.parametrize("nodes,m,B,C", [(32, 9, 256, 6), (5, 4, 31, 17),
@@ -401,11 +407,14 @@ def _direct_case(dev, n, m, nodes, B, C, seed):
 
 @pytest.mark.parametrize("n,m,nodes,B,C", [
     (1, 3, 1, 256, 6), (1000, 4, 32, 256, 6), (4096, 3, 1, 2, 1),
-    (777, 5, 4, 37, 13), (3000, 2, 64, 256, 8), (513, 6, 8, 17, 2)])
+    (777, 5, 4, 37, 13), (3000, 2, 64, 256, 8), (513, 6, 8, 17, 2),
+    (3 * R + 17, 4, 8, 37, 13), (3 * R + 17, 3, 32, 256, 6),
+    (R - 3, 2, 4, 16, 70)])
 def test_hist_direct_kernel_bitwise(dev, n, m, nodes, B, C):
     """B4 against its plain version, bitwise, on the card and on the CPU
-    (each cell adds its rows in row order in both), and bitwise from run to
-    run; 13 channels take two windows, 64 nodes at C=8 three chunks."""
+    (each cell adds its rows in row order within a chunk of R rows, chunks
+    in order, in both), and bitwise from run to run; 3R + 17 rows take four
+    chunks, 70 channels two channel groups of a feature."""
     args = _direct_case(dev, n, m, nodes, B, C, n + C)
     out = hist_kernel.hist_direct(*args, n_nodes=nodes, n_bins=B)
     again = hist_kernel.hist_direct(*args, n_nodes=nodes, n_bins=B)
@@ -423,7 +432,7 @@ def test_hist_direct_wrapper_counts_launches_and_checks_types(dev):
     args = _direct_case(dev, 300, 2, 2, 16, 10, 0)
     before = hist_kernel.DIRECT_KERNEL.launches
     hist_kernel.hist_direct(*args, n_nodes=2, n_bins=16)
-    assert hist_kernel.DIRECT_KERNEL.launches == before + 2   # two windows
+    assert hist_kernel.DIRECT_KERNEL.launches == before + 1   # all channels
     codes_t, node_pos, stats = args
     for bad in ((codes_t.int(), node_pos, stats),
                 (codes_t, node_pos.long(), stats),
@@ -431,7 +440,7 @@ def test_hist_direct_wrapper_counts_launches_and_checks_types(dev):
                 (codes_t, node_pos[:-1], stats)):
         with pytest.raises(ValueError):
             hist_kernel.hist_direct(*bad, n_nodes=2, n_bins=16)
-    assert hist_kernel.DIRECT_KERNEL.launches == before + 2
+    assert hist_kernel.DIRECT_KERNEL.launches == before + 1
 
 
 @pytest.mark.parametrize("cfg", [dict(hist_engine="direct"),
@@ -644,7 +653,8 @@ def test_lm_decode_on_card_matches_cpu(dev, arch):
 # B1-bf16 at several node layouts (the cases of the B1 test above).
 @pytest.mark.parametrize("n,m,B,C,levels", [(3000, 5, 256, 6, 3),
                                             (2500, 3, 37, 11, 4),
-                                            (700, 2, 16, 2, 5)])
+                                            (700, 2, 16, 2, 5),
+                                            (3 * R + 17, 4, 256, 6, 3)])
 def test_hist_nodes_bf16_kernel(dev, n, m, B, C, levels):
     """B1-bf16 is fp32 B1 on the bf16-rounded statistics, bit for bit, the
     same run to run, and within rtol 1e-6 of its plain version on the CPU
@@ -689,7 +699,7 @@ def test_hist_nodes_bf16_wrapper_counts_launches_and_checks_types(dev):
     b1, b1_bf16 = hist_kernel.KERNEL.launches, hist_kernel.KERNEL_BF16.launches
     hist_kernel.hist_nodes(codes_t, order, stats.to(torch.bfloat16), counts,
                            counts, n_bins=16, hist_dtype="bfloat16")
-    assert hist_kernel.KERNEL_BF16.launches == b1_bf16 + 2    # 2 windows
+    assert hist_kernel.KERNEL_BF16.launches == b1_bf16 + 1    # all channels
     assert hist_kernel.KERNEL.launches == b1
     with pytest.raises(ValueError, match="bfloat16"):
         hist_kernel.hist_nodes(codes_t, order, stats, counts, counts,
@@ -774,3 +784,70 @@ def test_leafwise_and_bf16_fit_on_card_matches_cpu(dev, cfg):
     assert torch.equal(card.packed.node_count.cpu(), cpu.packed.node_count)
     staged = FO.predict_staged(card.packed, card._bin(X[2400:]))
     assert torch.equal(staged[-1], pred)
+
+
+@pytest.mark.parametrize("C", [1, 6, 13, 513])
+def test_hist_kernels_take_all_channels_in_one_launch(dev, C):
+    """One launch a call at any channel count, over two tiles: B1 (three
+    nodes, the middle one empty) within rtol 1e-6 of its plain version on
+    the CPU with the count channel bitwise, B4 bitwise its plain version;
+    both the same from run to run, and the empty node all zeros."""
+    g = torch.Generator(device=dev).manual_seed(C)
+    n, m, B = R + 300, 3, 32
+    codes_t = torch.randint(0, B, (m, n), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    stats = torch.randn((n, C), generator=g, device=dev)
+    stats[:, -1] = 1.0
+    node = torch.randint(0, 2, (n,), generator=g, device=dev,
+                         dtype=torch.int32) * 2
+    order = torch.sort(node, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(node, minlength=3).to(torch.int32)
+    args = (codes_t, order, stats[order.long()].contiguous(), counts, counts)
+    b1, b4 = hist_kernel.KERNEL.launches, hist_kernel.DIRECT_KERNEL.launches
+    out = hist_kernel.hist_nodes(*args, n_bins=B)
+    assert hist_kernel.KERNEL.launches == b1 + 1
+    assert torch.equal(out, hist_kernel.hist_nodes(*args, n_bins=B))
+    plain = ref.hist_nodes_ref(*[a.cpu() for a in args], n_bins=B)
+    np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert torch.equal(out[..., -1].cpu(), plain[..., -1])
+    assert not out[1].any()
+    direct = hist_kernel.hist_direct(codes_t, node, stats, n_nodes=3,
+                                     n_bins=B)
+    assert hist_kernel.DIRECT_KERNEL.launches == b4 + 1
+    assert torch.equal(direct, hist_kernel.hist_direct(
+        codes_t, node, stats, n_nodes=3, n_bins=B))
+    assert torch.equal(direct, ref.histogram_ref(codes_t, node, stats,
+                                                 n_nodes=3, n_bins=B))
+    assert not direct[1].any()
+
+
+def test_one_node_build_of_a_million_rows(dev):
+    """The leaf-wise grower's one-node build over about 943k of 2^20 rows
+    (58 tiles, the size of level 1 of the main path): one B1 launch, the
+    same from run to run, within rtol 1e-6 of the CPU with the count channel
+    bitwise; a build count of zero leaves every cell zero."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(11)
+    n, m, B, C = 1 << 20, 4, 256, 6
+    codes_t = torch.randint(0, B, (m, n), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    stats = torch.randn((n, C), generator=g, device=dev)
+    stats[:, -1] = 1.0
+    rows = torch.nonzero(torch.rand(n, generator=g, device=dev) < 0.9)[:, 0]
+    rows = rows.to(torch.int32)
+    before = hist_kernel.KERNEL.launches
+    out = ops.node_histogram(codes_t, rows, stats, n_bins=B)
+    assert hist_kernel.KERNEL.launches == before + 1
+    assert torch.equal(out, ops.node_histogram(codes_t, rows, stats,
+                                               n_bins=B))
+    cpu = ops.node_histogram(codes_t.cpu(), rows.cpu(), stats.cpu(),
+                             n_bins=B)
+    np.testing.assert_allclose(out.cpu().numpy(), cpu.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert torch.equal(out[..., -1].cpu(), cpu[..., -1])
+    one = torch.full((1,), rows.numel(), dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(one)
+    none = hist_kernel.hist_nodes(codes_t, rows, stats[rows.long()], one,
+                                  zero, n_bins=B)
+    assert none.shape == (1, m, B, C) and not none.any()

@@ -90,6 +90,34 @@ def test_histogram_ref_sums_each_cell_in_row_order():
     assert np.count_nonzero(one) == m * np.count_nonzero(stats[0])
 
 
+@pytest.mark.parametrize("chunk", [5, 64])
+def test_histogram_ref_sums_chunks_in_order(chunk):
+    """B4's documented order in a float32 numpy replay at a small chunk
+    length: rows in dataset order cut into chunks; within a chunk each cell
+    adds its rows one at a time in row order from 0.0, and the chunks'
+    partial sums are added into the cell in chunk order from 0.0.  Four
+    chunks and a one-row fifth, empty nodes and repeated cells."""
+    rng = np.random.default_rng(chunk)
+    n, m, nodes, B, c = 4 * chunk + 1, 3, 6, 4, 3
+    codes = rng.integers(0, B, (n, m)).astype(np.uint8)
+    node = rng.choice([0, 2, 5], n).astype(np.int32)     # 1, 3, 4 empty
+    stats = (rng.normal(size=(n, c)) * 10.0 ** rng.integers(-4, 5, (n, 1))
+             ).astype(np.float32)
+    want = np.zeros((nodes, m, B, c), np.float32)
+    for r0 in range(0, n, chunk):
+        part = np.zeros_like(want)
+        for i in range(r0, min(r0 + chunk, n)):
+            for f in range(m):
+                cell = part[node[i], f, codes[i, f]]
+                cell[:] = (cell + stats[i]).astype(np.float32)
+        want = (want + part).astype(np.float32)
+    got = ref.histogram_ref(torch.from_numpy(codes.T.copy()),
+                            torch.from_numpy(node), torch.from_numpy(stats),
+                            n_nodes=nodes, n_bins=B, chunk_rows=chunk)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[[1, 3, 4]].any()
+
+
 def test_build_histograms_matches_reference():
     codes, node, stats = _direct_problem(4, 333, 4, 4, 16, 3, False)
     got = TO.histogram(torch.from_numpy(codes.T.copy()),

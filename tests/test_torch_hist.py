@@ -4,6 +4,8 @@ Inputs are made with numpy from a seed and go through the JAX package
 (jnp paths, ``ref`` oracles, or Pallas ``interpret=True``) and its PyTorch
 port on the CPU, where the port's kernel wrappers run their plain versions.
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +20,7 @@ from repro.kernels import ref as JR
 from repro_torch.core import histogram as TH
 from repro_torch.core import split as TS
 from repro_torch.core import tree as TT
-from repro_torch.kernels import hist_kernel, split_kernel
+from repro_torch.kernels import hist_kernel, ref, split_kernel
 from repro_torch.kernels import ops as TO
 
 
@@ -153,6 +155,62 @@ def test_plain_hist_matches_tiles_ref_and_segment_sum(seed, B):
     np.testing.assert_allclose(got.numpy()[..., :-1], expect[..., :-1],
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(got.numpy()[..., -1], expect[..., -1])
+
+
+def _replay_b1(codes, order, stats_p, counts, build, B, row_tile):
+    """B1's documented order in float32 numpy: each node's first
+    ``build[v]`` rows cut into ``row_tile`` tiles from its segment's start;
+    each cell of a tile adds its rows in row order from 0.0, and the tiles
+    are added into the node in tile order from 0.0."""
+    m, c = codes.shape[1], stats_p.shape[1]
+    out = np.zeros((len(counts), m, B, c), np.float32)
+    start = 0
+    for v, (cnt, bc) in enumerate(zip(counts, build)):
+        for t0 in range(0, bc, row_tile):
+            part = np.zeros((m, B, c), np.float32)
+            for p in range(start + t0, start + min(t0 + row_tile, bc)):
+                for f in range(m):
+                    cell = part[f, codes[order[p], f]]
+                    cell[:] = (cell + stats_p[p]).astype(np.float32)
+            out[v] = (out[v] + part).astype(np.float32)
+        start += cnt
+    return out
+
+
+@pytest.mark.parametrize("row_tile", [7, 64])
+def test_hist_nodes_ref_sums_tiles_in_order(row_tile):
+    """Plain B1 keeps its documented order bit for bit (a float32 numpy
+    replay at a small tile length): rows cross several tile boundaries,
+    one node is empty, one builds none of its rows, one ends in a one-row
+    tile, and the segments end before the rows of ``codes_t`` do."""
+    rng = np.random.default_rng(row_tile)
+    m, B, c = 3, 6, 3
+    counts = np.array([3 * row_tile + 1, 0, 40, 2 * row_tile + 5, 9],
+                      np.int32)
+    build = counts.copy()
+    build[2] = 0
+    build[3] -= 2
+    s = int(counts.sum())
+    n = s + 11
+    codes = rng.integers(0, B, (n, m)).astype(np.uint8)
+    order = rng.permutation(n)[:s].astype(np.int32)
+    stats_p = (rng.normal(size=(s, c)) * 10.0 ** rng.integers(-4, 5, (s, 1))
+               ).astype(np.float32)
+    want = _replay_b1(codes, order, stats_p, counts, build, B, row_tile)
+    got = ref.hist_nodes_ref(
+        torch.from_numpy(codes.T.copy()), torch.from_numpy(order),
+        torch.from_numpy(stats_p), torch.from_numpy(counts),
+        torch.from_numpy(build), n_bins=B, row_tile=row_tile)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[1].any() and not got[2].any()
+
+
+def test_tile_rows_is_the_kernels_constant():
+    """The plain versions' tile length is the one the kernels are built
+    with."""
+    src = (Path(hist_kernel.__file__).parent / "csrc"
+           / "hist_common.cuh").read_text()
+    assert f"constexpr int kTileRows = {ref.TILE_ROWS};" in src
 
 
 def _hist_native(h):
