@@ -21,25 +21,64 @@
 // (the wrapper refuses shapes where one would not).
 //
 // Bound on the H100.  The prefill's layer (1 x 32 heads x 32,768 rows,
-// dh 120, causal, window 4,096) does 4 dh operations for each of its 1.26e8
-// unmasked (query, key) pairs a head, 1.93e12 in all: 28.8 ms at the fp32
-// rate of the CUDA cores (67 TFLOP/s), against 0.19 ms for its 629 MB of
-// bytes.  So it is bound by operations.
+// dh 120, causal, window 4,096) has 1.26e8 unmasked (query, key) pairs a
+// head.  The bf16 body below does QK^T (2 dh operations a pair) and P V as
+// three bf16 products (6 dh), 3.87e12 operations in all on the tensor cores:
+// 3.9 ms at 989 TFLOP/s, against 0.19 ms for its 629 MB of bytes.  So it is
+// bound by operations.
 //
-// Design (simple and right first; tensor cores and TMA come later).  One
-// block of 128 threads per (64-row query tile, query head, batch row).  It
-// keeps its query tile in shared memory as float32 and walks only the
-// 64-key tiles that the causal band and the window reach (the "causal
-// grid-skip"): a tile wholly masked for a row adds exp(-1e30 - m) = 0 to
-// it, and one before the row's first key is wiped by alpha = exp(-1e30 - m)
-// = 0, so skipping them is exact.  For each tile it stages K and V in shared
-// memory as float32 (zeros past sk and past dh), computes the 64 x 64 scores
-// with fp32 FMAs on the CUDA cores (a thread owns 4 rows x 8 interleaved
-// keys), applies the masks and the online softmax in registers (row max and
-// sum over the 8 lanes that share a row), writes the probabilities
-// transposed to shared memory, and adds P V into its 4 rows x (4 x NC4)
-// columns of the accumulator.  Shared-memory strides are chosen so that
-// each quarter-warp's 16-byte loads hit distinct banks.
+// bfloat16 body (`tc::flash_attention_tc_kernel`, Hopper's tensor cores).
+// One block of two warpgroups (256 threads) per (128-row query tile, query
+// head, batch row); warpgroup w owns query rows 64 w .. 64 w + 63.  The
+// block walks only the 64-key tiles that the causal band and the window
+// reach (the "causal grid-skip"), and a warpgroup skips the tiles that are
+// wholly masked for its own rows: a tile wholly masked for a row adds
+// exp(-1e30 - m) = 0 to it, and one before the row's first key is wiped by
+// alpha = exp(-1e30 - m) = 0, so skipping them is exact.
+//  - Shared memory holds the query tile and a ring of two K/V tiles, each
+//    in bf16 with dh padded with zeros to a multiple of 64 and laid out in
+//    the 128-byte swizzle that `wgmma` descriptors name: atoms of 8 rows x
+//    64 columns (1,024 bytes), 16-byte chunk c of row r at chunk c ^ (r % 8).
+//    The next tile's K and V are copied by `cp.async` (16 bytes a copy,
+//    zero-filled past sk and past dh) while the current one is computed.
+//    A thread copies one 16-byte column of every row it owns, so its
+//    shared offsets and swizzle are fixed and the copy loop unrolls (the
+//    loop with index math a copy took more issue slots than the tile's
+//    products, `tools/flash_tile_sweep.py`).
+//    Rows that are not 16-byte aligned (dh not a multiple of 8) are staged
+//    by ordinary loads and stores instead, into the same layout.
+//  - S = Q K^T: `wgmma` m64n64k16 with both operands from shared memory
+//    (K-major), float32 accumulators in registers.  Products of bf16 inputs
+//    are exact, and the zero padding adds exact zeros, so only the order of
+//    the sums changes.
+//  - Masks and the online softmax act on the accumulator fragment in
+//    registers: thread t of warp w holds rows 16 w + t / 4 (+ 8) and
+//    columns 8 j + 2 (t % 4) (+ 1); a row's max and sum take the four lanes
+//    that share it.  exp(x) is computed as 2^(x log2 e), with log2 e folded
+//    into the scale, by one `ex2.approx.ftz` (a p below 2^-126 becomes 0,
+//    an absolute error under 1.2e-38).
+//  - P V keeps the probabilities float32: each p is split into three bf16
+//    parts, hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid), whose
+//    sum is p exactly (each subtraction is exact; `ref.split_bf16x3`).  V is
+//    exact in bf16, so hi V + mid V + lo V accumulated in float32 is P V up
+//    to the order of the sums.  The parts go straight from the score
+//    fragment into `wgmma`'s register A operand (m64n64k16, the same
+//    layout); V's tile is the shared-memory B operand, read transposed
+//    (MN-major).
+// The tensor cores' float32 accumulation does not round each add as fmaf
+// does; the held limit (one bf16 ulp of each output plus 1e-5) covers it.
+//
+// float32 body (`flash_attention_kernel`, the CUDA cores).  float32 inputs
+// are not exact on the tensor cores and no float32 attention is on the
+// prefill's path (it serves float32 copies of a model and the tests), so it
+// keeps the first design: one block of 128 threads per (64-row query tile,
+// query head, batch row), the same grid-skip, K and V staged in shared
+// memory as float32 (zeros past sk and past dh), the 64 x 64 scores with
+// fp32 FMAs (a thread owns 4 rows x 8 interleaved keys), masks and the
+// online softmax in registers (row max and sum over the 8 lanes that share
+// a row), the probabilities written transposed to shared memory, and P V
+// added into 4 rows x (4 x NC4) columns a thread.  Shared-memory strides
+// are chosen so that each quarter-warp's 16-byte loads hit distinct banks.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -54,13 +93,7 @@ constexpr float NEG_INF = -1e30f;
 static_assert(BQ == BK, "load_tile stages BK rows for the query tile too");
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);   // round to nearest even, as torch's cast
-}
 
 // Row stride of the query and key tiles: dh rounded up to 8, plus 4, so the
 // stride is an odd multiple of 4 floats and the 8 key groups' float4 loads
@@ -278,6 +311,399 @@ int launch_type(const void* q, const void* k, const void* v, void* out, int b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bfloat16 body on the tensor cores.
+namespace tc {
+
+constexpr int BQ = 128;        // query rows a block: two warpgroups of 64
+constexpr int BK = 64;         // keys a tile
+constexpr int THREADS = 256;
+constexpr int STAGES = 2;      // K/V tiles in the ring
+constexpr int ATOM = 1024;     // one swizzle atom: 8 rows x 128 bytes
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A `wgmma` shared-memory descriptor of a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+// (128-byte swizzle).  The stride byte offset steps between 8-row groups.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+// Shared-memory writes of this thread made visible to `wgmma` (the async
+// proxy) once the block has passed its next barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins accumulator registers in program order around the asynchronous
+// products.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define B7_D32(d)                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define B7_REGS32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (64 x 64, float32) += A (64 x 16) B (16 x 64): A and B bf16 in shared
+// memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " B7_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : B7_D32(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A B with A from registers (the fragment of a 64 x 16 bf16 tile) and
+// B in shared memory, MN-major (read transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " B7_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : B7_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// ROWS rows of dh bf16 at src (`valid` of them exist) into NA swizzled
+// column atoms at dst: atom a holds columns 64 a .. 64 a + 63 of every row,
+// ROWS * 128 bytes; zeros past `valid` rows and past dh.  Thread i copies
+// 16-byte chunk i % 8 of every atom's rows i / 8 + 32 p, so its shared
+// offsets and its swizzle are fixed.  With `async` the chunks go by
+// cp.async (rows 16-byte aligned, dh % 8 == 0); otherwise by ordinary loads
+// and shared stores.
+template <int NA, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* __restrict__ src,
+                                          int valid, int dh, bool async) {
+  static_assert(ROWS % (THREADS / 8) == 0, "whole passes of the block");
+  const int ch = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  const uint32_t d0 = dst + r0 * 128 + ((ch ^ (r0 & 7)) << 4);
+  const __nv_bfloat16* g0 = src + static_cast<long long>(r0) * dh + 8 * ch;
+  constexpr int STEP = THREADS / 8;            // rows a pass
+  if (async) {
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int p = 0; p < ROWS / STEP; ++p) {
+        const bool ok = r0 + STEP * p < valid && 64 * a + 8 * ch < dh;
+        const __nv_bfloat16* g =
+            g0 + static_cast<long long>(STEP * p) * dh + 64 * a;
+        cp_async16(d0 + a * (ROWS * 128) + p * (STEP * 128), ok ? g : src,
+                   ok ? 16 : 0);
+      }
+    return;
+  }
+  for (int a = 0; a < NA; ++a)
+    for (int p = 0; p < ROWS / STEP; ++p) {
+      const int r = r0 + STEP * p, col = 64 * a + 8 * ch;
+      const unsigned short* ps = reinterpret_cast<const unsigned short*>(
+          g0 + static_cast<long long>(STEP * p) * dh + 64 * a);
+      uint32_t h[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        h[e] = (r < valid && col + e < dh) ? ps[e] : 0u;
+      st_shared16(d0 + a * (ROWS * 128) + p * (STEP * 128),
+                  make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                             h[4] | (h[5] << 16), h[6] | (h[7] << 16)));
+    }
+}
+
+// 2^x, flushing results below 2^-126 to 0 (one MUFU operation).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// NA: 64-column atoms of the padded head width (dh <= 64 NA).
+template <int NA>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ out, int hq, int hkv,
+                          int sq, int sk, int dh, int causal, int window,
+                          float scale, int async) {
+  constexpr uint32_t Q_ATOM = BQ * 128;        // bytes of one Q column atom
+  constexpr uint32_t T_ATOM = BK * 128;        // ... of one K or V atom
+  constexpr uint32_t TILE = NA * T_ATOM;       // one K or V tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t qs = (smem_addr(smem_raw) + ATOM - 1) & ~(ATOM - 1);
+  const uint32_t ring = qs + NA * Q_ATOM;      // stage s: K, then V
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q_rows = min(BQ, sq - q0);
+  const long long head = static_cast<long long>(b) * hq + h;
+  const long long kv_head = static_cast<long long>(b) * hkv + h / (hq / hkv);
+  const __nv_bfloat16* kg = k + kv_head * sk * dh;
+  const __nv_bfloat16* vg = v + kv_head * sk * dh;
+  const int wg = threadIdx.x >> 7;             // warpgroup
+  const int warp = (threadIdx.x >> 5) & 3;     // warp in the warpgroup
+  const int lane = threadIdx.x & 31;
+  const bool cp = async != 0;
+
+  // The keys any row of the block can see, [lo, hi); the warpgroup's own
+  // rows [wq0, wq0 + w_rows) and keys [wlo, whi).
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(sk, q0 + q_rows) : sk;
+  const int k_first = lo / BK * BK;
+  const int n_tiles = (hi - k_first + BK - 1) / BK;
+  const int wq0 = q0 + 64 * wg;
+  const int w_rows = min(64, sq - wq0);
+  const int wlo = window > 0 ? max(0, wq0 - window + 1) : 0;
+  const int whi = causal ? min(sk, wq0 + max(w_rows, 0)) : sk;
+  // This thread's two rows: wq0 + rbase and wq0 + rbase + 8.
+  const int rbase = 16 * warp + (lane >> 2);
+  const int cbase = 2 * (lane & 3);
+
+  // Tile t's K and V into ring stage t % STAGES.
+  auto stage_tile = [&](int t) {
+    const uint32_t st = ring + (t % STAGES) * 2 * TILE;
+    const int k0 = k_first + t * BK;
+    const long long off = static_cast<long long>(k0) * dh;
+    load_tile<NA, BK>(st, kg + off, sk - k0, dh, cp);
+    load_tile<NA, BK>(st + TILE, vg + off, sk - k0, dh, cp);
+  };
+  load_tile<NA, BQ>(qs, q + (head * sq + q0) * dh, q_rows, dh, cp);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_tiles) stage_tile(t);
+    cp_async_commit();            // the query tile goes with tile 0
+  }
+
+  float o[NA][32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[a][i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  const float scale2 = scale * LOG2E;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_first + t * BK;
+    cp_async_wait<STAGES - 2>();  // tile t (and the query tile) landed
+    fence_proxy_async();
+    __syncthreads();              // ... for every thread; tile t - 1 done
+    if (t + STAGES - 1 < n_tiles) stage_tile(t + STAGES - 1);
+    cp_async_commit();
+    if (w_rows <= 0 || k0 >= whi || k0 + BK <= wlo) continue;
+    const uint32_t ks = ring + (t % STAGES) * 2 * TILE, vs = ks + TILE;
+
+    // S = Q K^T over the padded head width, 16 columns a step.
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NA; ++kk) {
+      const uint32_t col = (kk & 3) * 32;
+      wgmma_ss(s,
+               sw128_desc(qs + (kk >> 2) * Q_ATOM + wg * (64 * 128) + col, 16,
+                          ATOM),
+               sw128_desc(ks + (kk >> 2) * T_ATOM + col, 16, ATOM));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // Masks (skipped where the tile is wholly visible to the warpgroup's
+    // rows) and the online softmax, in the exp2 domain.
+    const bool all_seen = k0 + BK <= sk && (!causal || k0 + BK - 1 <= wq0) &&
+                          (window <= 0 || wq0 + 63 - k0 < window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * r + e;
+          float x = s[i] * scale2;
+          if (!all_seen) {
+            const int qpos = wq0 + rbase + 8 * r;
+            const int kpos = k0 + 8 * j + cbase + e;
+            const bool ok = kpos < sk && (!causal || kpos <= qpos) &&
+                            (window <= 0 || qpos - kpos < window);
+            x = ok ? x : NEG_INF;
+          }
+          s[i] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2_ftz(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * r + e;
+          s[i] = exp2_ftz(s[i] - m[r]);
+          ps[r] += s[i];
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ps[r];
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          o[a][4 * j + 2 * r] *= alpha[r];
+          o[a][4 * j + 2 * r + 1] *= alpha[r];
+        }
+
+    // P in three bf16 parts, as register A fragments: step kk (keys 16 kk
+    // .. 16 kk + 15), register x holds accumulator entries 8 kk + 2 x, + 1.
+    uint32_t ph[4][4], pm[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float p0 = s[8 * kk + 2 * x], p1 = s[8 * kk + 2 * x + 1];
+        const __nv_bfloat162 hb = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(hb);
+        const float r0 = p0 - hf.x, r1 = p1 - hf.y;
+        const __nv_bfloat162 mb = __floats2bfloat162_rn(r0, r1);
+        const float2 mf = __bfloat1622float2(mb);
+        const __nv_bfloat162 lb = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+        ph[kk][x] = bits(hb);
+        pm[kk][x] = bits(mb);
+        pl[kk][x] = bits(lb);
+      }
+
+    // O += P V, the smaller parts first.
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(o[a]);
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv =
+            sw128_desc(vs + a * T_ATOM + kk * 2 * ATOM, ATOM, ATOM);
+        wgmma_rs(o[a], pl[kk], dv);
+        wgmma_rs(o[a], pm[kk], dv);
+        wgmma_rs(o[a], ph[kk], dv);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(o[a]);
+  }
+
+  if (w_rows <= 0) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rbase + 8 * r;
+    if (row >= w_rows) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = out + (head * sq + wq0 + row) * dh;
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * a + 8 * j + cbase;
+        const float x0 = o[a][4 * j + 2 * r] / denom;
+        const float x1 = o[a][4 * j + 2 * r + 1] / denom;
+        if (c + 1 < dh && (dh & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (c < dh) orow[c] = __float2bfloat16(x0);
+          if (c + 1 < dh) orow[c + 1] = __float2bfloat16(x1);
+        }
+      }
+  }
+}
+
+template <int NA>
+int launch(const void* q, const void* k, const void* v, void* out, int b,
+           int hq, int hkv, int sq, int sk, int dh, int causal, int window,
+           float scale, cudaStream_t stream) {
+  const size_t bytes = ATOM + static_cast<size_t>(NA) * 128 *
+                                  (BQ + 2 * STAGES * BK);
+  auto kern = flash_attention_tc_kernel<NA>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int async =
+      dh % 8 == 0 &&
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  const dim3 grid((sq + BQ - 1) / BQ, hq, b);
+  kern<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      hq, hkv, sq, sk, dh, causal, window, scale, async);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
+                int hq, int hkv, int sq, int sk, int dh, int causal,
+                int window, float scale, cudaStream_t s) {
+  switch ((dh + 63) / 64) {
+    case 1: return launch<1>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 2: return launch<2>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 3: return launch<3>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 4: return launch<4>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // window <= 0 means no window; is_bf16 selects bfloat16 over float32.
@@ -290,9 +716,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       dh > 256 || hq > 65535 || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-      ? launch_type<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, sk, dh,
+  return is_bf16 ? tc::launch_bf16(q, k, v, out, b, hq, hkv, sq, sk, dh,
                                    causal, window, scale, s)
-      : launch_type<float>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal,
-                           window, scale, s);
+                 : launch_type<float>(q, k, v, out, b, hq, hkv, sq, sk, dh,
+                                      causal, window, scale, s);
 }

@@ -28,12 +28,13 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def splits_for(device: torch.device, blocks: int, keys: int) -> int:
-    """Key splits that give about two blocks an SM when ``blocks`` (batch
-    rows x kv heads) are fewer, each split keeping 64 keys or more."""
+    """Key splits that fill one wave of the kernel's four blocks an SM when
+    ``blocks`` (batch rows x kv heads) are fewer, each split keeping 128
+    keys or more."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if blocks >= 2 * sms:
+    if blocks >= 4 * sms:
         return 1
-    return max(1, min(-(-2 * sms // blocks), -(-keys // 64)))
+    return max(1, min(-(-4 * sms // blocks), -(-keys // 128)))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,9 +10,10 @@ tiles of `TILE_ROWS` rows (the reference's are 256);
 `forest_apply_ref`, `forest_apply_quant_ref`, the TreeSHAP helpers,
 `tree_shap_ref` and `tree_shap_interventional_ref` are their namesakes;
 `flash_attention_ref` is B7's function (``_flash_kernel``, checked there
-against ``mha_ref``); `decode_attention_ref` is B8's (``_decode_kernel``,
-checked there against ``decode_attention_ref``), in the cache's own
-``(b, s, hkv, dh)`` layout.
+against ``mha_ref``), and `split_bf16x3` the split of its probabilities
+that B7's bf16 body makes; `decode_attention_ref` is B8's
+(``_decode_kernel``, checked there against ``decode_attention_ref``), in the
+cache's own ``(b, s, hkv, dh)`` layout.
 """
 from __future__ import annotations
 
@@ -415,6 +416,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out[:, :, :, q0:q1] = (o / p.sum(-1, keepdim=True).clamp_min(1e-30)
                                ).to(q.dtype)
     return out.reshape(b, hq, sq, dh)
+
+
+def split_bf16x3(p: torch.Tensor):
+    """B7's bf16 body's split of float32 probabilities into three bfloat16
+    parts, each rounded to nearest even: ``hi = bf16(p)``, ``mid = bf16(p -
+    hi)``, ``lo = bf16(p - hi - mid)``.  For p in [2^-100, 1] each
+    subtraction is exact in float32 and ``hi + mid + lo == p`` bitwise, so
+    ``hi @ v + mid @ v + lo @ v`` with bf16 v is ``p @ v`` up to the order
+    of the sums (`csrc/flash_attention.cu`).  The plain statement the tests
+    hold; the main path does not call it."""
+    hi = p.to(torch.bfloat16)
+    rest = p - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

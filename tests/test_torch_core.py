@@ -188,6 +188,23 @@ def test_port_imports_neither_jax_nor_repro():
                     assert not pattern.search(fh.read()), f
 
 
+def test_port_calls_no_library_attention():
+    """No source file of the port calls ``scaled_dot_product_attention``,
+    ``torch.compile`` or ``torch.backends.cudnn``: attention goes through
+    the port's own kernels, B7 and B8 (``chip_smoke.py`` times SDPA beside
+    them as a yardstick, outside the package)."""
+    pattern = re.compile(r"scaled_dot_product_attention|torch\.compile"
+                         r"|torch\.backends\.cudnn")
+    seen = 0
+    for root, _, files in os.walk(os.path.join(SRC, "repro_torch")):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                with open(os.path.join(root, f)) as fh:
+                    assert not pattern.search(fh.read()), f
+                seen += 1
+    assert seen > 50
+
+
 @pytest.mark.parametrize("make", [
     lambda: TQ.fit_quantizer(np.zeros((4, 2), np.float32), 4),
     lambda: convert.quantizer_from_edges(np.zeros((2, 3), np.float32), 4),

@@ -55,9 +55,10 @@ def test_hist_nodes_kernel_matches_plain(dev, n, m, B, C, levels):
         out = hist_kernel.hist_nodes(*args, n_bins=B)
         assert torch.equal(out, hist_kernel.hist_nodes(*args, n_bins=B))
         plain = ref.hist_nodes_ref(*[a.cpu() for a in args], n_bins=B)
-        # Same summation order as the plain version on the CPU.
-        np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(),
-                                   rtol=1e-6)
+        # Same summation order as the plain version on the CPU, so the
+        # same bits.
+        assert torch.equal(out.cpu(), plain), float(
+            (out.cpu() - plain).abs().max())
         assert torch.equal(out[..., -1].cpu(), plain[..., -1])
 
 
@@ -484,6 +485,14 @@ FLASH_CASES = [
     (4, False, None, 257, 32), (8, True, 50, 64, 256),
     (8, False, None, 200, 32), (8, True, 16, 257, 120),
     (4, True, 256, 1000, 120), (4, False, None, 1000, 120),
+    # The tensor-core body's edges, from one 64 x 64 tile up: no mask, the
+    # causal band, a window that is no multiple of the 64-key tile, GQA;
+    # sq no multiple of 64 (nor of the 128-row block); dh 36 (rows not
+    # 16-byte aligned), 64, 128 and 256; group 8 over one kv head.
+    (1, False, None, 64, 64), (1, True, None, 64, 64),
+    (1, True, 100, 300, 64), (4, True, 70, 333, 128),
+    (8, True, 130, 190, 36), (2, False, None, 100, 256),
+    (8, False, 90, 129, 128), (4, True, None, 65, 36),
 ]
 
 
@@ -516,6 +525,24 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, group, causal,
     limit = 1e-5 if dtype == torch.float32 else bf16_ulps(plain) + 1e-5
     diff = (out.float() - plain.float()).abs()
     assert bool((diff <= limit).all()), float((diff / limit).max())
+
+
+@pytest.mark.parametrize("group,causal,window,s,dh", [
+    (4, True, 4096, 2000, 120), (1, False, None, 333, 256),
+    (8, True, 70, 190, 36)])
+def test_flash_attention_bf16_same_run_to_run(dev, group, causal, window, s,
+                                              dh):
+    """B7's tensor-core body gives the same bits from run to run."""
+    hkv = 8 // group
+    g = torch.Generator(device=dev).manual_seed(s + dh)
+    q, k, v = (torch.randn((1, h, s, dh), generator=g, device=dev).to(
+        torch.bfloat16) for h in (hkv * group, hkv, hkv))
+    out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    again = flash_attention.flash_attention(q, k, v, causal=causal,
+                                            window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 def test_flash_attention_wrapper_checks_inputs(dev):
@@ -556,9 +583,11 @@ def test_lm_forward_on_card_matches_cpu(dev, arch):
     torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
-# B8: (batch, hkv, group, s, dh, window, ragged).  Batch x kv heads of 2 to
-# 16 split the key axis across blocks; 320 do not.  Groups 1-8 and 6 (three
-# chunks of 2 heads), dh 32/120/256 and 36 (no 16-byte loads for bf16).
+# B8: (batch, hkv, group, s, dh, window, ragged).  Every case has fewer
+# (batch row, kv head) pairs than one wave of blocks, so those with more
+# than 128 keys split the key axis across blocks
+# (`decode_attention.splits_for`).  Groups 1-8 and 6 (three chunks of 2
+# heads), dh 32/120/256 and 36 (rows not 16-byte aligned in bf16).
 DECODE_CASES = [
     (1, 8, 4, 4096, 120, 4096, False), (2, 1, 1, 519, 32, None, True),
     (3, 2, 2, 200, 120, 16, True), (40, 8, 4, 600, 120, 256, True),
@@ -596,6 +625,39 @@ def test_decode_attention_kernel_matches_plain(dev, qt, kt, b, hkv, group, s,
     torch.cuda.synchronize()
     assert torch.equal(out, again)
     assert out.dtype == qt and out.shape == q.shape
+    limit = 1e-5 if qt == torch.float32 else bf16_ulps(plain) + 1e-5
+    diff = (out.float() - plain.float()).abs()
+    assert bool((diff <= limit).all()), float((diff / limit).max())
+
+
+# Ring edges: (batch, hkv, group, s, dh, window, length).  A row of 1,000
+# keys in 8 splits of 125: each split's last tile of 32 keys ends mid-tile;
+# a window of 77 starts at key 423 and ends after 2 tiles and 13 keys; dh
+# 256 takes 16-key tiles; dh 36 stages by ordinary loads.
+DECODE_EDGE_CASES = [(1, 2, 4, 1000, 120, None, 1000),
+                     (2, 2, 4, 700, 120, 77, 500),
+                     (1, 1, 2, 333, 256, 100, 301),
+                     (3, 1, 2, 300, 36, 45, 299)]
+
+
+@pytest.mark.parametrize("qt,kt", DECODE_DTYPES)
+@pytest.mark.parametrize("b,hkv,group,s,dh,window,length", DECODE_EDGE_CASES)
+def test_decode_attention_ring_edges(dev, qt, kt, b, hkv, group, s, dh,
+                                     window, length):
+    """B8 where a split's keys end mid-tile and where the window starts
+    off the tiles of the cache: held as the other cases, and the same run
+    to run."""
+    g = torch.Generator(device=dev).manual_seed(length + dh)
+    q = torch.randn((b, hkv * group, dh), generator=g, device=dev).to(qt)
+    k, v = (torch.randn((b, s, hkv, dh), generator=g, device=dev).to(kt)
+            for _ in "kv")
+    out = decode_attention.decode_attention(q, k, v, length, window=window)
+    again = decode_attention.decode_attention(q, k, v, length, window=window)
+    plain = ref.decode_attention_ref(
+        q, k, v, torch.full((b,), length, dtype=torch.int32, device=dev),
+        window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
     limit = 1e-5 if qt == torch.float32 else bf16_ulps(plain) + 1e-5
     diff = (out.float() - plain.float()).abs()
     assert bool((diff <= limit).all()), float((diff / limit).max())
@@ -657,9 +719,9 @@ def test_lm_decode_on_card_matches_cpu(dev, arch):
                                             (3 * R + 17, 4, 256, 6, 3)])
 def test_hist_nodes_bf16_kernel(dev, n, m, B, C, levels):
     """B1-bf16 is fp32 B1 on the bf16-rounded statistics, bit for bit, the
-    same run to run, and within rtol 1e-6 of its plain version on the CPU
-    (the same sums; the plain version's ``index_add_``), the count channel
-    bitwise."""
+    same run to run, and bitwise its plain version on the CPU (the same
+    sums in the same order; the plain version's ``index_add_``), the count
+    channel too."""
     g = torch.Generator(device=dev).manual_seed(n + 1)
     codes_t = torch.randint(0, B, (m, n), generator=g, device=dev,
                             dtype=torch.int32).to(torch.uint8)
@@ -684,8 +746,8 @@ def test_hist_nodes_bf16_kernel(dev, n, m, B, C, levels):
         assert torch.equal(out, fp32)
         plain = ref.hist_nodes_ref(*[a.cpu() for a in args], n_bins=B,
                                    hist_dtype="bfloat16")
-        np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(),
-                                   rtol=1e-6, atol=1e-6)
+        assert torch.equal(out.cpu(), plain), float(
+            (out.cpu() - plain).abs().max())
         assert torch.equal(out[..., -1].cpu(), plain[..., -1])
 
 
