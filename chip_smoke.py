@@ -19,8 +19,13 @@ Phases (any failure exits non-zero; nothing is caught):
      bitwise at level 5 of the paper's tree, both summing in tiles of
      ``ref.TILE_ROWS`` rows, with each build's registers, shared memory a
      block and blocks an SM; B2's
-     wide kernel at SketchBoost Full's level 5, C = 513; B5 also against B3
-     on the dequantized forest; B6 wide and with narrow blocks at per-tree
+     wide kernel at SketchBoost Full's level 5, C = 513; B3, B5 int8 and B5
+     bf16 at the four shapes of ``TRAVERSE_SHAPES`` (262,144 rows x 8 trees,
+     the 256-row serving window x 100, a 4,096-row chunk x 100, 131,072 x
+     1), each bitwise its plain version and the same run to run, B5 also
+     against B3 on the dequantized forest, narrow blocks at the first two,
+     with each shape's tile and its build's registers, spills, shared bytes
+     and blocks an SM; B6 wide and with narrow blocks at per-tree
      columns; B7 at the prefill's layer, 1 x 32 heads over 8 x 32,768 x
      120 with a 4,096 window, in bf16 (the tensor-core body) each output
      within one bf16 ulp of its own plain value plus 1e-5 and the same run
@@ -384,12 +389,20 @@ def check_split_wide(torch, gen, dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def predict_case(torch, gen, dev):
-    """Predict's shape: 262,144 rows x 100 codes, 8 depth-6 trees (N=127),
-    D = W = 512.  Returns ``(codes, PackedForest, F0)``."""
+# Phase 3's traversal shapes (rows, trees), all at D = W = 512 over 100
+# codes a row with depth-6 trees (N = 127): (a) predict's 262,144 rows of
+# 8 trees, timed since the first version; (b) one 256-row serving window of
+# the 100-tree model; (c) one 4,096-row chunk of the streamed batch; (d) the
+# fit's eval call, 131,072 rows of one tree.
+TRAVERSE_SHAPES = {"a_predict": (N_TEST, 8), "b_window": (256, 100),
+                   "c_chunk": (4096, 100), "d_eval": (N_EVAL, 1)}
+
+
+def traverse_case(torch, gen, dev, n, T, M=100, depth=6, D=512):
+    """``T`` random depth-``depth`` trees of width ``D`` over ``n`` rows of
+    ``M`` codes.  Returns ``(codes, PackedForest, F0)``."""
     from repro_torch.core.forest import PackedForest
     from repro_torch.core.tree import heap_to_node_arrays
-    n, M, T, depth, D = N_TEST, 100, 8, 6, 512
     feat = torch.randint(0, M, (T, 2 ** depth - 1), generator=gen,
                          device=dev, dtype=torch.int32)
     thr = torch.randint(0, 256, (T, 2 ** depth - 1), generator=gen,
@@ -405,89 +418,150 @@ def predict_case(torch, gen, dev):
     return codes, pf, torch.randn((n, D), generator=gen, device=dev)
 
 
-def check_predict(torch, case):
-    """B3 at predict's shape, bitwise against the plain version."""
-    from repro_torch.kernels import predict_kernel, ref
-    codes, pf, F0 = case
-    n, M = codes.shape
-    T, N, D = pf.leaf.shape
-    depth, dev = pf.depth, codes.device
-    feat, thr, left, right, leaf = pf.feat, pf.thr, pf.left, pf.right, pf.leaf
-    tree_args = (codes, feat, thr, left, right, leaf, pf.out_col, 0.05)
-    out = predict_kernel.forest_traverse(F0.clone(), *tree_args, depth=depth)
-    plain = ref.forest_apply_ref(F0.clone(), *tree_args, depth=depth)
-    torch.cuda.synchronize()
-    assert torch.equal(out, plain), "B3 is not bitwise equal to plain"
-    # A narrow block (one_vs_all layout): width 1 at per-tree columns.
-    narrow = leaf[:, :, :1].contiguous()
-    cols = torch.arange(T, dtype=torch.int32, device=dev) * 60
-    k_n = predict_kernel.forest_traverse(
-        F0.clone(), codes, feat, thr, left, right, narrow, cols, 0.05,
-        depth=depth)
-    p_n = ref.forest_apply_ref(F0.clone(), codes, feat, thr, left, right,
-                               narrow, cols, 0.05, depth=depth)
-    assert torch.equal(k_n, p_n), "B3 narrow blocks differ from plain"
-    b_ms, b_by = bound_ms(8 * n * D + n * M + T * N * (16 + 4 * D) + 4 * T,
-                          2 * n * T * D)
-    Fw = F0.clone()
-    return dict(
-        name="forest_traverse", route="cuda",
-        source="src/repro_torch/kernels/csrc/predict.cu",
-        replaces="src/repro/kernels/predict_kernel.py:182",
-        max_abs_err=float((out - plain).abs().max()),
-        ms=cuda_ms(lambda: predict_kernel.forest_traverse(
-            Fw, *tree_args, depth=depth)),
-        plain_ms=cuda_ms(lambda: ref.forest_apply_ref(
-            Fw, *tree_args, depth=depth), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+def traverse_cases(torch, gen, dev):
+    return {k: traverse_case(torch, gen, dev, n, T)
+            for k, (n, T) in TRAVERSE_SHAPES.items()}
 
 
-def check_predict_quant(torch, case, dtype):
-    """B5 at B3's shape with ``dtype`` leaves (``quantize_forest`` of the
-    same trees): bitwise against its plain version, and against B3 on the
-    dequantized twin."""
+def traverse_touched(torch, codes, pf):
+    """``(nodes, leaves)``: the (tree, node) pairs at which this run's rows
+    take a step of the walk, whose node arrays are read, and the (tree,
+    node) pairs they end at, whose leaf rows are added; each counted once.
+    B5's trees (`quantize_forest` of the same) take the same branches."""
+    T, N = pf.feat.shape
+    read = torch.zeros((T, N), dtype=torch.bool, device=codes.device)
+    reached = torch.zeros_like(read)
+    for t in range(T):
+        feat, thr = pf.feat[t].long(), pf.thr[t].long()
+        left, right = pf.left[t].long(), pf.right[t].long()
+        pos = torch.zeros(codes.shape[0], dtype=torch.long,
+                          device=codes.device)
+        for _ in range(pf.depth):
+            read[t, pos] = True
+            code = codes.gather(1, feat[pos][:, None])[:, 0].long()
+            pos = torch.where(code > thr[pos], right[pos], left[pos])
+        reached[t, pos] = True
+    return int(read.sum()), int(reached.sum())
+
+
+def traverse_bytes(n, M, T, D, W, s, nodes, leaves):
+    """Bytes each input read once and F written once, counting only what
+    this run's walks touch (`traverse_touched`): F twice, the codes, the
+    node arrays of ``nodes`` nodes (int32, or B5's uint8 thresholds), the
+    leaf rows of ``leaves`` nodes, the columns (and B5's float32 scale a
+    tree)."""
+    node_bytes = 16 if s == 4 else 13
+    return (8 * n * D + n * M + nodes * node_bytes + leaves * W * s
+            + 4 * T * (1 if s == 4 else 2))
+
+
+def traverse_reps(n, T) -> int:
+    """Timed launches: more for the small shapes, whose times are µs."""
+    return 5 if n * T >= 1 << 20 else 50
+
+
+def check_traverse(torch, cases, dtype="float32"):
+    """B3 (``dtype`` float32) or B5 (int8, bfloat16: ``quantize_forest``
+    of the same trees) at each shape of `TRAVERSE_SHAPES`: bitwise its
+    plain version and equal run to run, B5 bitwise B3 on the dequantized
+    twin, and at (a) and (b) narrow blocks (the one-vs-all layout: width 1
+    at per-tree columns 60 apart) bitwise too.  Times kernel and plain
+    version at each shape, with its bytes bound and the leaf bytes it
+    gathers (n T W s), the tile ``predict.cu`` picks at each shape and its
+    build's registers, spills, shared bytes and blocks an SM; the serving
+    window's grid must give every SM a block.  The row's top-level numbers
+    are shape (a)'s."""
     from repro_torch.core import quantize as Q
-    from repro_torch.kernels import predict_kernel, predict_quant_kernel, ref
-    codes, pf, F0 = case
-    qf = Q.quantize_forest(pf, dtype)
-    twin = Q.dequantize_forest(qf)
-    n, M = codes.shape
-    T, N, D = qf.leaf.shape
-    args = (codes, qf.feat, qf.thr, qf.left, qf.right, qf.leaf, qf.leaf_scale,
-            qf.out_col, 0.05)
-    out = predict_quant_kernel.forest_traverse_quant(F0.clone(), *args,
-                                                     depth=qf.depth)
-    plain = ref.forest_apply_quant_ref(F0.clone(), *args, depth=qf.depth)
-    b3 = predict_kernel.forest_traverse(
-        F0.clone(), codes, twin.feat, twin.thr, twin.left, twin.right,
-        twin.leaf, twin.out_col, 0.05, depth=twin.depth)
-    torch.cuda.synchronize()
-    assert torch.equal(out, plain), f"B5 {dtype} is not bitwise plain"
-    assert torch.equal(out, b3), f"B5 {dtype} differs from B3 on its twin"
-    # A narrow block at per-tree columns.
-    cols = torch.arange(T, dtype=torch.int32, device=codes.device) * 60
-    narrow = qf.leaf[:, :, :1].contiguous()
-    k_n = predict_quant_kernel.forest_traverse_quant(
-        F0.clone(), codes, qf.feat, qf.thr, qf.left, qf.right, narrow,
-        qf.leaf_scale, cols, 0.05, depth=qf.depth)
-    p_n = ref.forest_apply_quant_ref(
-        F0.clone(), codes, qf.feat, qf.thr, qf.left, qf.right, narrow,
-        qf.leaf_scale, cols, 0.05, depth=qf.depth)
-    assert torch.equal(k_n, p_n), f"B5 {dtype} narrow blocks differ"
-    s = qf.leaf.element_size()
-    b_ms, b_by = bound_ms(8 * n * D + n * M + T * N * (13 + D * s) + 4 * T * 2,
-                          3 * n * T * D)
-    Fw = F0.clone()
+    from repro_torch.kernels import predict_kernel as PK
+    from repro_torch.kernels import predict_quant_kernel as PQ
+    from repro_torch.kernels import ref
+    quant = dtype != "float32"
+    kind = {"float32": 0, "int8": 1, "bfloat16": 2}[dtype]
+    shapes, errs = {}, []
+    for key, (codes, pf, F0) in cases.items():
+        n, M = codes.shape
+        lr = 0.05
+        touched = traverse_touched(torch, codes, pf)
+        if quant:
+            qf = Q.quantize_forest(pf, dtype)
+            twin = Q.dequantize_forest(qf)
+            trees = (qf.feat, qf.thr, qf.left, qf.right)
+            leaf, scale = qf.leaf, qf.leaf_scale
+            kernel = PQ.KERNELS[leaf.dtype]
+
+            def run(F, leaf=leaf, cols=pf.out_col, trees=trees,
+                    scale=scale):
+                return PQ.forest_traverse_quant(F, codes, *trees, leaf,
+                                                scale, cols, lr,
+                                                depth=pf.depth)
+
+            def plain(F, leaf=leaf, cols=pf.out_col, trees=trees,
+                      scale=scale):
+                return ref.forest_apply_quant_ref(F, codes, *trees, leaf,
+                                                  scale, cols, lr,
+                                                  depth=pf.depth)
+        else:
+            trees = (pf.feat, pf.thr, pf.left, pf.right)
+            leaf, kernel = pf.leaf, PK.KERNEL
+
+            def run(F, leaf=leaf, cols=pf.out_col, trees=trees):
+                return PK.forest_traverse(F, codes, *trees, leaf, cols, lr,
+                                          depth=pf.depth)
+
+            def plain(F, leaf=leaf, cols=pf.out_col, trees=trees):
+                return ref.forest_apply_ref(F, codes, *trees, leaf, cols, lr,
+                                            depth=pf.depth)
+        out, want = run(F0.clone()), plain(F0.clone())
+        again = run(F0.clone())
+        torch.cuda.synchronize()
+        errs.append(float((out - want).abs().max()))
+        assert torch.equal(out, want), f"{kernel.name} {key} != plain"
+        assert torch.equal(out, again), f"{kernel.name} {key} run to run"
+        if quant:
+            b3 = PK.forest_traverse(F0.clone(), codes, twin.feat, twin.thr,
+                                    twin.left, twin.right, twin.leaf,
+                                    twin.out_col, lr, depth=twin.depth)
+            assert torch.equal(out, b3), f"{kernel.name} {key} != B3 twin"
+        T, N, W = leaf.shape
+        if key in ("a_predict", "b_window"):
+            narrow = leaf[:, :, :1].contiguous()
+            cols = torch.arange(T, dtype=torch.int32,
+                                device=codes.device) * 60 % W
+            k_n = run(F0.clone(), narrow, cols)
+            assert torch.equal(k_n, plain(F0.clone(), narrow, cols)), \
+                f"{kernel.name} {key}: narrow blocks differ from plain"
+        del out, want, again
+        s = leaf.element_size()
+        b_ms, b_by = bound_ms(traverse_bytes(n, M, T, W, W, s, *touched),
+                              (3 if quant else 2) * n * T * W)
+        info = PK.launch_info(kernel, kind, n, W, M)
+        plan = {k: info.pop(k) for k in ("rows", "cols", "group", "vec",
+                                         "grid", "stage_codes")}
+        if key == "b_window":
+            sms = torch.cuda.get_device_properties(
+                codes.device).multi_processor_count
+            assert plan["grid"][0] * plan["grid"][1] >= sms, \
+                f"{kernel.name}: the serving window leaves SMs idle: {plan}"
+        Fw = F0.clone()
+        shapes[key] = dict(
+            rows=n, trees=T, ms=cuda_ms(lambda: run(Fw),
+                                        traverse_reps(n, T)),
+            plain_ms=cuda_ms(lambda: plain(Fw), 2), bound_ms=b_ms,
+            bound_by=b_by, leaf_bytes=n * T * W * s,
+            touched=dict(zip(("nodes", "leaves"), touched)), plan=plan,
+            build=info)
+        del Fw
+    a = shapes["a_predict"]
+    name = PK.KERNEL.name if not quant else PQ.KERNELS[
+        torch.int8 if dtype == "int8" else torch.bfloat16].name
     return dict(
-        name=predict_quant_kernel.KERNELS[qf.leaf.dtype].name, route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/predict.cu",
-        replaces="src/repro/kernels/predict_kernel.py:237",
-        max_abs_err=float((out - plain).abs().max()),
-        ms=cuda_ms(lambda: predict_quant_kernel.forest_traverse_quant(
-            Fw, *args, depth=qf.depth)),
-        plain_ms=cuda_ms(lambda: ref.forest_apply_quant_ref(
-            Fw, *args, depth=qf.depth), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        replaces=("src/repro/kernels/predict_kernel.py:237" if quant
+                  else "src/repro/kernels/predict_kernel.py:182"),
+        max_abs_err=max(errs), ms=a["ms"], plain_ms=a["plain_ms"],
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
+        shapes=shapes)
 
 
 def shap_ops(depth: int) -> int:
@@ -1831,18 +1905,24 @@ def main() -> int:
     hcase = hist_case(torch, gen, dev)
     rows = [check_hist(torch, hcase), check_hist_bf16(torch, hcase)]
     del hcase
-    case = predict_case(torch, gen, dev)
-    rows += [check_split(torch, gen, dev),
-            check_predict(torch, case),
-            check_predict_quant(torch, case, "int8"),
-            check_predict_quant(torch, case, "bfloat16")]
-    del case
+    rows.append(check_split(torch, gen, dev))
+    cases = traverse_cases(torch, gen, dev)
+    rows += [check_traverse(torch, cases, dt)
+             for dt in ("float32", "int8", "bfloat16")]
+    del cases
     rows.append(check_shap(torch, gen, dev))
     rows.append(check_hist_direct(torch, gen, dev))
     rows.append(check_split_wide(torch, gen, dev))
     rows.append(check_flash(torch, gen, dev))
     rows.append(check_decode(torch, gen, dev))
     for r in rows:
+        for key, sh in r.get("shapes", {}).items():
+            print(f"[3] {r['name']} {key} ({sh['rows']} rows x "
+                  f"{sh['trees']} trees): kernel {sh['ms']:.4f} ms plain "
+                  f"{sh['plain_ms']:.4f} ms bound {sh['bound_ms']:.4f} ms "
+                  f"({sh['bound_by']}), leaf bytes gathered "
+                  f"{sh['leaf_bytes']}, plan {sh['plan']}, build "
+                  f"{sh['build']}")
         print(f"[3] {r['name']}: max_abs_err {r['max_abs_err']!r} kernel "
               f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) library "

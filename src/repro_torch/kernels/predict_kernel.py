@@ -3,7 +3,8 @@
 Replaces the JAX package's ``forest_traverse_pallas``.  A CPU tensor goes
 to the plain version (`ref.forest_apply_ref`); a CUDA tensor goes to the
 kernel, or the wrapper raises.  ``KERNEL.launches`` counts the kernel's
-launches.  Both update ``F`` in place and return it.
+launches.  Both update ``F`` in place and return it.  The kernel picks its
+tile for each call; `launch_info` reports the pick and its build.
 """
 from __future__ import annotations
 
@@ -19,6 +20,26 @@ KERNEL = CudaKernel(
     "forest_traverse", "predict.cu", "forest_traverse_launch",
     [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_int] * 7,
     extra_flags=("-fmad=false",))
+
+
+def launch_info(kernel: CudaKernel, kind: int, n: int, D: int,
+                M: int) -> dict:
+    """What a launch of entry point ``kind`` (0 B3, 1 B5 int8, 2 B5 bf16)
+    at F (n, D) with ``M`` codes a row takes on the current card: the tile
+    that ``predict.cu`` picks (rows, columns, tree group, columns a vector),
+    its grid and whether the rows' codes are staged in shared memory; and
+    what the tile's build gives it: registers and local (spill) bytes a
+    thread, shared bytes a block and blocks resident an SM."""
+    info = (ctypes.c_int * 9)()
+    err = kernel.call("forest_traverse_info", [ctypes.c_int] * 4
+                      + [ctypes.c_void_p], kind, n, D, M, info)
+    if err != 0:
+        raise RuntimeError(f"{kernel.name}: CUDA error {err} in launch_info")
+    rows, cols = info[4], info[5]
+    return dict(rows=rows, cols=cols, group=info[6], vec=info[7],
+                grid=(-(-n // rows), -(-D // cols)), stage_codes=bool(info[8]),
+                registers=info[0], smem_bytes=info[1], blocks_per_sm=info[2],
+                local_bytes=info[3])
 
 
 def forest_traverse(F: torch.Tensor, codes: torch.Tensor, feat: torch.Tensor,

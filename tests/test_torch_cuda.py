@@ -99,29 +99,90 @@ def test_split_scan_wrapper_counts_each_path(dev, C, wide):
                                 1.0, 1.0, mask)
 
 
-@pytest.mark.parametrize("n,D,W,T,depth", [(1000, 512, 512, 5, 6),
-                                           (333, 700, 1, 7, 3),
-                                           (50, 3, 3, 2, 1)])
-def test_forest_traverse_kernel_bitwise(dev, n, D, W, T, depth):
-    g = torch.Generator(device=dev).manual_seed(n)
-    M = 9
-    feat = torch.randint(0, M, (T, 2 ** depth - 1), generator=g, device=dev,
-                         dtype=torch.int32)
-    thr = torch.randint(0, 256, (T, 2 ** depth - 1), generator=g,
-                        device=dev, dtype=torch.int32)
-    value = torch.randn((T, 2 ** depth, W), generator=g, device=dev)
-    feat, thr, left, right, leaf = heap_to_node_arrays(feat, thr, value)
-    codes = torch.randint(0, 256, (n, M), generator=g, device=dev,
-                          dtype=torch.int32).to(torch.uint8)
-    cols = torch.randint(0, D - W + 1, (T,), generator=g, device=dev,
-                         dtype=torch.int32)
-    F0 = torch.randn((n, D), generator=g, device=dev)
-    args = (codes, feat, thr, left, right, leaf, cols, 0.07)
+# B3/B5 cases: (n, D, W, T, depth, layout, M, cols), the forest from
+# `test_torch_traverse.random_forest` ("heap" of that depth, "pointer":
+# leaf-wise trees with N = 255 walking deeper than 6, "compact": the node
+# axis padded to a multiple of 8) and ``cols`` "random" windows,
+# "straddle" (every window [40, 80) across the 64-column tiles' edge) or
+# "ova" (width 1 at column t % D: the one-vs-all layout).
+TRAVERSE_CASES = [
+    (1000, 512, 512, 5, 6, "heap", 9, "random"),
+    (333, 700, 1, 7, 3, "heap", 9, "random"),
+    (50, 3, 3, 2, 1, "heap", 9, "random"),
+    (256, 512, 512, 100, 6, "heap", 100, "random"),     # the serving window
+    (1000, 512, 512, 37, 6, "heap", 9, "random"),       # T off the groups
+    (20_000, 512, 512, 10, 6, "heap", 100, "random"),   # the large tile
+    (1001, 300, 300, 9, 6, "heap", 9, "random"),        # n, D off the tiles
+    (777, 200, 40, 12, 6, "heap", 9, "straddle"),       # W < D across tiles
+    (300, 512, 1, 600, 6, "heap", 9, "ova"),            # T past one list
+    (500, 96, 96, 6, 0, "pointer", 9, "random"),        # leaf-wise, N = 255
+    (123, 64, 64, 5, 6, "compact", 9, "random"),        # compacted nodes
+    (40, 64, 64, 5, 6, "heap", 7000, "random"),         # codes not staged
+    (9000, 512, 512, 3, 6, "heap", 3000, "random"),     # 48 KB of codes
+    (300, 130, 130, 4, 6, "heap", 9, "random"),         # rows off vectors
+]
+
+
+def _traverse_case(dev, n, D, W, T, depth, layout, M, cols, seed,
+                   dtype=None):
+    """``(codes, feat, thr, left, right, leaf, scale, out_col, F0,
+    depth)`` on the card for a `TRAVERSE_CASES` entry; ``dtype`` int8 or
+    bfloat16 gives B5's storage (``scale`` None for B3)."""
+    from test_torch_traverse import quantized, random_forest
+    rng = np.random.default_rng(seed)
+    f = random_forest(rng, layout, T, W, M, D, depth=depth)
+    if layout == "pointer":
+        assert f["feat"].shape[1] == 255 and f["depth"] > 6
+    if cols == "straddle":
+        f["out_col"] = np.full(T, 40, np.int32)
+    elif cols == "ova":
+        f["out_col"] = (np.arange(T) % D).astype(np.int32)
+    scale = None
+    if dtype is not None:
+        f = quantized(rng, f, dtype)
+        scale = torch.from_numpy(f["scale"])[:, None]
+    codes = rng.integers(0, 256, (n, M)).astype(np.uint8)
+    F0 = rng.normal(size=(n, D)).astype(np.float32)
+    on = [torch.as_tensor(a).to(dev) for a in (
+        codes, f["feat"], f["thr"], f["left"], f["right"], f["leaf"])]
+    return (*on, None if scale is None else scale.to(dev),
+            torch.from_numpy(f["out_col"]).to(dev),
+            torch.from_numpy(F0).to(dev), f["depth"])
+
+
+@pytest.mark.parametrize("n,D,W,T,depth,layout,M,cols", TRAVERSE_CASES)
+def test_forest_traverse_kernel_bitwise(dev, n, D, W, T, depth, layout, M,
+                                        cols):
+    """B3 bitwise its plain version on the CPU and equal run to run."""
+    (codes, feat, thr, left, right, leaf, _, out_col, F0,
+     depth) = _traverse_case(dev, n, D, W, T, depth, layout, M, cols, n + T)
+    args = (codes, feat, thr, left, right, leaf, out_col, 0.07)
     out = predict_kernel.forest_traverse(F0.clone(), *args, depth=depth)
+    again = predict_kernel.forest_traverse(F0.clone(), *args, depth=depth)
     plain = ref.forest_apply_ref(F0.cpu(), *[a.cpu() if torch.is_tensor(a)
                                              else a for a in args],
                                  depth=depth)
     assert torch.equal(out.cpu(), plain)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("n,M,cols", [(256, 100, 64), (256, 7000, 64),
+                                      (262_144, 100, 512),
+                                      (262_144, 7000, 512)])
+def test_forest_traverse_picks_its_tile(dev, n, M, cols):
+    """``predict.cu`` gives a 256-row serving window at D = 512 the
+    64-column tile, whose grid gives every SM a block, and a large batch
+    the 512-column one; it stages the codes where they fit 48 KB; every
+    entry point's build fits a block on an SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kind, k in ((0, predict_kernel.KERNEL),
+                    (1, predict_quant_kernel.KERNELS[torch.int8]),
+                    (2, predict_quant_kernel.KERNELS[torch.bfloat16])):
+        info = predict_kernel.launch_info(k, kind, n, 512, M)
+        assert info["cols"] == cols
+        assert info["grid"][0] * info["grid"][1] >= sms
+        assert info["stage_codes"] == (M == 100)
+        assert info["blocks_per_sm"] >= 1
 
 
 def test_wrappers_count_launches(dev):
@@ -161,32 +222,28 @@ def _quant_forest(g, dev, T, depth, W, M, dtype):
     return feat, thr.to(torch.uint8), left, right, leaf.contiguous(), scale
 
 
-@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("n,D,W,T,depth", [(1000, 512, 512, 5, 6),
-                                           (333, 700, 1, 7, 3),
-                                           (50, 3, 3, 2, 1)])
-def test_forest_traverse_quant_kernel_bitwise(dev, dtype, n, D, W, T, depth):
-    """B5 against its plain version, and against B3 on the dequantized
-    forest, full-width and narrow blocks."""
-    g = torch.Generator(device=dev).manual_seed(n + W)
-    M = 9
-    feat, thr, left, right, leaf, scale = _quant_forest(g, dev, T, depth, W,
-                                                        M, dtype)
-    codes = torch.randint(0, 256, (n, M), generator=g, device=dev,
-                          dtype=torch.int32).to(torch.uint8)
-    cols = torch.randint(0, D - W + 1, (T,), generator=g, device=dev,
-                         dtype=torch.int32)
-    F0 = torch.randn((n, D), generator=g, device=dev)
-    args = (codes, feat, thr, left, right, leaf, scale, cols, 0.07)
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("n,D,W,T,depth,layout,M,cols", TRAVERSE_CASES)
+def test_forest_traverse_quant_kernel_bitwise(dev, dtype, n, D, W, T, depth,
+                                              layout, M, cols):
+    """B5 against its plain version on the CPU, and against B3 on the
+    dequantized forest, full-width and narrow blocks; equal run to run."""
+    (codes, feat, thr, left, right, leaf, scale, out_col, F0,
+     depth) = _traverse_case(dev, n, D, W, T, depth, layout, M, cols, n + W,
+                             dtype)
+    args = (codes, feat, thr, left, right, leaf, scale, out_col, 0.07)
     out = predict_quant_kernel.forest_traverse_quant(F0.clone(), *args,
                                                      depth=depth)
-    plain = ref.forest_apply_quant_ref(F0.clone().cpu(), *[
+    again = predict_quant_kernel.forest_traverse_quant(F0.clone(), *args,
+                                                       depth=depth)
+    plain = ref.forest_apply_quant_ref(F0.cpu(), *[
         a.cpu() if torch.is_tensor(a) else a for a in args], depth=depth)
     assert torch.equal(out.cpu(), plain)
+    assert torch.equal(out, again)
     deq = leaf.float() * scale[:, :, None]
     twin = predict_kernel.forest_traverse(
         F0.clone(), codes, feat, thr.to(torch.int32), left, right, deq,
-        cols, 0.07, depth=depth)
+        out_col, 0.07, depth=depth)
     assert torch.equal(out, twin)
 
 
