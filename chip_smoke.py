@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught):
      per source, in parallel; B1 and B1-bf16 share ``hist.cu``, B3 and both
      B5 entry points ``predict.cu``; B4 is ``hist_direct.cu``, built with
      B1 on ``hist_common.cuh``; B6 ``shap.cu``, B7 ``flash_attention.cu``,
-     B8 ``decode_attention.cu``) and time the build;
+     B8 ``decode_attention.cu``; and the first versions of B2 and B6 from
+     ``tools/``) and time the build;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (B1 and B1-bf16 bitwise against the plain version
      run on the CPU from host copies, where ``index_add_`` keeps their
@@ -25,9 +26,17 @@ Phases (any failure exits non-zero; nothing is caught):
      1), each bitwise its plain version and the same run to run, B5 also
      against B3 on the dequantized forest, narrow blocks at the first two,
      with each shape's tile and its build's registers, spills, shared bytes
-     and blocks an SM; B6 wide and with narrow blocks at per-tree
-     columns; B7 at the prefill's layer, 1 x 32 heads over 8 x 32,768 x
-     120 with a 4,096 window, in bf16 (the tensor-core body) each output
+     and blocks an SM; B2 at 1, 2 and 32 nodes (100 x 256 x 6: a level-wise
+     tree's root and deepest level, a leaf-wise expansion), indices equal
+     to the plain version's, gains within rtol 1e-5, equal run to run; B6
+     at the three shapes of ``SHAP_SHAPES`` (4,096 rows x 8 trees, the
+     256-row endpoint window x 100 trees, the 4,096 rows of ``shap_values``
+     x 100 trees), bitwise and equal run to run, narrow blocks at per-tree
+     columns at the first two, with the configuration ``shap.cu`` picks;
+     B2 and B6 each beside its first version (``tools/split_first.cu``,
+     ``tools/shap_first.cu``, built with the kernels) on the same inputs;
+     B7 at the prefill's layer, 1 x 32 heads over 8 x 32,768 x 120 with a
+     4,096 window, in bf16 (the tensor-core body) each output
      within one bf16 ulp of its own plain value plus 1e-5 and the same run
      to run, in float32 (the CUDA-core body, also timed) within 1e-5, and in
      float32 without the causal mask at 1,000 rows; B8 at decode_32k's
@@ -332,30 +341,89 @@ def check_hist_direct(torch, gen, dev):
                                       n_bins=B))
 
 
-def check_split(torch, gen, dev):
-    """B2 at the main path's deepest level: 32 nodes x 100 x 256 x 6."""
+def first_kernels():
+    """``(split, shap)``: the first versions of B2 and B6
+    (``tools/split_first.cu``, ``tools/shap_first.cu``) as ``CudaKernel``s,
+    built beside the repo's kernels and timed in phase 3 on the same inputs;
+    their launches count on themselves, never on the repo's kernels."""
+    import ctypes
+    from repro_torch.kernels._build import CSRC, CudaKernel
+    V, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tools = os.path.join(HERE, "tools")
+    split = CudaKernel("split_scan_first",
+                       os.path.join(tools, "split_first.cu"),
+                       "split_scan_launch", [V] * 4 + [I] * 4 + [Fl] * 2,
+                       extra_flags=("-I", str(CSRC)))
+    shap = CudaKernel("tree_shap_first", os.path.join(tools, "shap_first.cu"),
+                      "tree_shap_launch", [V] * 9 + [Fl] + [I] * 7,
+                      extra_flags=("-fmad=false", "-I", str(CSRC)))
+    return split, shap
+
+
+# B2's device kernels (up to 64 channels), as the profiler names them.
+B2_KERNELS = ("split_unit_kernel", "split_pick_kernel")
+
+# B2's shapes at the main path's widths (m=100, B=256, C=6): a level-wise
+# tree's level 0 and level 5, and a leaf-wise expansion (2 nodes).
+SPLIT_NODES = {"n1_root": 1, "n2_leafwise": 2, "n32_level5": 32}
+
+
+def first_split_ms(torch, first, hist, mask, reps=50):
+    """``tools/split_first.cu`` (B2's first version, one block a node) on
+    the same inputs: (ms, idx)."""
+    nodes, m, B, C = hist.shape
+    gain = torch.empty(nodes, dtype=torch.float32, device=hist.device)
+    idx = torch.empty(nodes, dtype=torch.int32, device=hist.device)
+
+    def run():
+        first.launch(hist.data_ptr(), mask.data_ptr(), gain.data_ptr(),
+                     idx.data_ptr(), nodes, m, B, C, 1.0, 1.0)
+    return cuda_ms(run, reps), idx
+
+
+def check_split(torch, gen, dev, first):
+    """B2 at each of `SPLIT_NODES` (x 100 features x 256 bins x 6
+    channels): idx equal to the plain version's, gains within rtol 1e-5,
+    two runs equal; timed beside the plain version and the first version
+    (``tools/split_first.cu``, the kernel ``first``) on the same inputs.
+    The row's top-level numbers are 32 nodes'."""
     from repro_torch.kernels import ref, split_kernel
-    nodes, m, B, C = 32, 100, 256, 6
-    hist = torch.randn((nodes, m, B, C), generator=gen, device=dev)
-    hist[..., -1] = torch.randint(0, 40, (nodes, m, B), generator=gen,
-                                  device=dev).float()
-    mask = torch.ones(m, device=dev)
-    mask[7] = 0.0
-    gain, idx = split_kernel.split_scan(hist, 1.0, 1.0, mask)
-    pg, pi = ref.split_scan_ref(hist, 1.0, 1.0, mask)
-    torch.cuda.synchronize()
-    assert torch.equal(idx, pi), "B2 split indices differ from plain"
-    torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
-    b_ms, b_by = bound_ms(hist.numel() * 4 + m * 4 + nodes * 8,
-                          nodes * m * B * (4 * C + 12))
+    m, B, C = 100, 256, 6
+    shapes, errs = {}, []
+    for key, nodes in SPLIT_NODES.items():
+        hist = torch.randn((nodes, m, B, C), generator=gen, device=dev)
+        hist[..., -1] = torch.randint(0, 40, (nodes, m, B), generator=gen,
+                                      device=dev).float()
+        mask = torch.ones(m, device=dev)
+        mask[7] = 0.0
+        gain, idx = split_kernel.split_scan(hist, 1.0, 1.0, mask)
+        gain2, idx2 = split_kernel.split_scan(hist, 1.0, 1.0, mask)
+        pg, pi = ref.split_scan_ref(hist, 1.0, 1.0, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, pi), f"B2 {key}: split indices differ"
+        torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
+        assert torch.equal(gain, gain2) and torch.equal(idx, idx2), \
+            f"B2 {key} is not the same run to run"
+        first_ms, fi = first_split_ms(torch, first, hist, mask)
+        assert torch.equal(fi, pi), f"B2's first version {key} differs"
+        errs.append(float((gain - pg).abs().max()))
+        b_ms, b_by = bound_ms(hist.numel() * 4 + m * 4 + nodes * 8,
+                              nodes * m * B * (4 * C + 12))
+        shapes[key] = dict(
+            nodes=nodes, ms=cuda_ms(
+                lambda: split_kernel.split_scan(hist, 1.0, 1.0, mask), 50),
+            first_ms=first_ms,
+            plain_ms=cuda_ms(lambda: ref.split_scan_ref(hist, 1.0, 1.0,
+                                                        mask), 5),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[-1])
+    top = shapes["n32_level5"]
     return dict(
         name="split_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/split.cu",
         replaces="src/repro/kernels/split_kernel.py:95",
-        max_abs_err=float((gain - pg).abs().max()),
-        ms=cuda_ms(lambda: split_kernel.split_scan(hist, 1.0, 1.0, mask)),
-        plain_ms=cuda_ms(lambda: ref.split_scan_ref(hist, 1.0, 1.0, mask)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        max_abs_err=max(errs), ms=top["ms"], first_ms=top["first_ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=None, shapes=shapes)
 
 
 def check_split_wide(torch, gen, dev):
@@ -578,16 +646,20 @@ def shap_ops(depth: int) -> int:
     return 2 * ext - (3 * depth - 1) + conv + 2 * depth
 
 
-def check_shap(torch, gen, dev):
-    """B6 at the main model's tree shape: 4,096 rows x 100 features, 8
-    depth-6 trees (L=64, D=6), W = d = 512, covers with empty subtrees;
-    then W=1 blocks at per-tree columns.  Bitwise against the plain
-    version on the card (same sums in the same order, two roundings)."""
+# B6's shapes (rows, trees), all of depth-6 trees (L=64 paths, D=6 slots)
+# over 100 features at W = d = 512: (a) the 8-tree shape timed since the
+# first version; (b) one 256-row endpoint window of the explain path's
+# 100-tree model; (c) the 4,096 rows of its ``shap_values``.
+SHAP_SHAPES = {"a_trees8": (4096, 8), "b_window": (256, 100),
+               "c_explain": (4096, 100)}
+
+
+def shap_case(torch, gen, dev, n, T, M=100, depth=6, d=512):
+    """``T`` random depth-``depth`` trees with covers (empty subtrees
+    included) over ``n`` rows of ``M`` codes: ``(codes, pack, out_col)``."""
     from repro_torch.core import forest as FO
     from repro_torch.core.tree import heap_to_node_arrays
     from repro_torch.explain import build_path_pack
-    from repro_torch.kernels import ref, shap_kernel
-    n, M, T, depth, d = 4096, 100, 8, 6, 512
     h = 2 ** depth - 1
     feat, thr, left, right, leaf = heap_to_node_arrays(
         torch.randint(0, M, (T, h), generator=gen, device=dev,
@@ -602,46 +674,110 @@ def check_shap(torch, gen, dev):
         out_col=torch.zeros(T, dtype=torch.int32, device=dev),
         base=torch.zeros(d, device=dev), lr=torch.tensor(0.05),
         cover=FO._heap_cover(leaf_cover), node_count=None, depth=depth)
-    pack = build_path_pack(pf)
     codes = torch.randint(0, 256, (n, M), generator=gen, device=dev,
                           dtype=torch.int32).to(torch.uint8)
-    tables = (pack.slot_feat, pack.slot_lo, pack.slot_hi, pack.slot_z)
+    return codes, build_path_pack(pf), pf.out_col
 
-    def kernel(leaf_v, cols):
-        return shap_kernel.tree_shap(codes, *tables, leaf_v, cols, 0.05,
-                                     n_outputs=d)
 
-    def plain(leaf_v, cols):
-        phi = torch.zeros((n, M, d), device=dev)
-        return ref.tree_shap_ref(phi, codes, *tables, leaf_v, cols, 0.05)
-    out, again = kernel(pack.leaf, pf.out_col), kernel(pack.leaf, pf.out_col)
-    want = plain(pack.leaf, pf.out_col)
-    torch.cuda.synchronize()
-    assert torch.equal(out, again), "B6 is not deterministic run to run"
-    err = float((out - want).abs().max())
-    assert torch.equal(out, want), f"B6 differs from plain by {err!r}"
-    del out, again, want
-    narrow = pack.leaf[:, :, :1].contiguous()
-    cols = torch.arange(T, dtype=torch.int32, device=dev) * 60
-    k_n, p_n = kernel(narrow, cols), plain(narrow, cols)
-    torch.cuda.synchronize()
-    assert torch.equal(k_n, p_n), "B6 narrow blocks differ from plain"
-    del k_n, p_n
-    L, D = pack.slot_feat.shape[1:]
+def shap_bound(pack, n, M, d):
+    """B6's bound from this case's own tables: phi written once, the codes
+    and the tables read once; the scatter's ``2 n W`` operations per real
+    slot and each real path's Psi (`shap_ops`)."""
+    T, L, D = pack.slot_feat.shape
     real_slots = int((pack.slot_feat >= 0).sum())
     real_paths = int((pack.slot_feat >= 0).any(2).sum())
-    b_ms, b_by = bound_ms(4 * n * M * d + n * M + 16 * T * L * D
-                          + 4 * T * L * d + 4 * T + 4 * D,
-                          2 * n * real_slots * d
-                          + n * real_paths * shap_ops(D))
+    return bound_ms(4 * n * M * d + n * M + 16 * T * L * D
+                    + 4 * T * L * d + 4 * T + 4 * D,
+                    2 * n * real_slots * d + n * real_paths * shap_ops(D))
+
+
+def first_shap_ms(torch, first, codes, pack, cols, d, reps):
+    """``tools/shap_first.cu`` (B6's first version, one row a block) on the
+    same inputs: (ms, phi)."""
+    from repro_torch.kernels import ref
+    n, M = codes.shape
+    T, L, D = pack.slot_feat.shape
+    phi = torch.empty((n, M, d), dtype=torch.float32, device=codes.device)
+    wts = torch.tensor(ref._unwind_weights(D), dtype=torch.float32,
+                       device=codes.device)
+
+    def run():
+        first.launch(phi.data_ptr(), codes.data_ptr(),
+                     pack.slot_feat.data_ptr(), pack.slot_lo.data_ptr(),
+                     pack.slot_hi.data_ptr(), pack.slot_z.data_ptr(),
+                     pack.leaf.data_ptr(), cols.data_ptr(), wts.data_ptr(),
+                     0.05, n, M, d, T, L, D, pack.leaf.shape[2])
+    return cuda_ms(run, reps), phi
+
+
+def check_shap(torch, gen, dev, first):
+    """B6 at each of `SHAP_SHAPES`: bitwise against the plain version on
+    the card (same sums in the same order, two roundings) and the same run
+    to run, W=1 blocks at per-tree columns at (a) and (b); timed beside the
+    plain version (one call after the checking one, host clock) and the
+    first version (``tools/shap_first.cu``, the kernel ``first``, also
+    bitwise), with each shape's bound from its own slots and paths and the
+    configuration ``shap.cu`` picks.  The row's top-level numbers are the
+    endpoint window's (b)."""
+    from repro_torch.kernels import ref, shap_kernel
+    d, lr = 512, 0.05
+    shapes, errs = {}, []
+    for key, (n, T) in SHAP_SHAPES.items():
+        codes, pack, cols = shap_case(torch, gen, dev, n, T, d=d)
+        M = codes.shape[1]
+        tables = (pack.slot_feat, pack.slot_lo, pack.slot_hi, pack.slot_z)
+
+        def kernel(leaf_v, cols):
+            return shap_kernel.tree_shap(codes, *tables, leaf_v, cols, lr,
+                                         n_outputs=d)
+
+        def plain(leaf_v, cols):
+            phi = torch.zeros((n, M, d), device=dev)
+            return ref.tree_shap_ref(phi, codes, *tables, leaf_v, cols, lr)
+        out, again = kernel(pack.leaf, cols), kernel(pack.leaf, cols)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), f"B6 {key} is not the same run to run"
+        del again
+        want = plain(pack.leaf, cols)
+        torch.cuda.synchronize()
+        errs.append(float((out - want).abs().max()))
+        assert torch.equal(out, want), f"B6 {key} differs from plain by " \
+            f"{errs[-1]!r}"
+        del want
+        reps = 5 if n * T <= 4096 * 8 else 2
+        first_ms, first_out = first_shap_ms(torch, first, codes, pack, cols,
+                                            d, reps)
+        assert torch.equal(out, first_out), \
+            f"B6's first version {key} differs"
+        del out, first_out
+        if key != "c_explain":
+            narrow = pack.leaf[:, :, :1].contiguous()
+            ncols = torch.arange(T, dtype=torch.int32, device=dev) * 60 % d
+            k_n, p_n = kernel(narrow, ncols), plain(narrow, ncols)
+            torch.cuda.synchronize()
+            assert torch.equal(k_n, p_n), f"B6 {key}: narrow blocks differ"
+            del k_n, p_n
+        L, D = pack.slot_feat.shape[1:]
+        b_ms, b_by = shap_bound(pack, n, M, d)
+        t0 = time.perf_counter()
+        plain(pack.leaf, cols)
+        torch.cuda.synchronize()
+        shapes[key] = dict(
+            rows=n, trees=T, real_slots=int((pack.slot_feat >= 0).sum()),
+            ms=cuda_ms(lambda: kernel(pack.leaf, cols), reps),
+            first_ms=first_ms,
+            plain_ms=1e3 * (time.perf_counter() - t0), bound_ms=b_ms,
+            bound_by=b_by, max_abs_err=errs[-1],
+            plan=shap_kernel.launch_info(n, M, d, T, L, D, d))
+        gc.collect()
+    top = shapes["b_window"]
     return dict(
         name="tree_shap", route="cuda",
         source="src/repro_torch/kernels/csrc/shap.cu",
         replaces="src/repro/kernels/shap_kernel.py:109",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: kernel(pack.leaf, pf.out_col)),
-        plain_ms=cuda_ms(lambda: plain(pack.leaf, pf.out_col), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        max_abs_err=max(errs), ms=top["ms"], first_ms=top["first_ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=None, shapes=shapes)
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -1182,7 +1318,7 @@ def leafwise_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels, rounds=3):
     prof = profile_step(
         torch, lambda: BO.boost_round(F, codes, codes_t, Y, c,
                                       generator=gen),
-        "hist_nodes_kernel<float>", extra_keys=("split_scan_kernel",))
+        "hist_nodes_kernel<float>", extra_keys=B2_KERNELS)
     torch.cuda.synchronize()
     counted = []
     tree = count_syncs(torch, lambda: BO.boost_round(
@@ -1190,8 +1326,8 @@ def leafwise_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels, rounds=3):
     syncs = counted[0]
     prof.update(host_syncs_per_round=syncs,
                 node_count=int(tree.node_count),
-                b2_s=prof["by_key"]["split_scan_kernel"],
-                b2_share=prof["by_key"]["split_scan_kernel"]
+                b2_s=sum(prof["by_key"][k] for k in B2_KERNELS),
+                b2_share=sum(prof["by_key"][k] for k in B2_KERNELS)
                 / prof["device_busy_s"])
     rec["profile"] = prof
     print(f"[9b] (e) one leaf-wise round (max_leaves=32) profiled: wall "
@@ -1893,8 +2029,9 @@ def main() -> int:
     b8 = decode_attention.KERNEL
     b1bf = hist_kernel.KERNEL_BF16
     every = kernels + b5 + [b6, b4, b2w, b7, b8, b1bf]
+    first_split, first_shap = first_kernels()
     t0 = time.perf_counter()
-    reports = _build.build(every)
+    reports = _build.build(every + [first_split, first_shap])
     print(f"[2] built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -1905,18 +2042,21 @@ def main() -> int:
     hcase = hist_case(torch, gen, dev)
     rows = [check_hist(torch, hcase), check_hist_bf16(torch, hcase)]
     del hcase
-    rows.append(check_split(torch, gen, dev))
+    rows.append(check_split(torch, gen, dev, first_split))
     cases = traverse_cases(torch, gen, dev)
     rows += [check_traverse(torch, cases, dt)
              for dt in ("float32", "int8", "bfloat16")]
     del cases
-    rows.append(check_shap(torch, gen, dev))
+    rows.append(check_shap(torch, gen, dev, first_shap))
     rows.append(check_hist_direct(torch, gen, dev))
     rows.append(check_split_wide(torch, gen, dev))
     rows.append(check_flash(torch, gen, dev))
     rows.append(check_decode(torch, gen, dev))
     for r in rows:
         for key, sh in r.get("shapes", {}).items():
+            if "leaf_bytes" not in sh:           # B2 and B6
+                print(f"[3] {r['name']} {key}: {json.dumps(sh)}")
+                continue
             print(f"[3] {r['name']} {key} ({sh['rows']} rows x "
                   f"{sh['trees']} trees): kernel {sh['ms']:.4f} ms plain "
                   f"{sh['plain_ms']:.4f} ms bound {sh['bound_ms']:.4f} ms "

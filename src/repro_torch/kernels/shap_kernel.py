@@ -19,9 +19,29 @@ from repro_torch.kernels._build import CudaKernel, require
 
 KERNEL = CudaKernel(
     "tree_shap", "shap.cu", "tree_shap_launch",
-    [ctypes.c_void_p] * 9 + [ctypes.c_float] + [ctypes.c_int] * 7,
+    [ctypes.c_void_p] * 10 + [ctypes.c_float] + [ctypes.c_int] * 7,
     extra_flags=("-fmad=false",))
 MAX_DEPTH = 32          # path slots the kernel holds per thread (MAXD)
+_SHAPE_ARGS = [ctypes.c_int] * 7
+INFO_KEYS = ("rows_a_thread", "rows", "feature_warps", "features_a_warp",
+             "staged", "shared_bytes", "chunk_rows", "feature_passes",
+             "trees_a_buffer")
+
+
+def launch_info(n: int, M: int, d: int, T: int, L: int, D: int,
+                W: int) -> dict:
+    """What ``shap.cu`` picks for this shape on the current card: the
+    scatter's rows a thread and a block, its warps across the features and
+    the features each holds in registers, whether the tables are staged in
+    shared memory, the shared bytes a block, the rows of one pass through
+    the Psi scratch, the passes over the features, and the trees staged at
+    a time."""
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    err = KERNEL.call("tree_shap_info", _SHAPE_ARGS + [ctypes.c_void_p],
+                      n, M, d, T, L, D, W, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"tree_shap_info: CUDA error {err}")
+    return dict(zip(INFO_KEYS, out))
 
 
 def tree_shap(codes: torch.Tensor, slot_feat: torch.Tensor,
@@ -57,8 +77,15 @@ def tree_shap(codes: torch.Tensor, slot_feat: torch.Tensor,
     phi = torch.empty((n, M, d), dtype=torch.float32, device=codes.device)
     wts = torch.tensor(ref._unwind_weights(D), dtype=torch.float32,
                        device=codes.device)
+    # The per-tree plans and the Psi factors of one chunk of rows.
+    kib = KERNEL.call("tree_shap_scratch_kib", _SHAPE_ARGS, n, M, d, T, L,
+                      D, W)
+    if kib < 0:
+        raise ValueError(f"tree_shap: shape {(n, M, d, T, L, D, W)} out "
+                         "of range")
+    scratch = torch.empty(kib * 256, dtype=torch.float32, device=codes.device)
     KERNEL.launch(phi.data_ptr(), codes.data_ptr(), slot_feat.data_ptr(),
                   slot_lo.data_ptr(), slot_hi.data_ptr(), slot_z.data_ptr(),
-                  leaf.data_ptr(), out_col.data_ptr(), wts.data_ptr(), lr, n,
-                  M, d, T, L, D, W)
+                  leaf.data_ptr(), out_col.data_ptr(), wts.data_ptr(),
+                  scratch.data_ptr(), lr, n, M, d, T, L, D, W)
     return phi

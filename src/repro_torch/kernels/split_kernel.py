@@ -15,8 +15,9 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import CudaKernel, require
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-KERNEL = CudaKernel("split_scan", "split.cu", "split_scan_launch", _ARGS)
+KERNEL = CudaKernel(
+    "split_scan", "split.cu", "split_scan_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2)
 WIDE_KERNEL = CudaKernel(
     "split_scan_wide", "split.cu", "split_scan_wide_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2)
@@ -39,16 +40,12 @@ def split_scan(hist: torch.Tensor, lam: float, min_data: float,
                          f"(sketch width + 1, or d + 1 unsketched), got {c}")
     gain = torch.empty(nodes, dtype=torch.float32, device=hist.device)
     idx = torch.empty(nodes, dtype=torch.int32, device=hist.device)
-    if c <= NARROW_CHANNELS:
-        KERNEL.launch(hist.data_ptr(), mask.data_ptr(), gain.data_ptr(),
-                      idx.data_ptr(), nodes, m, B, c, float(lam),
-                      float(min_data))
-        return gain, idx
+    # The per-(node, feature) maxima, then each node's best of them.
     part_gain = torch.empty((nodes, m), dtype=torch.float32,
                             device=hist.device)
     part_idx = torch.empty((nodes, m), dtype=torch.int32, device=hist.device)
-    WIDE_KERNEL.launch(hist.data_ptr(), mask.data_ptr(), gain.data_ptr(),
-                       idx.data_ptr(), part_gain.data_ptr(),
-                       part_idx.data_ptr(), nodes, m, B, c, float(lam),
-                       float(min_data))
+    kernel = KERNEL if c <= NARROW_CHANNELS else WIDE_KERNEL
+    kernel.launch(hist.data_ptr(), mask.data_ptr(), gain.data_ptr(),
+                  idx.data_ptr(), part_gain.data_ptr(), part_idx.data_ptr(),
+                  nodes, m, B, c, float(lam), float(min_data))
     return gain, idx

@@ -78,6 +78,68 @@ def test_split_scan_kernel_matches_plain(dev, nodes, m, B, C):
         torch.testing.assert_close(gain.cpu(), pg, rtol=1e-5, atol=0)
 
 
+def _split_pair(hist, mask, min_data):
+    """B2 on the card twice and its plain version on the CPU."""
+    gain, idx = split_kernel.split_scan(hist, 1.0, min_data, mask)
+    gain2, idx2 = split_kernel.split_scan(hist, 1.0, min_data, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(gain, gain2) and torch.equal(idx, idx2)
+    pg, pi = ref.split_scan_ref(hist.cpu(), 1.0, min_data, mask.cpu())
+    return gain.cpu(), idx.cpu(), pg, pi
+
+
+@pytest.mark.parametrize("nodes", [1, 2])
+@pytest.mark.parametrize("B,C", [(8, 2), (31, 17), (256, 6), (256, 64),
+                                 (31, 64), (8, 17)])
+def test_split_scan_few_nodes(dev, nodes, B, C):
+    """One warp a (node, feature): a tree's root and a leaf-wise expansion
+    at every run length (B = 8, 31, 256 bins over 32 lanes) and channel
+    template (C = 2, 17, 64); two runs equal."""
+    g = torch.Generator(device=dev).manual_seed(nodes * B + C)
+    m = 9
+    hist = torch.randn((nodes, m, B, C), generator=g, device=dev)
+    hist[..., -1] = torch.randint(0, 9, (nodes, m, B), generator=g,
+                                  device=dev).float()
+    mask = torch.ones(m, device=dev)
+    mask[3] = 0.0
+    for min_data in (1.0, 20.0):
+        gain, idx, pg, pi = _split_pair(hist, mask, min_data)
+        assert torch.equal(idx, pi)
+        torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("case", ["masked", "min_data"])
+def test_split_scan_nothing_legal(dev, case):
+    """Every feature masked, or min_data above every count: (-inf, 0)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    hist = torch.randn((3, 4, 31, 5), generator=g, device=dev)
+    hist[..., -1] = 2.0
+    mask = torch.zeros(4, device=dev) if case == "masked" else torch.ones(
+        4, device=dev)
+    gain, idx, pg, pi = _split_pair(hist, mask,
+                                    1.0 if case == "masked" else 1e9)
+    assert torch.isneginf(gain).all() and (idx == 0).all()
+    assert torch.equal(idx, pi) and torch.equal(gain, pg)
+
+
+@pytest.mark.parametrize("nodes,B,C", [(1, 256, 6), (2, 31, 5), (3, 8, 2),
+                                       (2, 256, 4)])
+def test_split_scan_dyadic_ties_bitwise(dev, nodes, B, C):
+    """Gradient sums in quarters and small counts, so every sum is exact:
+    the gains are bitwise the plain version's, and where features (0 and
+    2) and bins (an empty band) tie, the lowest index wins."""
+    rng = np.random.default_rng(B * C + nodes)
+    m = 4
+    h = (rng.integers(-4, 5, (nodes, m, B, C)) / 4).astype(np.float32)
+    h[..., -1] = rng.integers(0, 4, (nodes, m, B))
+    h[:, 2] = h[:, 0]
+    h[:, :, B // 3:B // 3 + 3] = 0.0
+    hist = torch.from_numpy(h).to(dev)
+    gain, idx, pg, pi = _split_pair(hist, torch.ones(m, device=dev), 1.0)
+    assert torch.equal(idx, pi) and torch.equal(gain, pg)
+    assert not ((idx // B) == 2).any()
+
+
 @pytest.mark.parametrize("C,wide", [(2, False), (64, False), (65, True),
                                     (1024, True)])
 def test_split_scan_wrapper_counts_each_path(dev, C, wide):
@@ -366,16 +428,29 @@ def _shap_on(dev, codes, pack, out_col, lr, d):
 
 
 @pytest.mark.parametrize("case", ["wide", "narrow", "pruned", "stump",
-                                  "wide_features", "deep"])
+                                  "wide_features", "deep", "trees100",
+                                  "trees100_narrow", "huge_features",
+                                  "row_chunks"])
 def test_tree_shap_kernel_bitwise(dev, case):
     """B6 against its plain version (on the CPU): odd row counts, output
     widths that are no multiple of the column chunk, z = 0 edges, a narrow
     block at per-tree columns, a pruned and compacted forest, a stump
     forest, more features than a chunk of columns, paths deeper than the
-    depths compiled as constants; two runs bitwise."""
+    depths compiled as constants (the tables read in place: they do not fit
+    shared memory), the explain path's 100 depth-6 trees over 100 features
+    at a row count that is no multiple of a block's rows (also with per-tree
+    narrow columns), more features than one pass of the scatter holds in
+    registers, and more rows than one pass through the Psi scratch takes;
+    two runs bitwise."""
     rng = np.random.default_rng(len(case))
     n, T, depth, M, d = 333, 5, 6, 37, 700
-    W = 1 if case == "narrow" else d
+    if case.startswith("trees100"):
+        n, T, depth, M, d = 257, 100, 6, 100, 130
+    if case == "huge_features":
+        n, T, depth, M, d = 41, 3, 4, 3000, 20
+    if case == "row_chunks":
+        n, T, depth, M, d = 524_300, 2, 2, 3, 3
+    W = 1 if case.endswith("narrow") else d
     if case == "stump":
         n, T, depth, M, d, W = 50, 3, 1, 2, 3, 3
     if case == "wide_features":
@@ -383,7 +458,7 @@ def test_tree_shap_kernel_bitwise(dev, case):
     if case == "deep":
         n, T, depth, M, d, W = 40, 2, 10, 12, 5, 5
     pf = _shap_forest(rng, T, depth, W, M)
-    if case == "narrow":
+    if case.endswith("narrow"):
         pf = pf._replace(out_col=torch.from_numpy(
             rng.integers(0, d, T).astype(np.int32)))
     if case == "pruned":
@@ -405,6 +480,12 @@ def test_tree_shap_kernel_bitwise(dev, case):
     phi, base = EX.shap_values(pfd, codes.to(dev))
     raw = FO.predict_raw(pfd, codes.to(dev))
     assert float((base + phi.sum(1) - raw).abs().max()) <= 1e-4
+    L, D = pack.slot_feat.shape[1:]
+    info = shap_kernel.launch_info(n, M, d, T, L, D, W)
+    per_pass = info["feature_warps"] * info["features_a_warp"]
+    assert info["feature_passes"] == -(-M // per_pass), info
+    assert info["staged"] == (case != "deep"), info
+    assert (info["chunk_rows"] < n) == (case == "row_chunks"), info
 
 
 def test_tree_shap_wrapper_counts_launches_and_checks_types(dev):
