@@ -10,8 +10,8 @@ Phases (any failure exits non-zero; nothing is caught):
      per source, in parallel; B1 and B1-bf16 share ``hist.cu``, B3 and both
      B5 entry points ``predict.cu``; B4 is ``hist_direct.cu``, built with
      B1 on ``hist_common.cuh``; B6 ``shap.cu``, B7 ``flash_attention.cu``,
-     B8 ``decode_attention.cu``; and the first versions of B2 and B6 from
-     ``tools/``) and time the build;
+     B8 ``decode_attention.cu``; and the first versions of B2, B2-wide
+     and B6 from ``tools/``) and time the build;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (B1 and B1-bf16 bitwise against the plain version
      run on the CPU from host copies, where ``index_add_`` keeps their
@@ -20,7 +20,10 @@ Phases (any failure exits non-zero; nothing is caught):
      bitwise at level 5 of the paper's tree, both summing in tiles of
      ``ref.TILE_ROWS`` rows, with each build's registers, shared memory a
      block and blocks an SM; B2's
-     wide kernel at SketchBoost Full's level 5, C = 513; B3, B5 int8 and B5
+     wide path at each of SketchBoost Full's levels (1, 2, 4, 8, 16 and 32
+     nodes x 100 x 256 x 513), indices equal to the plain version's, gains
+     within rtol 1e-5, equal run to run, beside its first design
+     (``tools/split_wide_first.cu``); B3, B5 int8 and B5
      bf16 at the four shapes of ``TRAVERSE_SHAPES`` (262,144 rows x 8 trees,
      the 256-row serving window x 100, a 4,096-row chunk x 100, 131,072 x
      1), each bitwise its plain version and the same run to run, B5 also
@@ -70,7 +73,8 @@ Phases (any failure exits non-zero; nothing is caught):
      then 3 rounds each of ``sketch_method`` "top_outputs",
      "random_sampling" and "truncated_svd" and 2 of "none" (SketchBoost
      Full, B2's wide kernel); seconds per round, valid loss and peak memory
-     of each; then one more round of Full under the profiler, as in 6;
+     of each; then one more round of Full under the profiler, as in 6,
+     with B2-wide's kernels' share of the device time;
   9b. leaf-wise growth, bf16 statistics and staged prediction on phase 4's
      data, 3 rounds a fit with one set of per-round Pi: (a) leaf-wise at
      ``max_leaves=64`` (= 2^6) against level-wise ``"subtract"``: every
@@ -342,10 +346,11 @@ def check_hist_direct(torch, gen, dev):
 
 
 def first_kernels():
-    """``(split, shap)``: the first versions of B2 and B6
-    (``tools/split_first.cu``, ``tools/shap_first.cu``) as ``CudaKernel``s,
-    built beside the repo's kernels and timed in phase 3 on the same inputs;
-    their launches count on themselves, never on the repo's kernels."""
+    """``(split, split_wide, shap)``: the first versions of B2, B2-wide and
+    B6 (``tools/split_first.cu``, ``tools/split_wide_first.cu``,
+    ``tools/shap_first.cu``) as ``CudaKernel``s, built beside the repo's
+    kernels and timed in phase 3 on the same inputs; their launches count
+    on themselves, never on the repo's kernels."""
     import ctypes
     from repro_torch.kernels._build import CSRC, CudaKernel
     V, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -354,14 +359,22 @@ def first_kernels():
                        os.path.join(tools, "split_first.cu"),
                        "split_scan_launch", [V] * 4 + [I] * 4 + [Fl] * 2,
                        extra_flags=("-I", str(CSRC)))
+    split_wide = CudaKernel("split_scan_wide_first",
+                            os.path.join(tools, "split_wide_first.cu"),
+                            "split_scan_wide_launch",
+                            [V] * 6 + [I] * 4 + [Fl] * 2,
+                            extra_flags=("-I", str(CSRC)))
     shap = CudaKernel("tree_shap_first", os.path.join(tools, "shap_first.cu"),
                       "tree_shap_launch", [V] * 9 + [Fl] + [I] * 7,
                       extra_flags=("-fmad=false", "-I", str(CSRC)))
-    return split, shap
+    return split, split_wide, shap
 
 
-# B2's device kernels (up to 64 channels), as the profiler names them.
+# B2's device kernels, as the profiler names them: up to 32 channels, and
+# above (SketchBoost Full); both end in `split_pick_kernel`.
 B2_KERNELS = ("split_unit_kernel", "split_pick_kernel")
+B2_WIDE_KERNELS = ("split_wide_scan_kernel", "split_wide_score_kernel",
+                   "split_pick_kernel")
 
 # B2's shapes at the main path's widths (m=100, B=256, C=6): a level-wise
 # tree's level 0 and level 5, and a leaf-wise expansion (2 nodes).
@@ -407,8 +420,10 @@ def check_split(torch, gen, dev, first):
         first_ms, fi = first_split_ms(torch, first, hist, mask)
         assert torch.equal(fi, pi), f"B2's first version {key} differs"
         errs.append(float((gain - pg).abs().max()))
-        b_ms, b_by = bound_ms(hist.numel() * 4 + m * 4 + nodes * 8,
-                              nodes * m * B * (4 * C + 12))
+        # Masked features are skipped: only the others' histograms count.
+        used = int((mask > 0).sum())
+        b_ms, b_by = bound_ms(nodes * used * B * C * 4 + m * 4 + nodes * 8,
+                              nodes * used * B * (4 * C + 12))
         shapes[key] = dict(
             nodes=nodes, ms=cuda_ms(
                 lambda: split_kernel.split_scan(hist, 1.0, 1.0, mask), 50),
@@ -426,35 +441,80 @@ def check_split(torch, gen, dev, first):
         bound_by=top["bound_by"], library_ms=None, shapes=shapes)
 
 
-def check_split_wide(torch, gen, dev):
-    """B2's wide kernel (C > 64) at SketchBoost Full's deepest level: 32
-    nodes x 100 x 256 x 513 (d = 512 gradient channels and the count)."""
+# B2-wide's shapes: SketchBoost Full's levels 0 to 5 on the paper's
+# configuration (m=100, B=256, C = d + 1 = 513), one launch a level.
+WIDE_NODES = (1, 2, 4, 8, 16, 32)
+
+
+def first_split_wide_ms(torch, first, hist, mask, reps=20):
+    """``tools/split_wide_first.cu`` (B2-wide's first design, a block a
+    (node, feature)) on the same inputs: (ms, idx)."""
+    nodes, m, B, C = hist.shape
+    gain = torch.empty(nodes, dtype=torch.float32, device=hist.device)
+    idx = torch.empty(nodes, dtype=torch.int32, device=hist.device)
+    part_gain = torch.empty((nodes, m), device=hist.device)
+    part_idx = torch.empty((nodes, m), dtype=torch.int32, device=hist.device)
+
+    def run():
+        first.launch(hist.data_ptr(), mask.data_ptr(), gain.data_ptr(),
+                     idx.data_ptr(), part_gain.data_ptr(),
+                     part_idx.data_ptr(), nodes, m, B, C, 1.0, 1.0)
+    return cuda_ms(run, reps), idx
+
+
+def check_split_wide(torch, gen, dev, first):
+    """B2's wide path (C > 32) at each of SketchBoost Full's levels
+    (`WIDE_NODES` x 100 x 256 x 513: d = 512 gradient channels and the
+    count): idx equal to the plain version's, gains within rtol 1e-5, two
+    runs bitwise equal; timed beside the plain version and the first design
+    (``tools/split_wide_first.cu``, the kernel ``first``) on the same
+    inputs.  The row's top-level numbers are 32 nodes'."""
     from repro_torch.kernels import ref, split_kernel
-    nodes, m, B, C = 32, 100, 256, 513
-    hist = torch.randn((nodes, m, B, C), generator=gen, device=dev)
-    hist[..., -1] = torch.randint(0, 40, (nodes, m, B), generator=gen,
-                                  device=dev).float()
-    mask = torch.ones(m, device=dev)
-    mask[7] = 0.0
-    before = split_kernel.WIDE_KERNEL.launches
-    gain, idx = split_kernel.split_scan(hist, 1.0, 1.0, mask)
-    assert split_kernel.WIDE_KERNEL.launches == before + 1, "not the wide path"
-    pg, pi = ref.split_scan_ref(hist, 1.0, 1.0, mask)
-    torch.cuda.synchronize()
-    assert torch.equal(idx, pi), "B2-wide split indices differ from plain"
-    torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
-    err = float((gain - pg).abs().max())
-    del pg, pi
-    b_ms, b_by = bound_ms(hist.numel() * 4 + m * 4 + nodes * 8,
-                          nodes * m * B * (4 * C + 12))
+    m, B, C = 100, 256, 513
+    shapes, errs = {}, []
+    for nodes in WIDE_NODES:
+        hist = torch.randn((nodes, m, B, C), generator=gen, device=dev)
+        hist[..., -1] = torch.randint(0, 40, (nodes, m, B), generator=gen,
+                                      device=dev).float()
+        mask = torch.ones(m, device=dev)
+        mask[7] = 0.0
+        before = split_kernel.WIDE_KERNEL.launches
+        gain, idx = split_kernel.split_scan(hist, 1.0, 1.0, mask)
+        gain2, idx2 = split_kernel.split_scan(hist, 1.0, 1.0, mask)
+        assert split_kernel.WIDE_KERNEL.launches == before + 2, \
+            "not the wide path"
+        pg, pi = ref.split_scan_ref(hist, 1.0, 1.0, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, pi), \
+            f"B2-wide at {nodes} nodes: split indices differ from plain"
+        torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
+        assert torch.equal(gain, gain2) and torch.equal(idx, idx2), \
+            f"B2-wide at {nodes} nodes is not the same run to run"
+        first_ms, fi = first_split_wide_ms(torch, first, hist, mask)
+        assert torch.equal(fi, pi), \
+            f"B2-wide's first design at {nodes} nodes differs"
+        errs.append(float((gain - pg).abs().max()))
+        del pg, pi
+        # Masked features are skipped: only the others' histograms count.
+        used = int((mask > 0).sum())
+        b_ms, b_by = bound_ms(nodes * used * B * C * 4 + m * 4 + nodes * 8,
+                              nodes * used * B * (4 * C + 12))
+        shapes[f"n{nodes}"] = dict(
+            nodes=nodes, ms=cuda_ms(
+                lambda: split_kernel.split_scan(hist, 1.0, 1.0, mask), 20),
+            first_ms=first_ms,
+            plain_ms=cuda_ms(lambda: ref.split_scan_ref(hist, 1.0, 1.0,
+                                                        mask), 2),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[-1])
+        del hist
+    top = shapes["n32"]
     return dict(
         name="split_scan_wide", route="cuda",
         source="src/repro_torch/kernels/csrc/split.cu",
         replaces="src/repro/kernels/split_kernel.py:95",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: split_kernel.split_scan(hist, 1.0, 1.0, mask)),
-        plain_ms=cuda_ms(lambda: ref.split_scan_ref(hist, 1.0, 1.0, mask), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        max_abs_err=max(errs), ms=top["ms"], first_ms=top["first_ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=None, shapes=shapes)
 
 
 # Phase 3's traversal shapes (rows, trees), all at D = W = 512 over 100
@@ -1023,11 +1083,12 @@ def check_small_fit(torch):
 
 
 def profile_rounds(torch, model, dev, Xtr, ytr, Xev, yev, rounds=2,
-                   tag="[6]"):
+                   tag="[6]", b2_keys=B2_KERNELS):
     """Where a full-width round's time goes: ``rounds`` more rounds of the
     fitted model's loop body (``boosting.boost_round`` plus the eval
     update and loss) under ``torch.profiler``, after the path's counts
-    were read.  Prints device time by kernel and the device's busy time
+    were read.  Prints device time by kernel, B2's device time (the
+    kernels named in ``b2_keys``) and its share, and the device's busy time
     over the wall time of those rounds, and returns them."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1055,13 +1116,20 @@ def profile_rounds(torch, model, dev, Xtr, ytr, Xev, yev, rounds=2,
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e6
+    b2 = [e for e in events if any(k in e.key for k in b2_keys)]
+    b2_s = sum(e.self_device_time_total for e in b2) / 1e6
     print(f"{tag} profiled {rounds} rounds (profiler on): wall {wall:.4f} "
-          f"s, device busy {busy:.4f} s = {busy / wall:.3f} of wall")
+          f"s, device busy {busy:.4f} s = {busy / wall:.3f} of wall; B2 "
+          f"{b2_s * 1e3:.3f} ms = {b2_s / busy:.4f} of device time in "
+          f"{sum(e.count for e in b2)} launches of {len(b2)} kernels")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
     for e in top:
         print(f"{tag}   {e.self_device_time_total / 1e3:10.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}")
     return dict(rounds=rounds, wall_s=wall, device_busy_s=busy,
+                b2_s=b2_s, b2_share=b2_s / busy,
+                b2_ms=[[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                       for e in b2],
                 top_ms=[[e.key[:90], e.self_device_time_total / 1e3, e.count]
                         for e in top])
 
@@ -1144,7 +1212,8 @@ def engines_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels, rounds=3):
     assert full_launches["split_scan"] == 0, full_launches
     assert direct_launches["split_scan_wide"] == 0, direct_launches
     rec["none"]["profile"] = profile_rounds(torch, model, dev, Xtr, ytr, Xev,
-                                            yev, rounds=1, tag="[9] Full:")
+                                            yev, rounds=1, tag="[9] Full:",
+                                            b2_keys=B2_WIDE_KERNELS)
     return rec, direct_launches, full_launches
 
 
@@ -2029,9 +2098,9 @@ def main() -> int:
     b8 = decode_attention.KERNEL
     b1bf = hist_kernel.KERNEL_BF16
     every = kernels + b5 + [b6, b4, b2w, b7, b8, b1bf]
-    first_split, first_shap = first_kernels()
+    first_split, first_wide, first_shap = first_kernels()
     t0 = time.perf_counter()
-    reports = _build.build(every + [first_split, first_shap])
+    reports = _build.build(every + [first_split, first_wide, first_shap])
     print(f"[2] built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -2049,12 +2118,12 @@ def main() -> int:
     del cases
     rows.append(check_shap(torch, gen, dev, first_shap))
     rows.append(check_hist_direct(torch, gen, dev))
-    rows.append(check_split_wide(torch, gen, dev))
+    rows.append(check_split_wide(torch, gen, dev, first_wide))
     rows.append(check_flash(torch, gen, dev))
     rows.append(check_decode(torch, gen, dev))
     for r in rows:
         for key, sh in r.get("shapes", {}).items():
-            if "leaf_bytes" not in sh:           # B2 and B6
+            if "leaf_bytes" not in sh:           # B2, B2-wide and B6
                 print(f"[3] {r['name']} {key}: {json.dumps(sh)}")
                 continue
             print(f"[3] {r['name']} {key} ({sh['rows']} rows x "

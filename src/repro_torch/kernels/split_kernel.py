@@ -2,9 +2,10 @@
 
 Replaces the JAX package's ``split_scan_pallas``.  A CPU tensor goes to the
 plain version (`ref.split_scan_ref`); a CUDA tensor goes to the kernel, or
-the wrapper raises.  Two kernels share the source: ``KERNEL`` for up to 64
-channels (a sketch), ``WIDE_KERNEL`` for 65 to 1,024 (SketchBoost Full,
-d + 1 channels); each counts its own launches.
+the wrapper raises.  Two entry points share the source: ``KERNEL`` for up
+to 32 channels (a sketch of up to 31 columns), ``WIDE_KERNEL`` for 33 to
+1,024 (wider sketches, and SketchBoost Full's d + 1 channels; up to 256
+bins), which is faster from 33 channels on; each counts its own launches.
 """
 from __future__ import annotations
 
@@ -20,9 +21,23 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2)
 WIDE_KERNEL = CudaKernel(
     "split_scan_wide", "split.cu", "split_scan_wide_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2)
-NARROW_CHANNELS = 64    # in registers; wider histograms spread over a block
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2)
+NARROW_CHANNELS = 32    # in registers; wider histograms spread over warps
 MAX_CHANNELS = 1024
+# The wide scan: a block of WIDE_WARPS warps takes WIDE_CHUNKS chunks of
+# 32 gradient channels, each warp 32 / WIDE_WARPS channels of a chunk.
+WIDE_WARPS = 8
+WIDE_CHUNKS = 8
+WIDE_MAX_BINS = 256
+
+
+def wide_groups(c: int):
+    """The wide scan's groups of gradient channels of a C-channel
+    histogram, in group order, each in the order its warp sums them."""
+    per, span = 32 // WIDE_WARPS, 32 * WIDE_CHUNKS
+    return [[c0 + 32 * k + per * w + i for k in range(WIDE_CHUNKS)
+             for i in range(per) if c0 + 32 * k + per * w + i < c - 1]
+            for c0 in range(0, c - 1, span) for w in range(WIDE_WARPS)]
 
 
 def split_scan(hist: torch.Tensor, lam: float, min_data: float,
@@ -44,8 +59,18 @@ def split_scan(hist: torch.Tensor, lam: float, min_data: float,
     part_gain = torch.empty((nodes, m), dtype=torch.float32,
                             device=hist.device)
     part_idx = torch.empty((nodes, m), dtype=torch.int32, device=hist.device)
-    kernel = KERNEL if c <= NARROW_CHANNELS else WIDE_KERNEL
-    kernel.launch(hist.data_ptr(), mask.data_ptr(), gain.data_ptr(),
-                  idx.data_ptr(), part_gain.data_ptr(), part_idx.data_ptr(),
-                  nodes, m, B, c, float(lam), float(min_data))
+    ptrs = [hist.data_ptr(), mask.data_ptr(), gain.data_ptr(),
+            idx.data_ptr(), part_gain.data_ptr(), part_idx.data_ptr()]
+    if c <= NARROW_CHANNELS:
+        KERNEL.launch(*ptrs, nodes, m, B, c, float(lam), float(min_data))
+        return gain, idx
+    if B > WIDE_MAX_BINS:
+        raise ValueError(f"split_scan takes at most {WIDE_MAX_BINS} bins "
+                         f"above {NARROW_CHANNELS} channels, got {B}")
+    # Each group's per-bin partial sums (sum cs^2, sum (T - cs)^2).
+    groups = WIDE_WARPS * -(-(c - 1) // (32 * WIDE_CHUNKS))
+    scan_part = torch.empty((nodes, m, groups, B, 2), dtype=torch.float32,
+                            device=hist.device)
+    WIDE_KERNEL.launch(*ptrs, scan_part.data_ptr(), nodes, m, B, c,
+                       WIDE_WARPS, WIDE_CHUNKS, float(lam), float(min_data))
     return gain, idx

@@ -90,11 +90,15 @@ def _split_pair(hist, mask, min_data):
 
 @pytest.mark.parametrize("nodes", [1, 2])
 @pytest.mark.parametrize("B,C", [(8, 2), (31, 17), (256, 6), (256, 64),
-                                 (31, 64), (8, 17)])
+                                 (31, 64), (8, 17), (256, 65), (256, 513),
+                                 (31, 1024), (256, 200), (256, 12),
+                                 (256, 32), (256, 33)])
 def test_split_scan_few_nodes(dev, nodes, B, C):
-    """One warp a (node, feature): a tree's root and a leaf-wise expansion
-    at every run length (B = 8, 31, 256 bins over 32 lanes) and channel
-    template (C = 2, 17, 64); two runs equal."""
+    """A tree's root and a leaf-wise expansion at every run length (B = 8,
+    31, 256 bins over 32 lanes): the narrow kernel at each channel template
+    (C = 2, 12, 17, 32), the wide one (C > 32) at whole and partial chunks
+    and spans of channels (C - 1 = 32, 63, 64, 199, 512, 1,023); two runs
+    equal."""
     g = torch.Generator(device=dev).manual_seed(nodes * B + C)
     m = 9
     hist = torch.randn((nodes, m, B, C), generator=g, device=dev)
@@ -108,11 +112,13 @@ def test_split_scan_few_nodes(dev, nodes, B, C):
         torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("C", [5, 65, 513, 1024])
 @pytest.mark.parametrize("case", ["masked", "min_data"])
-def test_split_scan_nothing_legal(dev, case):
-    """Every feature masked, or min_data above every count: (-inf, 0)."""
+def test_split_scan_nothing_legal(dev, case, C):
+    """Every feature masked, or min_data above every count: (-inf, 0), on
+    the narrow (C = 5) and the wide path."""
     g = torch.Generator(device=dev).manual_seed(5)
-    hist = torch.randn((3, 4, 31, 5), generator=g, device=dev)
+    hist = torch.randn((3, 4, 31, C), generator=g, device=dev)
     hist[..., -1] = 2.0
     mask = torch.zeros(4, device=dev) if case == "masked" else torch.ones(
         4, device=dev)
@@ -123,7 +129,9 @@ def test_split_scan_nothing_legal(dev, case):
 
 
 @pytest.mark.parametrize("nodes,B,C", [(1, 256, 6), (2, 31, 5), (3, 8, 2),
-                                       (2, 256, 4)])
+                                       (2, 256, 4), (1, 256, 65),
+                                       (2, 31, 513), (3, 256, 513),
+                                       (1, 256, 1024)])
 def test_split_scan_dyadic_ties_bitwise(dev, nodes, B, C):
     """Gradient sums in quarters and small counts, so every sum is exact:
     the gains are bitwise the plain version's, and where features (0 and
@@ -140,10 +148,10 @@ def test_split_scan_dyadic_ties_bitwise(dev, nodes, B, C):
     assert not ((idx // B) == 2).any()
 
 
-@pytest.mark.parametrize("C,wide", [(2, False), (64, False), (65, True),
+@pytest.mark.parametrize("C,wide", [(2, False), (32, False), (33, True),
                                     (1024, True)])
 def test_split_scan_wrapper_counts_each_path(dev, C, wide):
-    """Up to 64 channels go to ``KERNEL``, more to ``WIDE_KERNEL``; each
+    """Up to 32 channels go to ``KERNEL``, more to ``WIDE_KERNEL``; each
     launch adds one to that kernel's count only."""
     hist = torch.randn((2, 3, 8, C), device=dev)
     hist[..., -1] = 4.0
@@ -158,6 +166,9 @@ def test_split_scan_wrapper_counts_each_path(dev, C, wide):
     assert split_kernel.WIDE_KERNEL.launches == wide_n + wide
     with pytest.raises(ValueError):
         split_kernel.split_scan(torch.zeros((1, 3, 8, 1025), device=dev),
+                                1.0, 1.0, mask)
+    with pytest.raises(ValueError):                # the wide path's bins
+        split_kernel.split_scan(torch.zeros((1, 3, 257, 65), device=dev),
                                 1.0, 1.0, mask)
 
 

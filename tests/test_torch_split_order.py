@@ -8,6 +8,15 @@ repeats that order in float32 and is held to the port's plain version
 (`ref.split_scan_ref`, a sequential cumsum) and to the JAX package's
 ``split_scan_ref``: the same indices, gains within rtol 1e-5, and the same
 bits where every sum is exact (dyadic histograms).
+
+The wide entry point (C > 32) scans each channel the same way, but one
+warp sums a group of gradient channels (``split_kernel.wide_groups``: a
+block of ``WIDE_WARPS`` warps takes chunks of 32 channels, each warp
+32 / ``WIDE_WARPS`` of every chunk): the squared left and right sums (and
+the squared totals) are summed over a group's channels in that order from
+0, and the groups' sums are folded in group order from 0.
+``replay_split_scan(..., groups=wide_groups(C))`` replays that; one group
+of every channel is the narrow kernel's order.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +25,7 @@ import torch
 
 from repro.kernels import ref as JR
 from repro_torch.kernels import ref
+from repro_torch.kernels.split_kernel import wide_groups
 
 LANES = 32
 
@@ -48,18 +58,26 @@ def _lane_scan(p):
     return p
 
 
-def _sq_sum(v):
-    """Sum over the last axis of squares, in channel order from 0."""
-    s = np.zeros(v.shape[:-1], np.float32)
-    for c in range(v.shape[-1]):
-        s = s + v[..., c] * v[..., c]
-    return s
+def _sq_sum(v, groups=None):
+    """Sum over the last axis of squares: within each group of channels in
+    its order from 0, then the groups' sums in group order from 0
+    (``None``: one group of every channel in channel order)."""
+    if groups is None:
+        groups = [range(v.shape[-1])]
+    total = np.zeros(v.shape[:-1], np.float32)
+    for group in groups:
+        s = np.zeros(v.shape[:-1], np.float32)
+        for c in group:
+            s = s + v[..., c] * v[..., c]
+        total = total + s
+    return total
 
 
-def replay_split_scan(h, lam, min_data, mask):
+def replay_split_scan(h, lam, min_data, mask, groups=None):
     """(nodes, m, B, C) float32 -> per-node (best_gain, best_idx) in the
     kernel's order: the first maximum over (feature, bin), ties to the
-    lowest index, (-inf, 0) where nothing is legal."""
+    lowest index, (-inf, 0) where nothing is legal.  ``groups``: the wide
+    kernel's groups of gradient channels (``None``: the narrow kernel)."""
     h = np.asarray(h, np.float32)
     nodes, m, B, C = h.shape
     lam, min_data = np.float32(lam), np.float32(min_data)
@@ -68,22 +86,22 @@ def replay_split_scan(h, lam, min_data, mask):
     tot = incl[..., LANES - 1, :]                       # (nodes, m, C)
     excl = np.concatenate([np.zeros_like(incl[..., :1, :]),
                            incl[..., :-1, :]], axis=-2)
-    s_parent = _sq_sum(tot[..., :-1]) / (tot[..., -1] + lam)
-    gain = np.full((nodes, m, B), -np.inf, np.float32)
+    cs = np.empty_like(h)              # left sums, each lane from its prefix
     for q in range(LANES):
-        cs = excl[..., q, :].copy()
+        left = excl[..., q, :].copy()
         for b in range(q * run, min((q + 1) * run, B)):
-            cs = cs + h[..., b, :]
-            if b >= B - 1:
-                break
-            sl = _sq_sum(cs[..., :-1])
-            sr = _sq_sum(tot[..., :-1] - cs[..., :-1])
-            cl = cs[..., -1]
-            cr = tot[..., -1] - cl
-            g = np.float32(0.5) * (sl / (cl + lam) + sr / (cr + lam)
-                                   - s_parent)
-            legal = (cl >= min_data) & (cr >= min_data) & (mask[None] > 0)
-            gain[..., b] = np.where(legal, g, -np.inf)
+            left = left + h[..., b, :]
+            cs[..., b, :] = left
+    sl = _sq_sum(cs[..., :-1], groups)                  # (nodes, m, B)
+    sr = _sq_sum(tot[..., None, :-1] - cs[..., :-1], groups)
+    s_parent = _sq_sum(tot[..., :-1], groups) / (tot[..., -1] + lam)
+    cl = cs[..., -1]
+    cr = tot[..., -1:] - cl
+    g = np.float32(0.5) * (sl / (cl + lam) + sr / (cr + lam)
+                           - s_parent[..., None])
+    legal = ((cl >= min_data) & (cr >= min_data) & (mask[None, :, None] > 0)
+             & (np.arange(B) < B - 1))
+    gain = np.where(legal, g, np.float32(-np.inf))
     flat = gain.reshape(nodes, -1)
     idx = flat.argmax(1).astype(np.int32)        # first maximum
     best = flat[np.arange(nodes), idx]
@@ -188,3 +206,94 @@ def test_replay_nothing_legal(case):
     np.testing.assert_array_equal(i, pi)
     np.testing.assert_array_equal(g, pg)
 
+
+
+# The wide entry point: channel counts over 32 (C - 1 = 32, 63, 64, 128,
+# 199, 512 and 1,023 gradient channels: 1 to 32 chunks of 32, the last of
+# 63, 199 and 1,023 cut short).
+WIDE_C = [33, 64, 65, 129, 200, 513, 1024]
+
+
+@pytest.mark.parametrize("nodes", [1, 3])
+@pytest.mark.parametrize("B", [31, 256])
+@pytest.mark.parametrize("C", WIDE_C)
+def test_wide_replay_matches_plain_and_reference(C, B, nodes):
+    rng = np.random.default_rng(nodes * 10_000 + B * 7 + C)
+    m = 3
+    h = _random_hist(rng, nodes, m, B, C)
+    mask = np.array([1, 0, 1], np.float32)              # feature 1 masked
+    for min_data in (1.0, 30.0):
+        g, i = replay_split_scan(h, 1.0, min_data, mask, groups=wide_groups(C))
+        pg, pi = _plain(h, 1.0, min_data, mask)
+        jg, ji = _jax(h, 1.0, min_data, mask)
+        np.testing.assert_array_equal(i, pi)
+        np.testing.assert_array_equal(i, ji)
+        np.testing.assert_allclose(g, pg, rtol=1e-5, atol=0)
+        np.testing.assert_allclose(g, jg, rtol=1e-5, atol=0)
+        assert not (i // B == 1).any()
+
+
+@pytest.mark.parametrize("nodes,B,C", [(1, 256, 65), (3, 31, 129),
+                                       (3, 256, 200), (1, 256, 513),
+                                       (3, 31, 1024)])
+def test_wide_replay_bitwise_on_dyadic_ties(nodes, B, C):
+    rng = np.random.default_rng(B * C + nodes)
+    m = 4
+    h = _dyadic_hist(rng, nodes, m, B, C)
+    mask = np.ones(m, np.float32)
+    g, i = replay_split_scan(h, 1.0, 1.0, mask, groups=wide_groups(C))
+    pg, pi = _plain(h, 1.0, 1.0, mask)
+    jg, ji = _jax(h, 1.0, 1.0, mask)
+    np.testing.assert_array_equal(i, pi)
+    np.testing.assert_array_equal(i, ji)
+    assert np.array_equal(g.view(np.int32), pg.view(np.int32))
+    assert np.array_equal(g.view(np.int32), jg.view(np.int32))
+    assert not np.isin(i // B, [2]).any()         # the copy never wins
+
+
+@pytest.mark.parametrize("C", [65, 513])
+def test_wide_replay_ties_across_features_and_bins_take_lowest_index(C):
+    """Every feature the same, and the left sums of one channel in the
+    first group and one in a later group alternate, so that every other
+    bin's gain is the same: the lowest such bin of the first unmasked
+    feature wins."""
+    B, m = 40, 5
+    h = np.zeros((2, m, B, C), np.float32)
+    for c in (0, wide_groups(C)[-1][-1]):
+        h[..., c] = 1.0
+        h[:, :, 1::2, c] = -1.0        # left sums 1, 0, 1, 0, ...: ties
+    h[..., -1] = 1.0
+    mask = np.array([0, 1, 1, 1, 1], np.float32)
+    g, i = replay_split_scan(h, 1.0, 1.0, mask, groups=wide_groups(C))
+    pg, pi = _plain(h, 1.0, 1.0, mask)
+    np.testing.assert_array_equal(i, pi)
+    assert np.array_equal(g, pg)
+    assert (i == 1 * B + 0).all()
+
+
+@pytest.mark.parametrize("case", ["masked", "min_data"])
+def test_wide_replay_nothing_legal(case):
+    rng = np.random.default_rng(8)
+    h = _random_hist(rng, 3, 4, 31, 129)
+    mask = np.full(4, 0.0 if case == "masked" else 1.0, np.float32)
+    min_data = 1.0 if case == "masked" else 1e9
+    g, i = replay_split_scan(h, 1.0, min_data, mask, groups=wide_groups(129))
+    pg, pi = _plain(h, 1.0, min_data, mask)
+    jg, ji = _jax(h, 1.0, min_data, mask)
+    assert np.isneginf(g).all() and (i == 0).all()
+    np.testing.assert_array_equal(i, pi)
+    np.testing.assert_array_equal(g, pg)
+    np.testing.assert_array_equal(i, ji)
+    np.testing.assert_array_equal(g, jg)
+
+
+def test_one_group_of_every_channel_is_the_narrow_order():
+    """The narrow kernel's order is the wide kernel's with one group: the
+    fold of a single group's sum from 0 changes no bit."""
+    rng = np.random.default_rng(11)
+    h = _random_hist(rng, 2, 3, 256, 40)
+    mask = np.ones(3, np.float32)
+    g, i = replay_split_scan(h, 1.0, 1.0, mask)
+    g1, i1 = replay_split_scan(h, 1.0, 1.0, mask, groups=[range(39)])
+    np.testing.assert_array_equal(i, i1)
+    assert np.array_equal(g.view(np.int32), g1.view(np.int32))
