@@ -46,7 +46,10 @@ Phases (any failure exits non-zero; nothing is caught):
      layer, q 128 x 32 x 120 against a full 4,096-slot ring 128 x 4,096 x 8
      x 120 in bf16 within one bf16 ulp plus 1e-5, float32 q against it
      within 1e-5, a ragged 8,192-slot cache with a 4,096 window, and
-     long_500k's batch-1 layer through the split path), and time kernel,
+     long_500k's batch-1 layer through the split path; B1 and B2 at the
+     one-vs-all level 5 of one group, 128 trees x 32 nodes x 100 x 256 x 2
+     over 2^28 partition entries, B1 bitwise its plain version on the
+     first and last tree's nodes, B2's indices equal), and time kernel,
      plain version and, where one PyTorch call computes the same function,
      that call;
   4. fit the paper's configuration (``configs/sketchboost_tabular.py``) at
@@ -89,7 +92,19 @@ Phases (any failure exits non-zero; nothing is caught):
      eval set (the history within 1e-5 relative, the last stage bitwise
      ``predict_raw``); (e) one leaf-wise round under the profiler (device
      busy share, B1's and B2's shares) and the host syncs of one more;
- 10. the dense-LM prefill (memory of phases 4-9b freed first):
+  9c. ``strategy="one_vs_all"`` on phase 4's data (the memory of phases 4
+     to 9b freed first), d = 512 univariate trees a round in groups of 128:
+     (a) level-wise "subtract", 2 rounds: seconds per round, valid loss,
+     peak memory, B1 and B2 launched once a level for each group (24 a
+     round), one profiled round (busy share; B1's, B2's and PyTorch's
+     partition/gather/leaf kernels' shares), and its seconds per round
+     beside phase 9's Full and random_projection (the paper's three
+     columns); (b) leaf-wise at ``max_leaves=32``, 1 round, with its host
+     syncs; (c) 65,536 x 100, d = 16, depth 6, 3 rounds: the card against
+     the CPU (predictions within 1e-4, the same best round), a second card
+     fit bitwise, and leaf-wise at 64 leaves against level-wise on the card
+     (the same leaves, eval predictions bitwise);
+ 10. the dense-LM prefill (memory of phases 4-9c freed first):
      h2o-danube-3-4b at full width in bf16 (24 layers, d_model 3840, 3.84 B
      parameters from a seeded ``torch.Generator``) through
      ``lm_serve.make_prefill_step``, 4 requests of 1 x 32,768 tokens (the
@@ -122,7 +137,8 @@ minutes at this size).  Kernel launch counts are set to zero just before
 phase 4 and read just after phase 5 (the fit -> predict path), again just
 before and after phase 7 (the serving path), again around phase 8 (the
 explain path), again around each fit of phase 9 (the direct engine's
-B4, Full's B2-wide) and of phase 9b (B1-bf16 in the bf16 fits), again
+B4, Full's B2-wide), of phase 9b (B1-bf16 in the bf16 fits) and of phase
+9c (B1 and B2 on the one-vs-all path), again
 around phase 10's prefill requests (B7), and again around phase 11's
 decode steps (B8).
 """
@@ -295,6 +311,109 @@ def check_hist_bf16(torch, case):
                                                           n_bins=B)),
         build=hist_kernel.launch_info(hist_kernel.KERNEL_BF16, c=C,
                                       n_bins=B))
+
+
+# The one-vs-all path's level 5 for one group of trees: OVA_TREES
+# univariate trees (tree.OVA_GROUP_ENTRIES // N_TRAIN) x 32 nodes over
+# N_TRAIN rows each, C = 2 ([g, 1]), one partition of OVA_TREES * N_TRAIN
+# entries.
+OVA_TREES = 128
+
+
+def ova_level_case(torch, gen, dev):
+    """B1's inputs at the one-vs-all level 5 of one group: `OVA_TREES`
+    trees over `N_TRAIN` rows each, m=100, B=256, the partition made by
+    five advances of a batched `LevelState` on random bits (45% right),
+    the subtract engine's build counts, statistics ``[g, 1]`` in partition
+    order.  Returns ``(codes_t, state, stats_p, counts, build_counts)``;
+    ``state.order`` is B1's ``order``."""
+    from repro_torch.core import histogram as H
+    n, trees, lvl, m, B = N_TRAIN, OVA_TREES, 5, 100, 256
+    codes_t = torch.randint(0, B, (m, n), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    state = H.init_level_state(n, device=dev, trees=trees)
+    for _ in range(lvl):
+        bits = torch.rand(trees * n, generator=gen, device=dev) < 0.45
+        state = H.advance_level_state(state, bits, permuted=True)
+        del bits
+    _, is_built = H.smaller_children(state.counts)
+    build = torch.where(is_built, state.counts, 0).to(torch.int32)
+    stats_p = torch.stack([torch.randn(trees * n, generator=gen, device=dev),
+                           torch.ones(trees * n, device=dev)], 1)
+    return codes_t, state, stats_p, state.counts, build
+
+
+def check_ova_level(torch, gen, dev):
+    """B1 and B2 at the one-vs-all level 5 of one group (`OVA_TREES` trees
+    x 32 nodes, m=100, B=256, C=2): the partition made by five advances of
+    a batched `LevelState` on random bits, the subtract engine's build
+    counts.  B1 is the same run to run and bitwise its plain version, run
+    on the CPU from host copies for the first and the last tree's 32
+    nodes (a tree's sums depend on its segment alone; the plain version
+    of the whole group would gather m * S codes, 200 GB); B2's indices
+    equal its plain version's on the card, gains within rtol 1e-5.  Times
+    both beside their bounds.  Returns the two shape records."""
+    from repro_torch.core import tree as TR
+    from repro_torch.kernels import hist_kernel, ref, split_kernel
+    n, m, B, trees, lvl = N_TRAIN, 100, 256, OVA_TREES, 5
+    assert TR.ova_groups(512, n)[0] == (0, trees)
+    codes_t, state, stats_p, counts, build = ova_level_case(torch, gen, dev)
+    args = (codes_t, state.order, stats_p, counts, build)
+    nodes = trees * 2 ** lvl
+    out = hist_kernel.hist_nodes(*args, n_bins=B)
+    again = hist_kernel.hist_nodes(*args, n_bins=B)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "B1 over trees is not deterministic"
+    del again
+    per, err = 2 ** lvl, 0.0
+    for t in (0, trees - 1):
+        sl = slice(t * n, (t + 1) * n)
+        nd = slice(t * per, (t + 1) * per)
+        plain = ref.hist_nodes_ref(
+            codes_t.cpu(), state.order[sl].cpu(), stats_p[sl].cpu(),
+            state.counts[nd].cpu(), build[nd].cpu(), n_bins=B)
+        err = max(err, float((out[nd].cpu() - plain).abs().max()))
+        assert torch.equal(out[nd].cpu(), plain), (
+            f"B1 over trees differs from its plain version in tree {t} by "
+            f"up to {err!r}")
+        del plain
+    s_b = int(build.sum())
+    b_ms, b_by = bound_ms(s_b * (m + 4 + 4 * 2) + nodes * m * B * 2 * 4,
+                          s_b * m * 2)
+    b1 = dict(nodes=nodes, entries=trees * n, built_entries=s_b,
+              max_abs_err=err, ms=cuda_ms(
+                  lambda: hist_kernel.hist_nodes(*args, n_bins=B), 5),
+              plain_ms=None, bound_ms=b_ms, bound_by=b_by,
+              library_ms=None,
+              note="plain version and index_add_ not timed at this shape: "
+                   "each gathers the m * S codes (200 GB)")
+    del args, stats_p, state, build, codes_t
+    # B2 on the level's histograms as B1 built them (nodes not built are
+    # empty and have no legal split, as the subtract engine derives them).
+    hist = out
+    mask = torch.ones(m, device=dev)
+    gain, idx = split_kernel.split_scan(hist, 1.0, 1.0, mask)
+    gain2, idx2 = split_kernel.split_scan(hist, 1.0, 1.0, mask)
+    pg, pi = ref.split_scan_ref(hist, 1.0, 1.0, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pi), "B2 over trees: split indices differ"
+    torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
+    assert torch.equal(gain, gain2) and torch.equal(idx, idx2)
+    b_ms, b_by = bound_ms(nodes * m * B * 2 * 4 + m * 4 + nodes * 8,
+                          nodes * m * B * (4 * 2 + 12))
+    legal = pg.isfinite()            # the empty nodes have none: -inf
+    assert torch.equal(legal, gain.isfinite())
+    b2 = dict(nodes=nodes, legal_nodes=int(legal.sum()),
+              max_abs_err=float((gain[legal] - pg[legal]).abs().max()),
+              ms=cuda_ms(lambda: split_kernel.split_scan(hist, 1.0, 1.0,
+                                                         mask), 20),
+              plain_ms=cuda_ms(lambda: ref.split_scan_ref(hist, 1.0, 1.0,
+                                                          mask), 3),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del hist, out, pg, pi
+    gc.collect()
+    torch.cuda.empty_cache()
+    return b1, b2
 
 
 def check_hist_direct(torch, gen, dev):
@@ -1411,8 +1530,187 @@ def leafwise_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels, rounds=3):
     return rec, bf16_launches
 
 
-def make_data(torch, dev, n, m, d, seed):
-    """Guyon-scheme multiclass table on the card (make_tabular's recipe)."""
+def ova_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels, engines):
+    """Phase 9c: ``strategy="one_vs_all"`` at full width on phase 4's data
+    (d = 512 univariate trees a round, in groups of `OVA_TREES`): (a)
+    level-wise "subtract", 2 rounds, and one profiled round; (b) leaf-wise
+    at ``max_leaves=32``, 1 round, its host syncs counted; (c) at a reduced
+    size, the card against the CPU, and leaf-wise at 64 leaves against
+    level-wise on the card.  Returns the record and the kernel launches of
+    (a) (counts set to zero just before it)."""
+    import dataclasses
+
+    from repro_torch import explain as EX
+    from repro_torch.core import boosting as BO
+    from repro_torch.core import tree as TR
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+    groups = len(TR.ova_groups(cfg.n_outputs, len(Xtr)))
+    ova = dataclasses.replace(cfg, strategy="one_vs_all")
+
+    def run(n_rounds, syncs=None, **kw):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c = dataclasses.replace(ova, n_trees=n_rounds, **kw)
+        name = ("grow_trees_leafwise" if c.growth == "leafwise"
+                else "grow_trees_levelwise")
+        grower = getattr(TR, name)
+        if syncs is not None:
+            setattr(TR, name, lambda *a, **k: count_syncs(
+                torch, lambda: grower(*a, **k), syncs))
+        try:
+            model = SketchBoost(c, device=dev).fit(Xtr, ytr,
+                                                   eval_set=(Xev, yev))
+        finally:
+            setattr(TR, name, grower)
+        torch.cuda.synchronize()
+        times = [h["train_time_s"] for h in model.history]
+        return model, dict(
+            round_s=[b - a for a, b in zip([0.0] + times[:-1], times)],
+            valid_loss=[h["valid_loss"] for h in model.history],
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches={k.name: k.launches for k in kernels})
+
+    rec = {"groups": groups, "trees_per_group": -(-cfg.n_outputs // groups)}
+    # (a) level-wise subtract at full width.
+    model, r = run(2)
+    rec["levelwise"] = r
+    launches = r["launches"]
+    print(f"[9c] (a) one_vs_all levelwise subtract, d={cfg.n_outputs} in "
+          f"{groups} groups: seconds per round {r['round_s']}, valid loss "
+          f"{r['valid_loss']}, peak {r['peak_gib']:.2f} GiB, launches "
+          f"{launches}")
+    assert all(math.isfinite(v) for v in r["valid_loss"])
+    # One B1 and one B2 launch a level for each group, not each tree.
+    assert launches["hist_nodes"] == cfg.depth * groups * 2, launches
+    assert launches["split_scan"] == cfg.depth * groups * 2, launches
+    assert launches["forest_traverse"] == 2, launches
+    codes, codes_t = model._codes(Xtr)
+    Y = model._targets(ytr)
+    F = model.base_score.expand(len(Xtr), -1).contiguous()
+    prof = profile_step(
+        torch, lambda: BO.boost_round(F, codes, codes_t, Y, model.cfg),
+        "hist_nodes_kernel<float>", extra_keys=B2_KERNELS)
+    b2_s = sum(prof["by_key"][k] for k in B2_KERNELS)
+    other = prof["device_busy_s"] - prof["kernel_s"] - b2_s
+    prof.update(b2_s=b2_s, b2_share=b2_s / prof["device_busy_s"],
+                torch_ops_s=other,
+                torch_ops_share=other / prof["device_busy_s"])
+    rec["profile"] = prof
+    print(f"[9c] (a) one round profiled: wall {prof['wall_s']:.4f} s, "
+          f"device busy {prof['device_busy_s']:.4f} s = "
+          f"{prof['busy_share']:.3f} of wall; B1 {prof['kernel_s']:.4f} s = "
+          f"{prof['kernel_share']:.3f}, B2 {b2_s:.4f} s = "
+          f"{prof['b2_share']:.4f}, the partition, gather and leaf passes "
+          f"(PyTorch's kernels) {other:.4f} s = {prof['torch_ops_share']:.3f} "
+          f"of device time")
+    for name, ms, count in prof["top_ms"]:
+        print(f"[9c]   {ms:10.3f} ms x{count:<5d} {name}")
+    med = statistics.median
+    cols = {"one_vs_all": med(r["round_s"]),
+            "full": med(engines["none"]["round_s"]),
+            "random_projection": med(engines["subtract"]["round_s"])}
+    rec["paper_columns_round_s"] = cols
+    print(f"[9c] (a) seconds per round (median), the paper's three columns "
+          f"at d={cfg.n_outputs}: one_vs_all {cols['one_vs_all']:.4f}, "
+          f"SketchBoost Full {cols['full']:.4f}, random_projection k="
+          f"{cfg.sketch_k} {cols['random_projection']:.4f}")
+    del model, codes, codes_t, Y, F
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) leaf-wise at 32 leaves, one round, host syncs counted.
+    syncs = []
+    model, r = run(1, syncs=syncs, growth="leafwise", max_leaves=32)
+    r.update(host_syncs_per_group=syncs,
+             host_syncs_per_round=sum(syncs),
+             node_count_mean=float(model.packed.node_count.float().mean()))
+    rec["leafwise_32"] = r
+    print(f"[9c] (b) one_vs_all leafwise max_leaves=32: seconds per round "
+          f"{r['round_s']}, valid loss {r['valid_loss']}, peak "
+          f"{r['peak_gib']:.2f} GiB, launches {r['launches']}, host syncs "
+          f"a round {sum(syncs)} ({syncs} a group), mean node count "
+          f"{r['node_count_mean']}")
+    assert 0 < r["launches"]["hist_nodes"] <= 32 * groups, r["launches"]
+    assert math.isfinite(r["valid_loss"][0])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) a reduced size: the card against the CPU, and leaf-wise at the
+    # full budget against level-wise on the card.  Regression targets: a
+    # multiclass tree's first gradients take two values, so splits tie in
+    # exact arithmetic and B2 (gains within rtol 1e-5 of its plain version)
+    # may break a tie otherwise than the CPU; the multiclass fit is
+    # compared too, and its differences printed.
+    n, nv, d = 65_536, 16_384, 16
+    X, y = make_data(torch, dev, n + nv, 100, d, seed=7,
+                     task="multitask_mse")
+    small = GBDTConfig(loss="multitask_mse", strategy="one_vs_all",
+                       n_trees=3, depth=6, early_stopping_rounds=2)
+    fit = {}
+    for dv in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        fit[dv] = SketchBoost(small, device=dv).fit(
+            X[:n], y[:n], eval_set=(X[n:], y[n:]))
+        fit[dv + "_s"] = time.perf_counter() - t0
+    pred = [fit[dv].predict_raw(X[n:]).cpu() for dv in ("cuda", "cpu")]
+    err = float((pred[0] - pred[1]).abs().max())
+    again = SketchBoost(small, device=dev).fit(X[:n], y[:n],
+                                               eval_set=(X[n:], y[n:]))
+    rerun_bitwise = bool(torch.equal(again.predict_raw(X[n:]).cpu(),
+                                     pred[0]))
+    lw = SketchBoost(dataclasses.replace(small, growth="leafwise",
+                                         max_leaves=64), device=dev).fit(
+        X[:n], y[:n], eval_set=(X[n:], y[n:]))
+    codes_small = fit["cuda"]._bin(X[:n])
+    same = same_leaves(torch, EX.apply_forest(fit["cuda"].packed,
+                                              codes_small),
+                       EX.apply_forest(lw.packed, codes_small))
+    bitwise = bool(torch.equal(lw.predict_raw(X[n:]),
+                               fit["cuda"].predict_raw(X[n:])))
+    rec["small"] = dict(rows=n, d=d, card_vs_cpu_max_abs=err,
+                        best_round=[fit["cuda"].best_round,
+                                    fit["cpu"].best_round],
+                        card_s=fit["cuda_s"], cpu_s=fit["cpu_s"],
+                        rerun_bitwise=rerun_bitwise,
+                        leafwise64_same_leaves=same,
+                        leafwise64_eval_bitwise=bitwise)
+    print(f"[9c] (c) {n} x 100, d={d}, depth 6, 3 rounds, multitask_mse: "
+          f"fit {fit['cuda_s']:.3f} s on the card, {fit['cpu_s']:.3f} s on "
+          f"the CPU; card vs CPU max |diff| {err!r} (limit 1e-4), best rounds "
+          f"{rec['small']['best_round']}, a second card fit bitwise "
+          f"{rerun_bitwise}; leaf-wise at 64 leaves vs level-wise: same "
+          f"rows in every tree {same}, eval predictions bitwise {bitwise}")
+    assert err <= 1e-4, f"one_vs_all on the card differs from the CPU: {err}"
+    assert fit["cuda"].best_round == fit["cpu"].best_round
+    assert rerun_bitwise, "one_vs_all on the card is not the same run to run"
+    assert same and bitwise, "leaf-wise at the full budget is not level-wise"
+    del fit, again, lw, X, y, codes_small
+    Xc, yc = make_data(torch, dev, n + nv, 100, d, seed=7)
+    mc = dataclasses.replace(small, loss="multiclass")
+    fits = [SketchBoost(mc, device=dv).fit(Xc[:n], yc[:n],
+                                           eval_set=(Xc[n:], yc[n:]))
+            for dv in ("cuda", "cpu")]
+    a, b = fits[0].packed, fits[1].packed
+    differ = int(((a.feat.cpu() != b.feat) | (a.thr.cpu() != b.thr)).sum())
+    losses = [[h["valid_loss"] for h in f.history] for f in fits]
+    rec["small_multiclass"] = dict(
+        split_nodes_differing=differ, valid_loss=losses,
+        max_abs=float((fits[0].predict_raw(Xc[n:]).cpu()
+                       - fits[1].predict_raw(Xc[n:])).abs().max()))
+    print(f"[9c] (c) multiclass, the same sizes: {differ} of "
+          f"{a.feat.numel()} node slots split differently on the card and "
+          f"the CPU (ties of two-valued gradients), valid losses {losses}, "
+          f"max |diff| {rec['small_multiclass']['max_abs']!r}")
+    del fits, a, b, Xc, yc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def make_data(torch, dev, n, m, d, seed, task="multiclass"):
+    """Guyon-scheme multiclass table on the card (make_tabular's recipe);
+    with ``task="multitask_mse"`` the targets are the d noisy logits."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     ni = max(m // 10, 2)
     nc = min(2 * ni, max(m - ni, 0))
@@ -1421,13 +1719,15 @@ def make_data(torch, dev, n, m, d, seed):
     rest = torch.randn((n, m - ni - nc), generator=gen, device=dev)
     X = torch.cat([base, combo, rest], 1)
     W = torch.randn((ni, d), generator=gen, device=dev)
-    y = torch.empty(n, dtype=torch.int64, device=dev)
+    mse = task == "multitask_mse"
+    y = torch.empty((n, d) if mse else n,
+                    dtype=torch.float32 if mse else torch.int64, device=dev)
     for s in range(0, n, 1 << 18):                 # logits in slices
         e = min(s + (1 << 18), n)
         logits = base[s:e] @ W + 0.5 * torch.randn(
             (e - s, d), generator=gen, device=dev)
-        y[s:e] = logits.argmax(1)
-    return X.cpu().numpy(), y.to(torch.int32).cpu().numpy()
+        y[s:e] = logits if mse else logits.argmax(1)
+    return X.cpu().numpy(), (y if mse else y.to(torch.int32)).cpu().numpy()
 
 
 def serve_phase(torch, model, dev, Xte, raw, kernels):
@@ -2112,6 +2412,10 @@ def main() -> int:
     rows = [check_hist(torch, hcase), check_hist_bf16(torch, hcase)]
     del hcase
     rows.append(check_split(torch, gen, dev, first_split))
+    b1_row, b2_row = rows[0], rows[-1]
+    ova_level = check_ova_level(torch, gen, dev)
+    for name, sh in zip(("hist_nodes", "split_scan"), ova_level):
+        print(f"[3] {name} ova_level5: {json.dumps(sh)}")
     cases = traverse_cases(torch, gen, dev)
     rows += [check_traverse(torch, cases, dt)
              for dt in ("float32", "int8", "bfloat16")]
@@ -2216,8 +2520,14 @@ def main() -> int:
         torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b4, b2w])
     leafwise, bf16_launches = leafwise_phase(
         torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b1bf])
+    # Phase 9c: free phases 4-9b's memory first.
+    del model, raw, pf_cpu, codes_te, Ytr
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_vs_all, ova_launches = ova_phase(torch, dev, Xtr, ytr, Xev, yev,
+                                         cfg, kernels, engines)
     # Phase 10 runs alone on the card: free the tabular phases' memory.
-    del X, y, Xtr, ytr, Xev, yev, Xte, model, raw, pf_cpu, codes_te, Ytr
+    del X, y, Xtr, ytr, Xev, yev, Xte
     gc.collect()
     torch.cuda.empty_cache()
     prefill, prefill_launches = prefill_phase(torch, dev, b7, every)
@@ -2250,11 +2560,17 @@ def main() -> int:
     b3_row = next(r for r in rows if r["name"] == predict_kernel.KERNEL.name)
     b3_row["serve_launches"] = serve_launches[b3_row["name"]]
     b3_row["explain_launches"] = explain_launches[b3_row["name"]]
+    for r in rows:                           # B1-B3 on the one-vs-all fit
+        if r["name"] in ova_launches:
+            r["one_vs_all_launches"] = ova_launches[r["name"]]
+    for r, sh in zip((b1_row, b2_row), ova_level):
+        r.setdefault("shapes", {})["ova_level5"] = sh
     print(json.dumps({"kernels": rows, "fit_s": fit_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
                       "engines_and_sketches": engines,
-                      "leafwise_bf16_staged": leafwise, "prefill": prefill,
+                      "leafwise_bf16_staged": leafwise,
+                      "one_vs_all": one_vs_all, "prefill": prefill,
                       "decode": decode, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

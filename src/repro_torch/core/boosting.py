@@ -1,11 +1,12 @@
 """SketchBoost: the gradient-boosting trainer, on PyTorch.
 
 Port of the JAX package's ``core/boosting.py`` for the slices ported so
-far: ``strategy="single_tree"``, level-wise growth with any histogram
-engine (``"direct"``, ``"partition"``, ``"subtract"``) and leaf-wise
-(best-first) growth under a ``max_leaves`` budget, float32 or bfloat16
-histogram statistics, every sketch method, no row or column sampling, no
-guards and no checkpoints.
+far: ``strategy="single_tree"`` and ``"one_vs_all"`` (d univariate trees a
+round, grown together in groups: `tree.grow_trees`), level-wise growth
+with any histogram engine (``"direct"``, ``"partition"``, ``"subtract"``)
+and leaf-wise (best-first) growth under a ``max_leaves`` budget, float32
+or bfloat16 histogram statistics, every sketch method, no row or column
+sampling, no guards and no checkpoints.
 Options outside the slice raise a ValueError that names the slice that
 brings them.  The fitted model explains itself as the reference's does:
 `SketchBoost.shap_values`, `apply` and `feature_importances` (``explain/``).
@@ -88,8 +89,6 @@ class GBDTConfig:
         """Reject options this slice of the port does not implement, naming
         the slice that brings each, and unknown values."""
         later = [
-            (self.strategy == "one_vs_all", "strategy='one_vs_all'",
-             "the one_vs_all slice"),
             (self.subsample < 1.0 or self.goss_a > 0.0 or self.goss_b > 0.0
              or self.colsample < 1.0, "subsample / goss_* / colsample",
              "the sampling slice"),
@@ -108,7 +107,7 @@ class GBDTConfig:
         leafwise = self.growth == "leafwise"
         checks = [
             (self.loss in L.LOSSES, f"unknown loss {self.loss!r}"),
-            (self.strategy == "single_tree",
+            (self.strategy in ("single_tree", "one_vs_all"),
              f"unknown strategy {self.strategy!r}"),
             (self.growth in ("levelwise", "leafwise"),
              f"unknown growth {self.growth!r}; expected 'levelwise' or "
@@ -323,6 +322,7 @@ class SketchBoost:
         self.forest = T.stack_trees(trees)
         self.packed = FO.pack_forest(
             self.forest, self.base_score, cfg.learning_rate,
+            strategy=cfg.strategy,
             max_depth=cfg.depth if cfg.growth == "leafwise" else None)
         self._path_pack = None
         return self
@@ -417,7 +417,8 @@ def boost_round(F: torch.Tensor, codes: torch.Tensor, codes_t: torch.Tensor,
     """One boosting round: gradients -> sketch -> tree -> leaf values,
     adding the tree's ``lr * value`` to the training scores ``F`` in place.
     The tree is a heap `tree.Tree` (level-wise) or a `tree.NodeTree`
-    (``growth="leafwise"``).
+    (``growth="leafwise"``); under ``strategy="one_vs_all"`` its fields
+    carry a leading axis of the d univariate trees (no sketch).
 
     ``draw`` is this round's sketch draw (see `SketchBoost.fit`), else it
     is drawn from ``generator``.  Sample weights are all ones in this
@@ -425,6 +426,8 @@ def boost_round(F: torch.Tensor, codes: torch.Tensor, codes_t: torch.Tensor,
     """
     loss = L.get_loss(cfg.loss)
     G, Hd = loss.grad_hess(F, Y)
+    if cfg.strategy == "one_vs_all":
+        return _one_vs_all_round(F, codes, codes_t, G, Hd, cfg)
     draw_t = None if draw is None else torch.as_tensor(draw, device=F.device)
     Gk = SK.build_sketch(G, method=cfg.sketch_method, k=cfg.sketch_k,
                          draw=draw_t, generator=generator)
@@ -448,18 +451,57 @@ def boost_round(F: torch.Tensor, codes: torch.Tensor, codes_t: torch.Tensor,
     return tree
 
 
+def _one_vs_all_round(F: torch.Tensor, codes: torch.Tensor,
+                      codes_t: torch.Tensor, G: torch.Tensor,
+                      Hd: torch.Tensor, cfg: GBDTConfig):
+    """A one-vs-all round: output j's univariate tree grows from ``g_j``
+    and ``h_j``, the outputs in groups (`tree.ova_groups`), and each
+    group's ``lr * value`` is added to its columns of ``F`` (two
+    roundings, as the reference's ``F + lr * delta.T``).  Returns the
+    round's trees, fields ``(d, ...)``."""
+    n, d = G.shape
+    lr = torch.tensor(cfg.learning_rate, dtype=torch.float32,
+                      device=F.device)
+    parts = []
+    for t0, t1 in T.ova_groups(d, n):
+        tree, leaf_pos = T.grow_trees(
+            codes, codes_t, G[:, t0:t1], Hd[:, t0:t1], growth=cfg.growth,
+            hist_engine=cfg.hist_engine, depth=cfg.depth,
+            max_leaves=cfg.max_leaves, n_bins=cfg.n_bins,
+            lam=cfg.lambda_l2, min_data_in_leaf=cfg.min_data_in_leaf,
+            min_gain=cfg.min_gain, hist_dtype=cfg.hist_dtype)
+        contrib = tree.value[..., 0].gather(1, leaf_pos.long())
+        del leaf_pos
+        contrib.mul_(lr)                       # lr * v, then the add
+        F[:, t0:t1].add_(contrib.t())
+        del contrib
+        parts.append(tree)
+    if len(parts) == 1:
+        return parts[0]
+    return type(parts[0])(*[torch.cat(f) for f in zip(*parts)])
+
+
 def _apply_tree(tree, codes: torch.Tensor, F: torch.Tensor,
                 cfg: GBDTConfig) -> torch.Tensor:
     """Add one round's tree to the raw scores ``F`` of new data, through
     the same traversal kernel as serving (in place).  A heap tree is
-    mapped onto pointer nodes; a `tree.NodeTree` carries its pointers."""
+    mapped onto pointer nodes; a `tree.NodeTree` carries its pointers.  A
+    one-vs-all round goes in one launch as d width-1 trees, tree j adding
+    into column j."""
     if isinstance(tree, T.NodeTree):
         feat, thr, left, right, leaf = (tree.feat, tree.thr, tree.left,
                                         tree.right, tree.value)
     else:
         feat, thr, left, right, leaf = T.heap_to_node_arrays(
             tree.feat, tree.thr, tree.value)
-    out_col = torch.zeros(1, dtype=torch.int32, device=F.device)
+    if cfg.strategy == "one_vs_all":
+        out_col = torch.arange(feat.shape[0], dtype=torch.int32,
+                               device=F.device)
+    else:
+        feat, thr, left, right, leaf = (feat[None], thr[None], left[None],
+                                        right[None], leaf[None])
+        out_col = torch.zeros(1, dtype=torch.int32, device=F.device)
     return predict_kernel.forest_traverse(
-        F, codes, feat[None], thr[None], left[None], right[None],
-        leaf[None].contiguous(), out_col, cfg.learning_rate, depth=cfg.depth)
+        F, codes, feat.contiguous(), thr.contiguous(), left.contiguous(),
+        right.contiguous(), leaf.contiguous(), out_col, cfg.learning_rate,
+        depth=cfg.depth)

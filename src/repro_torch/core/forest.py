@@ -116,14 +116,38 @@ def _heap_cover(leaf_cover: torch.Tensor) -> torch.Tensor:
     return torch.cat(levels, 1)
 
 
+def _fold_outputs(forest, strategy: str):
+    """``one_vs_all`` buffers ``(T, d, ...)`` -> ``(T * d, ...)``, folded
+    round-major (round 0 output 0, round 0 output 1, ...), with each
+    tree's output column; ``single_tree`` buffers as they are, column 0."""
+    if strategy == "single_tree":
+        return forest, torch.zeros(forest.feat.shape[0], dtype=torch.int32,
+                                   device=forest.feat.device)
+    if strategy != "one_vs_all":
+        raise ValueError(f"unknown strategy {strategy!r}")
+    n_rounds, d = forest.feat.shape[:2]
+    folded = type(forest)(*[
+        None if x is None else x.reshape((n_rounds * d,) + x.shape[2:])
+        for x in forest])
+    out_col = torch.arange(d, dtype=torch.int32,
+                           device=forest.feat.device).repeat(n_rounds)
+    return folded, out_col
+
+
 def pack_forest(forest, base_score: torch.Tensor, learning_rate: float, *,
+                strategy: str = "single_tree",
                 max_depth: Optional[int] = None) -> PackedForest:
-    """Canonicalize stacked training trees (``single_tree``) into a
-    `PackedForest`: heap `tree.Forest` buffers map onto the global node
-    numbering; a stacked `tree.NodeTree` packs as it is.  ``max_depth``
-    overrides the walk bound (the leaf-wise trainer passes its depth
-    limit); by default it comes from the heap's shape or, for node trees,
-    from a host-side sweep of the pointers."""
+    """Canonicalize stacked training trees into a `PackedForest`: heap
+    `tree.Forest` buffers map onto the global node numbering; a stacked
+    `tree.NodeTree` packs as it is.  ``single_tree`` buffers arrive as
+    ``(T, ...)``; ``one_vs_all`` buffers carry a per-output axis ``(T, d,
+    ...)``, folded into the tree axis round-major with ``out_col`` the
+    output of each width-1 tree, so that `slice_rounds` and each column's
+    order of adds match the training loop.  ``max_depth`` overrides the
+    walk bound (the leaf-wise trainer passes its depth limit); by default
+    it comes from the heap's shape or, for node trees, from a host-side
+    sweep of the pointers."""
+    forest, out_col = _fold_outputs(forest, strategy)
     if isinstance(forest, T.NodeTree):
         left = forest.left.to(torch.int32)
         right = forest.right.to(torch.int32)
@@ -132,9 +156,7 @@ def pack_forest(forest, base_score: torch.Tensor, learning_rate: float, *,
         return PackedForest(
             feat=forest.feat.to(torch.int32), thr=forest.thr.to(torch.int32),
             left=left, right=right, leaf=forest.value.to(torch.float32),
-            out_col=torch.zeros(forest.n_trees, dtype=torch.int32,
-                                device=left.device),
-            base=base_score.to(torch.float32).reshape(-1),
+            out_col=out_col, base=base_score.to(torch.float32).reshape(-1),
             lr=torch.tensor(learning_rate, dtype=torch.float32),
             cover=forest.cover.to(torch.float32),
             gain=forest.gain.to(torch.float32),
@@ -153,8 +175,7 @@ def pack_forest(forest, base_score: torch.Tensor, learning_rate: float, *,
     cover = None if forest.cover is None else _heap_cover(forest.cover)
     return PackedForest(
         feat=feat, thr=thr, left=left, right=right, leaf=leaf,
-        out_col=torch.zeros(n_trees, dtype=torch.int32, device=device),
-        base=base_score.to(torch.float32).reshape(-1),
+        out_col=out_col, base=base_score.to(torch.float32).reshape(-1),
         lr=torch.tensor(learning_rate, dtype=torch.float32),
         cover=cover, gain=gain,
         node_count=torch.full((n_trees,), h + n_leaves, dtype=torch.int32,

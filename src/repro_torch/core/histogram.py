@@ -19,6 +19,12 @@ on the card, its plain version on the CPU.
 The leaf-wise grower carries a `NodePartition` instead: the same stable
 row order, split one node's segment at a time (`split_partition_at`); its
 one-node builds are `repro_torch.kernels.ops.node_histogram`.
+
+The one-vs-all growers (``strategy="one_vs_all"``) hold a group of trees in
+one partition of ``trees * n`` entries: tree ``t``'s entries fill the block
+``[t * n, (t + 1) * n)``, each entry names a row of the data, and node ids
+run tree-major.  Their leaf pass is `segment_sums` over the last
+partition.
 """
 from __future__ import annotations
 
@@ -53,52 +59,61 @@ class LevelState(NamedTuple):
     counts: torch.Tensor     # (n_nodes,) rows per node
 
 
-def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(x, 0) - x
-
-
-def init_level_state(n: int, device=None) -> LevelState:
-    """Level-0 partition: every row in the root node, identity order."""
+def init_level_state(n: int, device=None, trees: int = 1) -> LevelState:
+    """Level-0 partition: every row in the root node, identity order.  With
+    ``trees > 1`` it holds ``trees`` roots over ``trees * n`` entries: tree
+    ``t``'s root is node ``t`` and its entries are ``[t * n, (t + 1) * n)``,
+    each naming row ``entry - t * n``.  `advance_level_state` keeps every
+    tree's entries in its block (node ``t * 2^l + v`` at level ``l``)."""
     return LevelState(
-        order=torch.arange(n, dtype=torch.int32, device=device),
-        node_perm=torch.zeros(n, dtype=torch.int32, device=device),
-        counts=torch.full((1,), n, dtype=torch.int32, device=device))
+        order=torch.arange(n, dtype=torch.int32, device=device).repeat(trees),
+        node_perm=torch.arange(trees, dtype=torch.int32,
+                               device=device).repeat_interleave(n),
+        counts=torch.full((trees,), n, dtype=torch.int32, device=device))
 
 
-def advance_level_state(state: LevelState,
-                        go_right: torch.Tensor) -> LevelState:
+def advance_level_state(state: LevelState, go_right: torch.Tensor, *,
+                        permuted: bool = False) -> LevelState:
     """Advance the partition one level: parent ``p`` -> children ``2p, 2p+1``.
 
-    ``go_right`` is the per-row routing bit in ORIGINAL row order.  Within
-    each parent segment, left-routed rows keep their relative order and land
-    in child ``2p``, right-routed rows in ``2p+1`` (stable).  Integer
-    arithmetic only, so the result is exact on every device.
+    ``go_right`` is the per-row routing bit in ORIGINAL row order, or with
+    ``permuted`` the bit of each entry in partition order (what a
+    partition of several trees needs: the bit of a row depends on its
+    tree).  Within each parent segment, left-routed rows keep their
+    relative order and land in child ``2p``, right-routed rows in ``2p+1``
+    (stable).  Integer arithmetic only, so the result is exact on every
+    device.
     """
     n = state.order.shape[0]
     device = state.order.device
-    order = state.order.long()
-    parent = state.node_perm.long()
-    counts = state.counts.long()
-    bit = go_right.long()[order]                              # permuted order
-    starts = _excl_cumsum(counts)
-    pre_left = _excl_cumsum(1 - bit)                          # lefts before i
-    # Rows are sorted by parent, so each parent's left count is a
-    # difference of one prefix sum (no scatter-add).
-    lefts = torch.cat([pre_left, pre_left[-1:] + 1 - bit[-1:]])
-    left_counts = lefts[starts + counts] - lefts[starts]
+    # Positions fit in int32 below 2^31 entries (B1's limit): half the
+    # bytes of every pass over the partition.
+    it = torch.int32 if n < 2 ** 31 else torch.int64
+    parent = state.node_perm.to(it)
+    counts = state.counts.to(it)
+    bit = (go_right if permuted else go_right[state.order.long()]).bool()
+    starts = torch.cumsum(counts, 0, dtype=it) - counts
+    # lefts[i]: left-routed entries before position i.  Entries are sorted
+    # by parent, so each parent's left count is a difference of two.
+    lefts = torch.zeros(n + 1, dtype=it, device=device)
+    torch.cumsum(~bit, 0, dtype=it, out=lefts[1:])
+    left_counts = lefts[(starts + counts).long()] - lefts[starts.long()]
     counts_new = torch.stack([left_counts, counts - left_counts],
                              1).reshape(-1)
-    starts_new = _excl_cumsum(counts_new)
-    seg_start = starts[parent]
-    lefts_in_seg = pre_left - pre_left[seg_start]
-    offset_in_seg = torch.arange(n, device=device) - seg_start
-    rank = torch.where(bit == 0, lefts_in_seg, offset_in_seg - lefts_in_seg)
-    child = 2 * parent + bit
-    dest = starts_new[child] + rank                           # a permutation
+    starts_new = torch.cumsum(counts_new, 0, dtype=it) - counts_new
+    # Per parent p: a left entry at position i lands at base_l[p] +
+    # lefts[i], a right one at base_r[p] + i - lefts[i].
+    base_l = starts_new[0::2] - lefts[starts.long()]
+    base_r = starts_new[1::2] - starts + lefts[starts.long()]
+    lf = lefts[:-1]
+    dest = torch.where(bit, base_r.index_select(0, parent)
+                       + (torch.arange(n, dtype=it, device=device) - lf),
+                       base_l.index_select(0, parent) + lf)   # a permutation
+    del lefts, lf
     order_new = torch.empty_like(state.order)
     node_new = torch.empty_like(state.node_perm)
     order_new[dest] = state.order
-    node_new[dest] = child.to(torch.int32)
+    node_new[dest] = (2 * parent + bit).to(torch.int32)
     return LevelState(order=order_new, node_perm=node_new,
                       counts=counts_new.to(torch.int32))
 
@@ -206,3 +221,41 @@ def leaf_sums(leaf_pos: torch.Tensor, G: torch.Tensor, H: torch.Tensor, *,
             hs[j] = H.index_select(0, rows).sum(0)
         start += cnt
     return gs, hs, counts
+
+
+# Rows a chunk of `segment_sums`.
+SUM_CHUNK = 256
+
+
+def segment_sums(values: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Sums of consecutive segments: ``values`` (S, c) float32, segment
+    ``s`` the next ``lengths[s]`` rows (``sum(lengths) == S``; empty
+    segments sum to 0).  Returns (n_segments, c).
+
+    Each segment is cut into chunks of `SUM_CHUNK` rows from its start;
+    each chunk is summed in row order from 0.0, then the chunks' sums in
+    chunk order from 0.0 (``torch.segment_reduce``, which adds a segment's
+    rows one after another on every device).  So a segment's sum depends
+    on its rows alone, not on where it lies or on the other segments, and
+    is the same run to run.  No host read.
+    """
+    K = SUM_CHUNK
+    S, n_seg = values.shape[0], lengths.shape[0]
+    device = values.device
+    lengths = lengths.long()
+    per = (lengths + K - 1) // K                          # chunks a segment
+    ends = torch.cumsum(per, 0)
+    slots = S // K + n_seg                                # >= every chunk
+    slot = torch.arange(slots, device=device)
+    seg = torch.searchsorted(ends, slot, right=True)
+    seg_c = torch.clamp(seg, max=max(n_seg - 1, 0))
+    k = slot - (ends - per)[seg_c]
+    chunk_len = torch.where(seg < n_seg,
+                            torch.clamp(lengths[seg_c] - k * K, 0, K), 0)
+    chunks = torch.segment_reduce(values, "sum", lengths=chunk_len, axis=0,
+                                  unsafe=True)
+    # The slots past the last chunk go to one extra segment, dropped.
+    per_all = torch.cat([per, (slots - ends[-1:]) if n_seg else
+                         torch.full((1,), slots, device=device)])
+    return torch.segment_reduce(chunks, "sum", lengths=per_all, axis=0,
+                                unsafe=True)[:n_seg]

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core import histogram as H
 from repro_torch.core import split as S
-from repro_torch.kernels import ops
+from repro_torch.kernels import hist_kernel, ops
 
 
 class Tree(NamedTuple):
@@ -79,8 +79,10 @@ class NodeTree(NamedTuple):
 
 
 def stack_trees(trees):
-    """Stack one round's trees into a `Forest` (heap trees) or a stacked
-    `NodeTree` (leaf-wise trees)."""
+    """Stack the rounds' trees into a `Forest` (heap trees) or a stacked
+    `NodeTree` (leaf-wise trees).  A one-vs-all round's trees carry a
+    leading per-output axis, so its stack is ``(T, d, ...)``, the layout
+    `forest.pack_forest` folds."""
     stacked = [torch.stack(fields) for fields in zip(*trees)]
     if isinstance(trees[0], NodeTree):
         return NodeTree(*stacked)
@@ -310,3 +312,365 @@ def heap_to_node_arrays(feat: torch.Tensor, thr: torch.Tensor,
     left_b = left.expand(batch + (n_nodes,)).contiguous()
     right_b = right.expand(batch + (n_nodes,)).contiguous()
     return feat_n, thr_n, left_b, right_b, leaf_n
+
+
+# -- one-vs-all: the d univariate trees of a round, grown together --------------
+
+# Entries (trees x rows) a group of the one-vs-all growers holds: the d
+# trees of a round go through in groups of ``OVA_GROUP_ENTRIES // n`` trees
+# (at least one), each group one partition, so that one B1 and one B2 launch
+# serve a level (level-wise) or a step (leaf-wise) of every tree in it.
+# 2^28 entries are 128 trees at 2,097,152 rows.
+OVA_GROUP_ENTRIES = 2 ** 28
+
+
+def ova_groups(d: int, n: int):
+    """The one-vs-all growers' groups of outputs: ``[(t0, t1), ...]``."""
+    size = max(1, min(d, OVA_GROUP_ENTRIES // max(n, 1)))
+    return [(t0, min(d, t0 + size)) for t0 in range(0, d, size)]
+
+
+def _flat_index(major: torch.Tensor, minor: torch.Tensor, n: int,
+                size: int) -> torch.Tensor:
+    """``major * n + minor``: an index into a row-major tensor of ``size``
+    elements, int32 when it fits (half the bytes of int64)."""
+    if size < 2 ** 31:
+        return major.to(torch.int32) * n + minor.to(torch.int32)
+    return major.long() * n + minor.long()
+
+
+def _entry_stats(g_h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """A univariate tree's split statistics ``[g, 1]`` in partition order
+    (sample weights are all ones in this slice), in ``g_h``'s type."""
+    stats_p = torch.empty((idx.shape[0], 2), dtype=g_h.dtype,
+                          device=g_h.device)
+    stats_p[:, 0] = g_h.index_select(0, idx)
+    stats_p[:, 1] = 1.0
+    return stats_p
+
+
+def _route(codes_t: torch.Tensor, order: torch.Tensor, node: torch.Tensor,
+           feat: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """Each entry's routing bit ``code > thr`` at its node's split: entry
+    ``e`` names row ``order[e]`` and node ``node[e]``."""
+    m, n = codes_t.shape
+    idx = _flat_index(feat.index_select(0, node), order, n, m * n)
+    code = codes_t.reshape(-1).index_select(0, idx)
+    return code > thr.to(torch.uint8).index_select(0, node)
+
+
+def _leaf_sums(g_flat, h_flat, idx, lengths):
+    """Leaf sums of one-vs-all trees over their final partition, segment
+    ``s`` the next ``lengths[s]`` entries (`histogram.segment_sums`):
+    ``(n_segments, 2)``, the sums of g and of h.  ``idx`` is each entry's
+    index into the ``(trees, n)`` gradients."""
+    return H.segment_sums(torch.stack([g_flat.index_select(0, idx),
+                                       h_flat.index_select(0, idx)], 1),
+                          lengths)
+
+
+def grow_trees_levelwise(codes_t: torch.Tensor, G: torch.Tensor,
+                         H_diag: torch.Tensor, *, depth: int, n_bins: int,
+                         lam: float, min_data_in_leaf: float = 1.0,
+                         min_gain: float = 0.0,
+                         feature_mask: Optional[torch.Tensor] = None,
+                         subtract: bool = True,
+                         hist_dtype: str = "float32"):
+    """Grow one univariate tree per column of ``G`` level by level, all in
+    one partition (the ``"partition"`` engine, or ``"subtract"`` with
+    ``subtract``).
+
+    ``G``/``H_diag`` (n, trees): tree t's split statistics are ``[g_t,
+    1]`` and its leaf pass sums ``g_t`` and ``h_t``.  The trees share one
+    `histogram.LevelState` over ``trees * n`` entries, tree t's in the
+    block ``[t * n, (t + 1) * n)``, node ``t * 2^l + v`` at level l; each
+    level gathers the statistics in partition order once, runs one B1 (or
+    B1-bf16) and one B2 launch over all ``trees * 2^l`` nodes, and
+    advances the partition from each entry's routing bit.  A tree's
+    histograms, splits and leaf sums depend only on its own entries, in
+    the same order, so the trees are those of one tree at a time.
+    Returns ``(Tree, leaf_pos)``: the tree's fields with a leading
+    ``trees`` axis (value ``(trees, 2^D, 1)``) and ``leaf_pos`` (trees, n)
+    int32, the leaf of each row in each tree.
+    """
+    n = codes_t.shape[1]
+    trees = G.shape[1]
+    device = codes_t.device
+    heap = 2 ** depth - 1
+    feat = torch.zeros((trees, heap), dtype=torch.int32, device=device)
+    thr = torch.full((trees, heap), n_bins - 1, dtype=torch.int32,
+                     device=device)
+    gain = torch.zeros((trees, heap), dtype=torch.float32, device=device)
+    entries = trees * n
+    g_flat = G.t().contiguous().reshape(-1)       # entry t*n + i: G[i, t]
+    g_h = ops.stats_for(g_flat, hist_dtype)
+    state = H.init_level_state(n, device=device, trees=trees)
+    prev_hist = None
+    for lvl in range(depth):
+        idx = _flat_index(state.node_perm >> lvl, state.order, n, entries)
+        stats_p = _entry_stats(g_h, idx)
+        del idx
+        best_gain, best_idx, hist = ops.histogram_splits_partitioned(
+            codes_t, stats_p, state.order, state.counts, prev_hist, lam, min_data_in_leaf,
+            feature_mask, n_bins=n_bins, subtract=subtract and lvl > 0,
+            hist_dtype=hist_dtype)
+        prev_hist = hist if subtract else None
+        del hist, stats_p
+        sp = S.splits_from_flat(best_gain, best_idx, n_bins=n_bins,
+                                min_gain=min_gain)
+        off = 2 ** lvl - 1
+        feat[:, off:2 * off + 1] = sp.feat.reshape(trees, -1)
+        thr[:, off:2 * off + 1] = sp.thr.reshape(trees, -1)
+        gain[:, off:2 * off + 1] = sp.gain.reshape(trees, -1)
+        bits = _route(codes_t, state.order, state.node_perm, sp.feat, sp.thr)
+        state = H.advance_level_state(state, bits, permuted=True)
+        del bits
+    del prev_hist
+    idx = _flat_index(state.node_perm >> depth, state.order, n, entries)
+    sums = _leaf_sums(g_flat, H_diag.t().contiguous().reshape(-1), idx,
+                      state.counts)
+    value = -sums[:, 0] / (sums[:, 1] + lam)
+    leaf_pos = torch.empty(trees * n, dtype=torch.int32, device=device)
+    leaf_pos[idx] = state.node_perm & (2 ** depth - 1)
+    tree = Tree(feat=feat, thr=thr, value=value.reshape(trees, -1, 1),
+                gain=gain,
+                cover=state.counts.to(torch.float32).reshape(trees, -1))
+    return tree, leaf_pos.reshape(trees, n)
+
+
+def _upload(arrays, device) -> torch.Tensor:
+    """Host integer arrays of one length -> one (k, len) int64 tensor on
+    ``device``, in one copy (from pinned memory on a card, so that the
+    copy does not wait for the card)."""
+    host = torch.from_numpy(np.stack(arrays).astype(np.int64))
+    if torch.device(device).type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def _segments(starts: torch.Tensor, counts: torch.Tensor, total: int,
+              entries: int):
+    """Positions of the concatenated segments ``[starts[s], starts[s] +
+    counts[s])`` (device tensors; ``total`` their host sum) in a
+    partition of ``entries``, and the segment of each: ``(pos, seg,
+    first)``, ``first[s]`` the index in ``pos`` of segment s's first
+    position.  int32 below 2^31 entries."""
+    it = torch.int32 if entries < 2 ** 31 else torch.int64
+    device = starts.device
+    seg = torch.repeat_interleave(
+        torch.arange(counts.shape[0], dtype=it, device=device), counts,
+        output_size=total)
+    first = (torch.cumsum(counts, 0) - counts).to(it)
+    pos = ((starts.to(it) - first).index_select(0, seg)
+           + torch.arange(total, dtype=it, device=device))
+    return pos, seg, first
+
+
+def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
+                        H_diag: torch.Tensor, *, depth: int, max_leaves: int,
+                        n_bins: int, lam: float,
+                        min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
+                        feature_mask: Optional[torch.Tensor] = None,
+                        hist_dtype: str = "float32"):
+    """Grow one univariate tree per column of ``G`` leaf-wise, in lockstep.
+
+    Each tree's steps are `grow_tree_leafwise`'s on statistics ``[g_t,
+    1]``: the first arg-max pending leaf expands while its gain is above
+    ``min_gain``, children at ``depth`` are not expandable, the smaller
+    child (ties: the left) is built and its sibling derived from the
+    parent's pooled histogram.  The trees go together: at each step every
+    tree whose frontier is not empty expands, its segment of the shared
+    partition (``trees * n`` entries, tree t's in ``[t * n, (t + 1) *
+    n)``) is split stably on the card, one B1 launch builds the built
+    children of all of them, one B2 launch scores the ``2 * expanding``
+    children, and two host reads a step (the left counts, the scores)
+    drive the next.  A tree's histograms and sums depend only on its own
+    entries, in the same order, so its nodes are those of one tree at a
+    time; at ``max_leaves = 2^depth`` with every node splitting, its
+    leaves are `grow_trees_levelwise`'s, bit for bit.
+    Returns ``(NodeTree, leaf_pos)``: fields with a leading ``trees`` axis
+    (value ``(trees, N, 1)``) and ``leaf_pos`` (trees, n) int32, the node of
+    each row in each tree.
+    """
+    n = codes_t.shape[1]
+    trees = G.shape[1]
+    device = codes_t.device
+    N = 2 * max_leaves - 1
+    gate = np.float32(min_gain)
+    entries = trees * n
+    g_flat = G.t().contiguous().reshape(-1)
+    g_h = ops.stats_for(g_flat, hist_dtype)
+    order = torch.arange(n, dtype=torch.int32, device=device).repeat(trees)
+
+    def build(starts, counts, total):
+        """The histograms of the given segments (device tensors, ``total``
+        entries in all), one B1 launch."""
+        pos, _, _ = _segments(starts, counts, total, entries)
+        rows = order.index_select(0, pos)
+        stats_p = _entry_stats(g_h, _flat_index(pos // n, rows, n, entries))
+        cnt = counts.to(torch.int32)
+        return hist_kernel.hist_nodes(codes_t, rows, stats_p, cnt, cnt,
+                                      n_bins=n_bins, hist_dtype=hist_dtype)
+
+    def score(hists):
+        """Best splits of (k, m, B, C) histograms, read to the host in one
+        transfer: gains (float32), features, thresholds, leaf flags."""
+        g, i = ops.split_scan(hists, lam, min_data_in_leaf, feature_mask)
+        sp = S.splits_from_flat(g, i, n_bins=n_bins, min_gain=min_gain)
+        host = torch.stack([sp.gain.double(), sp.feat.double(),
+                            sp.thr.double(), sp.is_leaf.double()]).cpu()
+        host = host.numpy()
+        return (host[0].astype(np.float32), host[1].astype(np.int32),
+                host[2].astype(np.int32), host[3] > 0)
+
+    starts = np.zeros((trees, N), np.int64)
+    counts = np.zeros((trees, N), np.int64)
+    starts[:, 0] = np.arange(trees) * n
+    counts[:, 0] = n
+    feat = np.zeros((trees, N), np.int32)
+    thr = np.full((trees, N), n_bins - 1, np.int32)
+    left = np.broadcast_to(np.arange(N, dtype=np.int32), (trees, N)).copy()
+    right = left.copy()
+    gain = np.zeros((trees, N), np.float32)
+    node_depth = np.zeros((trees, N), np.int32)
+    pend_gain = np.full((trees, N), -np.inf, np.float32)
+    pend_feat = np.zeros((trees, N), np.int32)
+    pend_thr = np.zeros((trees, N), np.int32)
+
+    up = _upload([starts[:, 0], counts[:, 0]], device)
+    root = build(up[0], up[1], entries)
+    g0, f0, t0, leaf0 = score(root)
+    pend_gain[:, 0] = np.where(leaf0, -np.inf, g0)
+    pend_feat[:, 0], pend_thr[:, 0] = f0, t0
+    pool = {(t, 0): root[t] for t in range(trees)}
+    del root
+    node_count = np.ones(trees, np.int64)
+    for _ in range(max_leaves - 1):
+        p = np.argmax(pend_gain, 1)
+        grow = np.flatnonzero(pend_gain[np.arange(trees), p] > gate)
+        if grow.size == 0:                    # every frontier is empty
+            break
+        p = p[grow]
+        c1 = node_count[grow]
+        c2 = c1 + 1
+        s0, cnt = starts[grow, p], counts[grow, p]
+        # Split each expanding tree's segment stably on the card: a left
+        # entry keeps its rank among the lefts, a right one goes after them.
+        up = _upload([s0, cnt, pend_feat[grow, p], pend_thr[grow, p]],
+                     device)
+        total = int(cnt.sum())
+        pos, seg, first = _segments(up[0], up[1], total, entries)
+        rows = order.index_select(0, pos)
+        bit = _route(codes_t, rows, seg, up[2].to(torch.int32), up[3])
+        lefts = torch.zeros(total + 1, dtype=pos.dtype, device=device)
+        torch.cumsum(~bit, 0, dtype=pos.dtype, out=lefts[1:])
+        at_first = lefts.index_select(0, first)
+        n_left = lefts.index_select(0, first + up[1].to(pos.dtype)) - at_first
+        # Per segment: a left entry at index i lands at s0 + lefts[i] -
+        # lefts[first], a right one at s0 + n_left + (i - first) - (lefts[i]
+        # - lefts[first]).
+        base_l = up[0].to(pos.dtype) - at_first
+        base_r = base_l + n_left - first + 2 * at_first
+        lf = lefts[:-1]
+        dest = torch.where(
+            bit, base_r.index_select(0, seg)
+            + torch.arange(total, dtype=pos.dtype, device=device) - lf,
+            base_l.index_select(0, seg) + lf)
+        order[dest] = rows
+        del pos, seg, rows, bit, lefts, lf, dest
+        n_left = n_left.cpu().numpy()
+        n_right = cnt - n_left
+        starts[grow, c1], counts[grow, c1] = s0, n_left
+        starts[grow, c2], counts[grow, c2] = s0 + n_left, n_right
+        counts[grow, p] = 0
+        feat[grow, p], thr[grow, p] = pend_feat[grow, p], pend_thr[grow, p]
+        gain[grow, p] = pend_gain[grow, p]
+        left[grow, p], right[grow, p] = c1, c2
+        d_child = node_depth[grow, p] + 1
+        node_depth[grow, c1] = node_depth[grow, c2] = d_child
+        built_left = n_left <= n_right
+        bc = np.where(built_left, n_left, n_right)
+        up = _upload([np.where(built_left, s0, s0 + n_left), bc,
+                      built_left], device)
+        built = build(up[0], up[1], int(bc.sum()))
+        sib = torch.stack([pool.pop((int(t), int(j)))
+                           for t, j in zip(grow, p)]) - built
+        side = up[2].bool().reshape(-1, 1, 1, 1)
+        hists = torch.stack([torch.where(side, built, sib),
+                             torch.where(side, sib, built)], 1)
+        del built, sib
+        g, f, t, leaf = score(hists.reshape((-1,) + hists.shape[2:]))
+        pend_gain[grow, p] = -np.inf
+        for j, c in enumerate((c1, c2)):
+            expandable = ~leaf[j::2] & (d_child < depth)
+            pend_gain[grow, c] = np.where(expandable, g[j::2], -np.inf)
+            pend_feat[grow, c], pend_thr[grow, c] = f[j::2], t[j::2]
+            for e in np.flatnonzero(expandable):
+                pool[(int(grow[e]), int(c[e]))] = hists[e, j]
+        node_count[grow] += 2
+    del pool
+
+    is_term = left == np.arange(N)
+    tid, slot = np.nonzero(is_term & (counts > 0))
+    by_start = np.argsort(starts[tid, slot], kind="stable")
+    tid, slot = tid[by_start], slot[by_start]
+    up = _upload([counts[tid, slot], tid, slot, tid * N + slot], device)
+    lengths = up[0]
+    idx = _flat_index(torch.repeat_interleave(up[1], lengths,
+                                              output_size=entries),
+                      order, n, entries)
+    sums = torch.zeros((trees * N, 2), dtype=torch.float32, device=device)
+    sums[up[3]] = _leaf_sums(g_flat, H_diag.t().contiguous().reshape(-1),
+                             idx, lengths)
+    is_term_d = _upload([is_term.reshape(-1)], device)[0].bool()
+    value = torch.where(is_term_d, -sums[:, 0] / (sums[:, 1] + lam),
+                        torch.zeros((), device=device))
+    leaf_pos = torch.empty(entries, dtype=torch.int32, device=device)
+    leaf_pos[idx] = torch.repeat_interleave(up[2].to(torch.int32), lengths,
+                                            output_size=entries)
+    # Covers bottom-up, as `grow_tree_leafwise` sweeps them.
+    cover = counts.astype(np.float32)
+    rows_t = np.arange(trees)
+    for j in range(N - 1, -1, -1):
+        inner = left[:, j] != j
+        r = rows_t[inner]
+        cover[r, j] = cover[r, left[r, j]] + cover[r, right[r, j]]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    tree = NodeTree(feat=dev(feat), thr=dev(thr), left=dev(left),
+                    right=dev(right), value=value.reshape(trees, N, 1),
+                    gain=dev(gain), cover=dev(cover),
+                    node_count=dev(node_count.astype(np.int32)))
+    return tree, leaf_pos.reshape(trees, n)
+
+
+def grow_trees(codes: torch.Tensor, codes_t: torch.Tensor, G: torch.Tensor,
+               H_diag: torch.Tensor, *, growth: str, hist_engine: str,
+               depth: int, max_leaves: int, n_bins: int, lam: float,
+               min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
+               feature_mask: Optional[torch.Tensor] = None,
+               hist_dtype: str = "float32"):
+    """The univariate trees of one group of one-vs-all outputs (``G``,
+    ``H_diag`` (n, trees)): `grow_trees_leafwise` for ``growth=
+    "leafwise"``, `grow_trees_levelwise` for the partitioned engines, and
+    for ``"direct"`` `grow_tree` one tree at a time (B4 bins rows in
+    dataset order from one node position a row, so it takes no shared
+    partition: ``trees`` B4 launches a level).  Returns ``(tree,
+    leaf_pos)`` with a leading ``trees`` axis."""
+    kw = dict(depth=depth, n_bins=n_bins, lam=lam,
+              min_data_in_leaf=min_data_in_leaf, min_gain=min_gain,
+              feature_mask=feature_mask, hist_dtype=hist_dtype)
+    if growth == "leafwise":
+        return grow_trees_leafwise(codes_t, G, H_diag, max_leaves=max_leaves,
+                                   **kw)
+    engine = H.resolve_hist_engine(hist_engine)
+    if engine != "direct":
+        return grow_trees_levelwise(codes_t, G, H_diag,
+                                    subtract=engine == "subtract", **kw)
+    ones = torch.ones((G.shape[0], 1), dtype=torch.float32, device=G.device)
+    out = [grow_tree(codes, codes_t, torch.cat([G[:, t:t + 1], ones], 1),
+                     G[:, t:t + 1], H_diag[:, t:t + 1], hist_engine="direct",
+                     **kw) for t in range(G.shape[1])]
+    trees, pos = zip(*out)
+    return Tree(*[torch.stack(f) for f in zip(*trees)]), torch.stack(pos)

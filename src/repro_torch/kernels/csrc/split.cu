@@ -21,20 +21,26 @@
 // a leaf-wise expansion.  The warp copies the feature's contiguous B x C
 // slab to shared memory with coalesced loads (16 bytes a lane where the
 // slab is aligned), padded so that each lane's run of bins starts on its
-// own bank.  Lane q owns the R = ceil(B / 32) consecutive bins [qR, qR + R):
-//   1. it sums its run bin by bin, per channel, from 0;
-//   2. the lanes' sums are joined by a Kogge-Stone scan over the warp
-//      (shuffle-up by 1, 2, 4, 8, 16; a lane's value is added after the
-//      one it receives), which gives each lane the sum of all runs before
-//      its own (the scan of lane q - 1, 0 for lane 0) and, from lane 31,
-//      the total;
-//   3. it walks its run again from that prefix, adding bin by bin, and
-//      scores every bin but the last with right = total - left, as the
-//      plain version does (|G_l|^2 is the sum over the C - 1 gradient
-//      channels of the squared left sums: the TPU kernel's
-//      sum_c s_c^2 - count^2 shortcut, split_kernel.py:53-60, cancels);
-//   4. each lane keeps its first maximum (strict >, bins ascending), and a
+// own bank.
+//   1. Lane c (c < C) turns channel c of the slab into its left sums in
+//      place, bin by bin from 0 in bin order in double, each rounded to
+//      float: the plain version's cumsum on the CPU (PyTorch accumulates a
+//      float cumsum in double there).  So an empty bin's left sums are the
+//      bin before it, bit for bit, and the two bins' gains tie exactly
+//      wherever they lie (a Kogge-Stone scan over per-lane runs, the first
+//      design, gave a run's first bin other bits than the previous run's
+//      last, and an empty bin there could win a tie that the plain version
+//      gives the bin before it);
+//   2. lane q takes the R = ceil(B / 32) consecutive bins [qR, qR + R) and
+//      scores every bin but the last with right = total - left (the total
+//      is the last bin's left sums), as the plain version does (|G_l|^2 is
+//      the sum over the C - 1 gradient channels of the squared left sums:
+//      the TPU kernel's sum_c s_c^2 - count^2 shortcut,
+//      split_kernel.py:53-60, cancels);
+//   3. each lane keeps its first maximum (strict >, bins ascending), and a
 //      shuffle butterfly keeps the larger gain, the lower index on ties.
+// With one gradient channel (C = 2, a one-vs-all tree) every gain is the
+// plain version's, bit for bit.
 // The order of every sum is fixed in the source; the counts are integers,
 // so the min_data tests see the plain version's counts exactly.  A second
 // kernel, `split_pick_kernel` (shared with the wide entry point), takes
@@ -55,9 +61,13 @@
 //      multiple of 16 at odd C; the histogram is read as B1 wrote it).  The
 //      chunk is stored transposed and swizzled so that lane q's bins
 //      [qR, qR + R) sit on their own banks.  Warp w takes 32 / W channels
-//      of every chunk; for each, in order, lane q does what the narrow
-//      kernel does (sums its run, joins the runs by the Kogge-Stone scan,
-//      walks its run from the prefix) and adds cs^2 and (T - cs)^2 into its
+//      of every chunk; for each, in order, lane q sums its run of bins,
+//      the runs are joined by a Kogge-Stone scan over the warp (shuffle-up
+//      by 1, 2, 4, 8, 16; a lane's value added after the one it
+//      receives), lane q walks its run again from the runs' sum before it
+//      (the narrow kernel's first design: an empty bin at a run's start
+//      may take other bits than the bin before it, ROADMAP §C), and adds
+//      cs^2 and (T - cs)^2 into its
 //      R bins' partial sums, from 0 in channel order.  Each warp is one
 //      group of channels: it writes (sum cs^2, sum (T - cs)^2) a bin into
 //      the scratch (nodes, m, G, B, 2), G = W x spans; bin B - 1, never a
@@ -65,7 +75,7 @@
 //      barrier a chunk of 32 channels, none a bin.
 //   2. split_wide_score_kernel: one warp a (node, feature).  Lane q folds
 //      its bins' partials over the groups in group order from 0, scans the
-//      count channel as the narrow kernel does, scores each bin with
+//      count channel as the scan kernel scans a channel, scores each bin with
 //      right = total - left and keeps its first maximum; a shuffle
 //      butterfly keeps the larger gain, the lower index on ties.
 //   3. split_pick_kernel, as above.
@@ -150,39 +160,26 @@ split_unit_kernel(const float* __restrict__ hist,
   }
   __syncwarp();
 
-  const float* mine = slab + lane * stride;
-  const int b0 = lane * run;
-  const int nb = max(0, min(run, B - b0));     // bins in this lane's run
-  float p[MAXC];
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c) p[c] = 0.0f;
-  for (int j = 0; j < nb; ++j) {
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c)
-      if (c < C) p[c] += mine[j * C + c];
-  }
-  // Inclusive scan of the runs' sums over the lanes.
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      if (c < C) {
-        const float t = __shfl_up_sync(FULL, p[c], off);
-        if (lane >= off) p[c] = t + p[c];
+  // Left sums: lane c scans channel c over all B bins, in bin order.
+  if (lane < C) {
+    double acc = 0.0;
+    for (int q = 0, b0 = 0; b0 < B; ++q, b0 += run) {
+      float* e = slab + q * stride + lane;
+      const int nb = min(run, B - b0);
+      for (int j = 0; j < nb; ++j) {
+        acc += static_cast<double>(e[j * C]);
+        e[j * C] = static_cast<float>(acc);
       }
     }
   }
-  float tot[MAXC], cs[MAXC];
+  __syncwarp();
+  const float* mine = slab + lane * stride;
+  const int b0 = lane * run;
+  const int nb = max(0, min(run, B - b0));     // bins in this lane's run
+  const float* last = slab + ((B - 1) / run) * stride + ((B - 1) % run) * C;
+  float tot[MAXC];
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    if (c < C) {
-      tot[c] = __shfl_sync(FULL, p[c], 31);
-      const float before = __shfl_up_sync(FULL, p[c], 1);
-      cs[c] = lane == 0 ? 0.0f : before;
-    } else {
-      tot[c] = cs[c] = 0.0f;
-    }
-  }
+  for (int c = 0; c < MAXC; ++c) tot[c] = c < C ? last[c] : 0.0f;
   float tot_sq = 0.0f, ct = 0.0f;
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) {
@@ -197,13 +194,13 @@ split_unit_kernel(const float* __restrict__ hist,
     float sl = 0.0f, sr = 0.0f, cl = 0.0f;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
-      if (c < C) cs[c] += mine[j * C + c];
+      const float cs = c < C ? mine[j * C + c] : 0.0f;
       if (c < C - 1) {
-        const float r = tot[c] - cs[c];
-        sl += cs[c] * cs[c];
+        const float r = tot[c] - cs;
+        sl += cs * cs;
         sr += r * r;
       }
-      if (c == C - 1) cl = cs[c];
+      if (c == C - 1) cl = cs;
     }
     if (b >= B - 1) break;
     const float cr = ct - cl;

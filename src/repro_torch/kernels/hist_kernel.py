@@ -52,16 +52,21 @@ def hist_nodes(codes_t: torch.Tensor, order: torch.Tensor,
     """Per-node histograms ``(n_nodes, m, n_bins, C)`` float32 of the first
     ``build_counts[v]`` rows of each node's segment (see
     `ref.hist_nodes_ref`): ``codes_t`` (m, n) uint8, ``order`` (S,) int32
-    (the rows of the partition, S <= n), ``stats_p`` (S, C) in partition
-    order, float32 or, with ``hist_dtype="bfloat16"``, bfloat16,
-    ``counts`` and ``build_counts`` (n_nodes,) int32.  The node segments
-    must lie within the S rows: S <= n is checked here, and so is
-    ``sum(counts) <= S`` where ``counts`` is on the host."""
+    (the entries of the partition, each a row ``< n``; S may pass n when
+    the partition holds several trees, each entry naming a row once per
+    tree), ``stats_p`` (S, C) in partition order, float32 or, with
+    ``hist_dtype="bfloat16"``, bfloat16, ``counts`` and ``build_counts``
+    (n_nodes,) int32.  The node segments must lie within the S entries
+    and the entries name rows ``< n``: both are checked on the host
+    (``counts``, ``order`` on the CPU)."""
     dtype = ref.stats_dtype(hist_dtype)
     m, n = codes_t.shape
     s = order.shape[0]
-    if s > n:
-        raise ValueError(f"order has {s} rows, more than the {n} of codes_t")
+    if s >= 2 ** 31:
+        raise ValueError(f"order has {s} entries; B1 takes fewer than 2^31")
+    if order.device.type == "cpu" and s and int(order.max()) >= n:
+        raise ValueError(f"order names row {int(order.max())}, past the {n} "
+                         "rows of codes_t")
     if counts.device.type == "cpu" and int(counts.sum()) > s:
         raise ValueError(f"counts sum to {int(counts.sum())}, past the {s} "
                          "rows of order")

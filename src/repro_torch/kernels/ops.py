@@ -113,15 +113,36 @@ def histogram_splits_level(codes_t: torch.Tensor, stats: torch.Tensor,
     per-node results of the split scan and this level's ``(n_nodes, m,
     n_bins, C)`` histograms, the next level's ``prev_hist``.
     """
+    stats_p = stats.index_select(0, order.long()).contiguous()
+    return histogram_splits_partitioned(
+        codes_t, stats_p, order, counts, prev_hist, lam, min_data,
+        feature_mask, n_bins=n_bins, subtract=subtract,
+        hist_dtype=hist_dtype)
+
+
+def histogram_splits_partitioned(codes_t: torch.Tensor,
+                                 stats_p: torch.Tensor, order: torch.Tensor,
+                                 counts: torch.Tensor,
+                                 prev_hist: Optional[torch.Tensor],
+                                 lam: float, min_data: float,
+                                 feature_mask: Optional[torch.Tensor] = None,
+                                 *, n_bins: int, subtract: bool,
+                                 hist_dtype: str = "float32"):
+    """`histogram_splits_level` on statistics already in partition order:
+    ``stats_p`` (S, C) holds the statistics of entry ``e`` of ``order``
+    (S,), contiguous and in ``hist_dtype``'s storage type.  The partition
+    may hold several trees (S a multiple of n, node ids tree-major, as the
+    one-vs-all growers keep it): one B1 and one B2 launch then serve every
+    node of every tree, and a pair ``(2p, 2p + 1)`` is always the two
+    children of one parent."""
     if subtract:
         side, is_built = smaller_children(counts)
         build_counts = torch.where(is_built, counts, 0).to(torch.int32)
     else:
         build_counts = counts
-    _require_cast(stats, hist_dtype)
-    stats_p = stats.index_select(0, order.long())
-    hist = hist_kernel.hist_nodes(codes_t, order, stats_p.contiguous(),
-                                  counts, build_counts, n_bins=n_bins,
+    _require_cast(stats_p, hist_dtype)
+    hist = hist_kernel.hist_nodes(codes_t, order, stats_p, counts,
+                                  build_counts, n_bins=n_bins,
                                   hist_dtype=hist_dtype)
     if subtract:
         pairs = hist.reshape((-1, 2) + hist.shape[1:])

@@ -169,16 +169,22 @@ def test_builders_take_the_cast_statistics_only():
 
 
 def test_hist_nodes_refuses_segments_past_its_rows():
-    """B1's wrapper refuses an ``order`` longer than the rows of
-    ``codes_t``, and host counts whose segments run past ``order``."""
+    """B1's wrapper takes an ``order`` longer than the rows of ``codes_t``
+    (a partition of several trees names each row once a tree), but
+    refuses an entry that names a row past them, and host counts whose
+    segments run past ``order``."""
     codes, stats, state, counts, build = _level_inputs(3, 16, n=300)
     order = _t(np.asarray(state.order))
     args = (_t(codes.T), order, _t(stats), _t(counts), _t(build))
     long_order = torch.cat([order, order[:1]])
-    with pytest.raises(ValueError, match="more than"):
-        hist_kernel.hist_nodes(args[0], long_order,
-                               torch.cat([args[2], args[2][:1]]), *args[3:],
-                               n_bins=16)
+    out = hist_kernel.hist_nodes(args[0], long_order,
+                                 torch.cat([args[2], args[2][:1]]),
+                                 *args[3:], n_bins=16)
+    assert torch.equal(out, hist_kernel.hist_nodes(*args, n_bins=16))
+    past = order.clone()
+    past[5] = 300
+    with pytest.raises(ValueError, match="past the 300 rows"):
+        hist_kernel.hist_nodes(args[0], past, *args[2:], n_bins=16)
     short = order[:-10]
     with pytest.raises(ValueError, match="past the"):
         hist_kernel.hist_nodes(args[0], short, args[2][:-10], *args[3:],

@@ -35,7 +35,8 @@ def test_config_fields_and_defaults_match_reference():
 
 
 @pytest.mark.parametrize("option", [
-    dict(strategy="one_vs_all"), dict(hessian_floor=0.5),
+    dict(strategy="one_vs_all", guard_policy="skip_round"),
+    dict(hessian_floor=0.5),
     dict(ckpt_dir="ck"), dict(guard_policy="raise"),
     dict(subsample=0.5), dict(goss_a=0.2, goss_b=0.1), dict(colsample=0.5),
     dict(guard_policy="clip"), dict(save_every=2, ckpt_dir="ck"),
@@ -46,7 +47,7 @@ def test_out_of_slice_options_raise(option):
 
 
 @pytest.mark.parametrize("option,slice_name", [
-    (dict(strategy="one_vs_all"), "one_vs_all"),
+    (dict(strategy="one_vs_all", guard_policy="skip_round"), "robustness"),
     (dict(subsample=0.5), "sampling"), (dict(goss_a=0.2), "sampling"),
     (dict(colsample=0.5), "sampling"),
     (dict(guard_policy="skip_round"), "robustness"),

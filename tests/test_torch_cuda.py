@@ -148,6 +148,28 @@ def test_split_scan_dyadic_ties_bitwise(dev, nodes, B, C):
     assert not ((idx // B) == 2).any()
 
 
+@pytest.mark.parametrize("B,C", [(256, 2), (37, 2), (256, 6), (256, 32)])
+def test_split_scan_empty_bin_at_a_run_start_ties_the_bin_before(dev, B, C):
+    """Random (inexact) sums with empty bins where lanes' runs of bins
+    start: the narrow kernel's left sums there are the bin before's, bit
+    for bit, so it picks the plain version's (lower) bin; at one gradient
+    channel (C = 2) its gains are the CPU plain version's bits."""
+    rng = np.random.default_rng(B + C)
+    run = -(-B // 32)
+    h = rng.normal(size=(8, 5, B, C)).astype(np.float32)
+    h[..., -1] = rng.integers(1, 9, (8, 5, B))
+    h[:, :, np.arange(run, B - 1, run)] = 0.0
+    hist = torch.from_numpy(h).to(dev)
+    mask = torch.ones(5, device=dev)
+    gain, idx = split_kernel.split_scan(hist, 1.0, 1.0, mask)
+    pg, pi = ref.split_scan_ref(hist.cpu(), 1.0, 1.0, mask.cpu())
+    assert torch.equal(idx.cpu(), pi)
+    if C == 2:
+        assert torch.equal(gain.cpu(), pg)
+    else:
+        torch.testing.assert_close(gain.cpu(), pg, rtol=1e-5, atol=0)
+
+
 @pytest.mark.parametrize("C,wide", [(2, False), (32, False), (33, True),
                                     (1024, True)])
 def test_split_scan_wrapper_counts_each_path(dev, C, wide):
@@ -924,17 +946,21 @@ def test_hist_nodes_bf16_wrapper_counts_launches_and_checks_types(dev):
 
 
 def test_hist_nodes_refuses_an_order_longer_than_its_rows(dev):
-    """An ``order`` past the rows of ``codes_t`` raises before B1 would
-    read past its ends; so does one whose ``stats_p`` differs in length."""
+    """An ``order`` longer than the rows of ``codes_t`` is a partition of
+    several trees (each entry naming a row < n): B1 takes it, and the
+    entries past the node segments change nothing.  One whose ``stats_p``
+    differs in length raises before B1 would read past its ends."""
     n, m, C = 600, 3, 4
     codes_t = torch.randint(0, 16, (m, n), device=dev,
                             dtype=torch.int32).to(torch.uint8)
     counts = torch.full((1,), n, dtype=torch.int32, device=dev)
     order = torch.arange(n + 1, dtype=torch.int32, device=dev) % n
     stats = torch.randn((n + 1, C), device=dev)
-    with pytest.raises(ValueError, match="more than"):
+    assert torch.equal(
         hist_kernel.hist_nodes(codes_t, order, stats, counts, counts,
-                               n_bins=16)
+                               n_bins=16),
+        hist_kernel.hist_nodes(codes_t, order[:n], stats[:n].contiguous(),
+                               counts, counts, n_bins=16))
     with pytest.raises(ValueError, match="stats_p"):
         hist_kernel.hist_nodes(codes_t, order[:n], stats, counts, counts,
                                n_bins=16)
@@ -1062,3 +1088,100 @@ def test_one_node_build_of_a_million_rows(dev):
     none = hist_kernel.hist_nodes(codes_t, rows, stats[rows.long()], one,
                                   zero, n_bins=B)
     assert none.shape == (1, m, B, C) and not none.any()
+
+
+# -- one-vs-all: a group of trees in one partition ------------------------------
+
+@pytest.mark.parametrize("hist_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,levels", [(3000, 3), (R + 700, 2)])
+def test_hist_nodes_over_trees_is_per_tree(dev, hist_dtype, n, levels):
+    """B1 and B1-bf16 over a partition of 3 trees (S = 3n > n, node ids
+    tree-major, subtract build counts): one launch equals the per-tree
+    launches concatenated and the plain version on the CPU, bit for
+    bit."""
+    g = torch.Generator(device=dev).manual_seed(n + levels)
+    trees, m, B = 3, 5, 256
+    codes_t = torch.randint(0, B, (m, n), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    state = H.init_level_state(n, device=dev, trees=trees)
+    for _ in range(levels):
+        bits = torch.rand(trees * n, generator=g, device=dev) < 0.4
+        state = H.advance_level_state(state, bits, permuted=True)
+    _, is_built = H.smaller_children(state.counts)
+    build = torch.where(is_built, state.counts, 0).to(torch.int32)
+    stats_p = torch.stack([torch.randn(trees * n, generator=g, device=dev),
+                           torch.ones(trees * n, device=dev)], 1)
+    stats_p = stats_p.to(ref.stats_dtype(hist_dtype)).contiguous()
+    kw = dict(n_bins=B, hist_dtype=hist_dtype)
+    args = (codes_t, state.order, stats_p, state.counts, build)
+    whole = hist_kernel.hist_nodes(*args, **kw)
+    per = 2 ** levels
+    parts = [hist_kernel.hist_nodes(
+        codes_t, state.order[t * n:(t + 1) * n],
+        stats_p[t * n:(t + 1) * n], state.counts[t * per:(t + 1) * per],
+        build[t * per:(t + 1) * per], **kw) for t in range(trees)]
+    assert torch.equal(whole, torch.cat(parts))
+    plain = ref.hist_nodes_ref(*[a.cpu() for a in args], **kw)
+    assert torch.equal(whole.cpu(), plain)
+
+
+def test_segment_sums_on_card_match_cpu(dev):
+    """The one-vs-all leaf pass's segment sums: the same on the card as on
+    the CPU and run to run, each segment's sum its own rows' alone."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    lengths = torch.tensor([0, 7, 70_000, 1, 256, 0, 513, 300_001],
+                           device=dev)
+    vals = torch.randn((int(lengths.sum()), 2), generator=g, device=dev)
+    out = H.segment_sums(vals, lengths)
+    assert torch.equal(out, H.segment_sums(vals, lengths))
+    assert torch.equal(out.cpu(), H.segment_sums(vals.cpu(), lengths.cpu()))
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(), dict(hist_engine="partition"), dict(hist_engine="direct"),
+    dict(growth="leafwise", max_leaves=12),
+    dict(hist_dtype="bfloat16"),
+    dict(growth="leafwise", max_leaves=12, hist_dtype="bfloat16")])
+def test_one_vs_all_fit_on_card_matches_cpu(dev, cfg, monkeypatch):
+    """A one-vs-all fit on the card against the CPU, in groups of 3 of the
+    8 trees: predictions within atol 1e-4, the same best round and node
+    counts; a level-wise round launches B1 and B2 once a level for each
+    group (the direct engine B4 once a level for each tree), a leaf-wise
+    round at most ``max_leaves`` times a group; a second fit on the card
+    is the same bit for bit.  Regression targets: a multiclass or
+    multilabel tree's first gradients take two values, so splits tie in
+    exact arithmetic, and B2 (gains within rtol 1e-5 of its plain
+    version) may break such a tie otherwise than the CPU (ROADMAP §C)."""
+    from repro_torch.core import tree as TT
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+    from repro_torch.data.pipeline import make_tabular
+    X, y = make_tabular("multitask_mse", 3000, 12, 8, seed=3,
+                        n_informative=12)
+    monkeypatch.setattr(TT, "OVA_GROUP_ENTRIES", 2400 * 3)
+    config = GBDTConfig(loss="multitask_mse", strategy="one_vs_all",
+                        n_trees=5, depth=4, min_data_in_leaf=20,
+                        early_stopping_rounds=2, **cfg)
+    b1 = (hist_kernel.KERNEL_BF16 if cfg.get("hist_dtype") == "bfloat16"
+          else hist_kernel.KERNEL)
+    kernels = (b1, split_kernel.KERNEL, hist_kernel.DIRECT_KERNEL)
+    before = [k.launches for k in kernels]
+    fits = [SketchBoost(config, device=d).fit(
+        X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]))
+        for d in (dev, "cpu")]
+    launches = [k.launches - b for k, b in zip(kernels, before)]
+    rounds = len(fits[0].history)
+    if cfg.get("growth") == "leafwise":
+        assert 0 < launches[0] <= 12 * 3 * rounds
+    elif cfg.get("hist_engine") == "direct":
+        assert launches[2] == 4 * 8 * rounds and launches[0] == 0
+    else:
+        assert launches[0] == 4 * 3 * rounds
+        assert launches[1] == 4 * 3 * rounds
+    pred = [f.predict_raw(X[2400:]).cpu() for f in fits]
+    assert float((pred[0] - pred[1]).abs().max()) <= 1e-4
+    assert fits[0].best_round == fits[1].best_round
+    assert torch.equal(fits[0].packed.node_count.cpu(),
+                       fits[1].packed.node_count)
+    again = SketchBoost(config, device=dev).fit(
+        X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]))
+    assert torch.equal(again.predict_raw(X[2400:]).cpu(), pred[0])

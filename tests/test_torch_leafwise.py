@@ -307,7 +307,8 @@ def test_validate_matches_reference(kw, error):
 
 
 def test_slices_still_to_come_are_named():
-    for kw, slice_name in ((dict(strategy="one_vs_all"), "one_vs_all slice"),
+    for kw, slice_name in ((dict(strategy="one_vs_all", save_every=2),
+                            "checkpoint slice"),
                            (dict(subsample=0.5), "sampling slice"),
                            (dict(guard_policy="raise"), "robustness slice"),
                            (dict(save_every=2), "checkpoint slice"),

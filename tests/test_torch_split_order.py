@@ -1,22 +1,24 @@
 """B2's order of the sums on the card, replayed in numpy on the CPU.
 
-`csrc/split.cu` scans one (node, feature) a warp: lane q sums its run of
-R = ceil(B / 32) consecutive bins, a Kogge-Stone scan over the 32 lanes
-joins the runs, and each lane walks its run again from the prefix before
-it, scoring every bin with right = total - left.  `replay_split_scan`
-repeats that order in float32 and is held to the port's plain version
-(`ref.split_scan_ref`, a sequential cumsum) and to the JAX package's
+`csrc/split.cu` scans one (node, feature) a warp.  The narrow kernel
+(C <= 32) turns each channel into its left sums bin by bin in bin order in
+double, each rounded to float32 (the plain version's cumsum on the CPU),
+then scores every bin with right = total - left.  The wide entry point (C > 32) scans each channel by runs:
+lane q sums its run of R = ceil(B / 32) consecutive bins, a Kogge-Stone
+scan over the 32 lanes joins the runs, and each lane walks its run again
+from the prefix before it; one warp sums a group of gradient channels
+(``split_kernel.wide_groups``: a block of ``WIDE_WARPS`` warps takes chunks
+of 32 channels, each warp 32 / ``WIDE_WARPS`` of every chunk): the squared
+left and right sums (and the squared totals) are summed over a group's
+channels in that order from 0, and the groups' sums are folded in group
+order from 0.  `replay_split_scan` repeats either order in float32
+(``groups=wide_groups(C)`` the wide one) and is held to the port's plain
+version (`ref.split_scan_ref`) and to the JAX package's
 ``split_scan_ref``: the same indices, gains within rtol 1e-5, and the same
-bits where every sum is exact (dyadic histograms).
-
-The wide entry point (C > 32) scans each channel the same way, but one
-warp sums a group of gradient channels (``split_kernel.wide_groups``: a
-block of ``WIDE_WARPS`` warps takes chunks of 32 channels, each warp
-32 / ``WIDE_WARPS`` of every chunk): the squared left and right sums (and
-the squared totals) are summed over a group's channels in that order from
-0, and the groups' sums are folded in group order from 0.
-``replay_split_scan(..., groups=wide_groups(C))`` replays that; one group
-of every channel is the narrow kernel's order.
+bits where every sum is exact (dyadic histograms).  The narrow order is
+the plain version's, so at one gradient channel (C = 2) its gains are the
+plain version's bits on any histogram, and an empty bin ties the bin
+before it wherever it lies.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -73,17 +75,13 @@ def _sq_sum(v, groups=None):
     return total
 
 
-def replay_split_scan(h, lam, min_data, mask, groups=None):
-    """(nodes, m, B, C) float32 -> per-node (best_gain, best_idx) in the
-    kernel's order: the first maximum over (feature, bin), ties to the
-    lowest index, (-inf, 0) where nothing is legal.  ``groups``: the wide
-    kernel's groups of gradient channels (``None``: the narrow kernel)."""
-    h = np.asarray(h, np.float32)
-    nodes, m, B, C = h.shape
-    lam, min_data = np.float32(lam), np.float32(min_data)
+def _run_scan(h):
+    """Left sums by runs: each lane's run summed, the runs joined by the
+    lane scan, each lane walking its run from the prefix before it.
+    Returns ``(cs, tot)``."""
+    B = h.shape[-2]
     run = -(-B // LANES)
     incl = _lane_scan(_run_sums(h, run))
-    tot = incl[..., LANES - 1, :]                       # (nodes, m, C)
     excl = np.concatenate([np.zeros_like(incl[..., :1, :]),
                            incl[..., :-1, :]], axis=-2)
     cs = np.empty_like(h)              # left sums, each lane from its prefix
@@ -92,6 +90,32 @@ def replay_split_scan(h, lam, min_data, mask, groups=None):
         for b in range(q * run, min((q + 1) * run, B)):
             left = left + h[..., b, :]
             cs[..., b, :] = left
+    return cs, incl[..., LANES - 1, :]
+
+
+def _cumsum(h):
+    """Left sums bin by bin in double, each rounded to float32."""
+    return np.cumsum(h, axis=-2, dtype=np.float64).astype(np.float32)
+
+
+def replay_split_scan(h, lam, min_data, mask, groups=None, runs=None):
+    """(nodes, m, B, C) float32 -> per-node (best_gain, best_idx) in the
+    kernel's order: the first maximum over (feature, bin), ties to the
+    lowest index, (-inf, 0) where nothing is legal.  ``groups``: the wide
+    kernel's groups of gradient channels (``None``: the narrow kernel);
+    ``runs``: the left sums by runs and a lane scan (the wide kernel's, the
+    default with ``groups``) rather than bin by bin (the narrow
+    kernel's)."""
+    h = np.asarray(h, np.float32)
+    nodes, m, B, C = h.shape
+    lam, min_data = np.float32(lam), np.float32(min_data)
+    if runs is None:
+        runs = groups is not None
+    if runs:
+        cs, tot = _run_scan(h)
+    else:
+        cs = _cumsum(h)
+        tot = cs[..., -1, :]
     sl = _sq_sum(cs[..., :-1], groups)                  # (nodes, m, B)
     sr = _sq_sum(tot[..., None, :-1] - cs[..., :-1], groups)
     s_parent = _sq_sum(tot[..., :-1], groups) / (tot[..., -1] + lam)
@@ -288,12 +312,40 @@ def test_wide_replay_nothing_legal(case):
 
 
 def test_one_group_of_every_channel_is_the_narrow_order():
-    """The narrow kernel's order is the wide kernel's with one group: the
-    fold of a single group's sum from 0 changes no bit."""
+    """The narrow kernel's sums of squares are the wide kernel's with one
+    group: the fold of a single group's sum from 0 changes no bit."""
     rng = np.random.default_rng(11)
     h = _random_hist(rng, 2, 3, 256, 40)
     mask = np.ones(3, np.float32)
     g, i = replay_split_scan(h, 1.0, 1.0, mask)
-    g1, i1 = replay_split_scan(h, 1.0, 1.0, mask, groups=[range(39)])
+    g1, i1 = replay_split_scan(h, 1.0, 1.0, mask, groups=[range(39)],
+                               runs=False)
     np.testing.assert_array_equal(i, i1)
     assert np.array_equal(g.view(np.int32), g1.view(np.int32))
+
+
+@pytest.mark.parametrize("B", [256, 37])
+def test_narrow_replay_ties_an_empty_bin_at_a_run_start(B):
+    """Random (inexact) sums with empty bins at the start of lanes' runs:
+    the narrow order's left sums at an empty bin are the bin before it,
+    bit for bit, so the lower bin wins as in the plain version; at one
+    gradient channel every gain is the plain version's bits.  The runs
+    order (the wide kernel's, and the narrow kernel's first design) gives
+    such a bin other bits."""
+    rng = np.random.default_rng(B)
+    run = -(-B // LANES)
+    h = _random_hist(rng, 3, 4, B, 2)
+    h[..., -1] = rng.integers(1, 9, h.shape[:-1])
+    starts = np.arange(run, B - 1, run)
+    h[:, :, starts] = 0.0
+    mask = np.ones(4, np.float32)
+    g, i = replay_split_scan(h, 1.0, 1.0, mask)
+    pg, pi = _plain(h, 1.0, 1.0, mask)
+    np.testing.assert_array_equal(i, pi)
+    assert np.array_equal(g.view(np.int32), pg.view(np.int32))
+    cs = _cumsum(h)
+    assert np.array_equal(cs[:, :, starts], cs[:, :, starts - 1])
+    assert torch.equal(torch.cumsum(torch.from_numpy(h), 2),
+                       torch.from_numpy(cs))
+    rcs, _ = _run_scan(h)
+    assert not np.array_equal(rcs[:, :, starts], rcs[:, :, starts - 1])

@@ -3,6 +3,7 @@
 
     python3 tools/hist_tile_sweep.py [R ...]      (default 8192 16384 32768)
     python3 tools/hist_tile_sweep.py --trace      (the built-in R, traced)
+    python3 tools/hist_tile_sweep.py --ova        (one-vs-all level 5, traced)
 
 For each R (``kTileRows``) it builds ``hist.cu`` and ``hist_direct.cu``
 with that constant of ``hist_common.cuh`` changed into
@@ -20,7 +21,14 @@ With ``--trace`` it builds one variant at the source's own R with a
 ends, where its turn in the fold's first slice comes and where its fold
 ends, runs B1 at level 1 and B4 at level 5 once each, and prints where the
 blocks' time went: the body, the wait for the turn, the fold, and the
-launch's span.
+launch's span.  B1's blocks also stamp where they start, so the time from
+there to the body (the ticket and the tile -> node lookup, `find_tile`) is
+reported as ``lookup_us``.
+
+With ``--ova`` it times B1 at ``chip_smoke.py``'s one-vs-all level 5 of
+one group (128 trees x 32 nodes over 2,097,152 rows each, C=2, the
+subtract engine's build counts: 4,096 node counts for `find_tile` to
+scan), as built and traced, and prints the traced split.
 """
 from __future__ import annotations
 
@@ -37,9 +45,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 
-# Stamps of the traced build: slot i of the block's four.
+# Stamps of the traced build: slot i of the block's five (B4's blocks
+# leave slot 4 empty).
+STAMPS = 5
 TRACE = r"""
-__device__ long long g_trace[1 << 22];
+__device__ long long g_trace[5 << 20];
 __device__ __forceinline__ long long trace_now() {
   long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -48,7 +58,7 @@ __device__ __forceinline__ long long trace_now() {
 #define HIST_T(i)                                                  \
   do {                                                             \
     if (threadIdx.x == 0 && blockIdx.x < (1u << 20))               \
-      g_trace[blockIdx.x * 4ll + (i)] = trace_now();               \
+      g_trace[blockIdx.x * 5ll + (i)] = trace_now();               \
   } while (0)
 extern "C" int hist_trace_read(long long* host, long long n) {
   return cudaMemcpyFromSymbol(host, g_trace, n * sizeof(long long));
@@ -96,6 +106,10 @@ def build(variants, trace=False):
                        f"constexpr int kTileRows = {r};", s)
             if trace and name == "hist_common.cuh":
                 s = traced(s)
+            if trace and name == "hist.cu":
+                a = "  const int ticket = take_ticket(scratch);\n"
+                assert a in s
+                s = s.replace(a, "  HIST_T(4);\n" + a, 1)
             open(os.path.join(d, name), "w").write(s)
         for src in ("hist", "hist_direct"):
             lib = os.path.join(d, f"{src}.so")
@@ -121,12 +135,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("hist_tile_sweep: no CUDA device", file=sys.stderr)
         return 2
-    trace = sys.argv[1:] == ["--trace"]
+    trace = sys.argv[1:] in (["--trace"], ["--ova"])
     variants = ([ref.TILE_ROWS] if trace else
                 [int(a) for a in sys.argv[1:]] or [8192, 16384, 32768])
     libs = build(variants, trace)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    if sys.argv[1:] == ["--ova"]:
+        return ova(torch, CS, dev, gen, libs[(ref.TILE_ROWS, "hist")])
     case = CS.hist_case(torch, gen, dev)
     m, B, C = case["m"], case["B"], case["C"]
     st = case["state"]
@@ -200,6 +216,43 @@ def main() -> int:
     return 0
 
 
+def ova(torch, CS, dev, gen, traced_lib):
+    """B1 at the one-vs-all level 5 of one group, as built (the repo's
+    kernel through its wrapper) and traced."""
+    from repro_torch.kernels import _build, hist_kernel
+    _build.build([hist_kernel.KERNEL])
+    codes_t, st, stats_p, counts, build_counts = CS.ova_level_case(
+        torch, gen, dev)
+    args = (codes_t, st.order, stats_p, counts, build_counts)
+    lib = ctypes.CDLL(traced_lib)
+    V, I = ctypes.c_void_p, ctypes.c_int
+    lib.hist_nodes_launch.argtypes = [V] * 7 + [I] * 7 + [V]
+    nn, (m, n), B = counts.shape[0], codes_t.shape, 256
+
+    def traced():
+        out = torch.empty((nn, m, B, 2), device=dev)
+        scr = torch.empty(lib.hist_nodes_scratch_ints(nn, m, 2),
+                          dtype=torch.int32, device=dev)
+        err = lib.hist_nodes_launch(
+            codes_t.data_ptr(), st.order.data_ptr(), stats_p.data_ptr(),
+            counts.data_ptr(), build_counts.data_ptr(), out.data_ptr(),
+            scr.data_ptr(), scr.numel(), n, st.order.shape[0], m, nn, B, 2,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        return out
+    assert torch.equal(traced(), hist_kernel.hist_nodes(*args, n_bins=B))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(json.dumps(dict(
+        card=smi, shape="one_vs_all level 5", nodes=nn,
+        built_entries=int(build_counts.sum()),
+        b1_ms=CS.cuda_ms(lambda: hist_kernel.hist_nodes(*args, n_bins=B)),
+        traced_ms=CS.cuda_ms(traced),
+        **trace_summary(torch, lib, traced))))
+    return 0
+
+
 def trace_summary(torch, lib, fn):
     """Run ``fn`` once with the stamps cleared, then sum up the blocks that
     stamped: microseconds in the body, waiting for the turn and folding
@@ -212,11 +265,12 @@ def trace_summary(torch, lib, fn):
     assert lib.hist_trace_clear() == 0
     fn()
     torch.cuda.synchronize()
-    n = 4 << 20
+    n = STAMPS << 20
     host = (ctypes.c_longlong * n)()
     assert lib.hist_trace_read(host, n) == 0
-    rows = [host[i:i + 4] for i in range(0, n, 4)]
+    rows = [host[i:i + STAMPS] for i in range(0, n, STAMPS)]
     rows = [r for r in rows if r[0] and r[3]]
+    lookup = [r[0] - r[4] for r in rows if r[4]]
     t0 = min(r[0] for r in rows)
     span = (max(r[3] for r in rows) - t0) / 1e3
 
@@ -224,7 +278,8 @@ def trace_summary(torch, lib, fn):
         xs = [x / 1e3 for x in xs]
         return dict(median=statistics.median(xs), max=max(xs),
                     total=sum(xs))
-    return dict(blocks=len(rows), span_us=span,
+    extra = {"lookup_us": stat(lookup)} if lookup else {}
+    return dict(blocks=len(rows), span_us=span, **extra,
                 body_us=stat([r[1] - r[0] for r in rows]),
                 wait_us=stat([r[2] - r[1] for r in rows]),
                 fold_us=stat([r[3] - r[2] for r in rows]),

@@ -20,7 +20,9 @@ together):
   times, not 4;
 - ``diag psi only`` and ``diag no sums``: the repo's ``shap.cu`` with the
   scatter not launched, or launched without its sums (staging and barriers
-  only).  Neither is the function: they show what the parts cost.
+  only).  Neither is the function: they show what the parts cost;
+- ``split batched``: the repo's ``split.cu`` with each channel's left
+  sums loaded 8 bins at a time ahead of the chain, not one bin at a time.
 
 Then, at each of ``chip_smoke.py``'s `SHAP_SHAPES` ((a) 4,096 rows x 8
 trees, (b) the 256-row endpoint window x 100 trees, (c) the 4,096 rows of
@@ -28,8 +30,11 @@ trees, (b) the 256-row endpoint window x 100 trees, (c) the 4,096 rows of
 B6 build in turns: first, repo, each variant, repo, first.  Every output
 but the diagnostics' is held bitwise to the repo build's (which
 ``chip_smoke.py`` holds to the plain version).  B2 is timed at
-`SPLIT_NODES` (1, 2 and 32 nodes x 100 x 256 x 6) and at C = 17 and 64,
-first and repo in turns, indices held to the plain version's.  One JSON
+`SPLIT_NODES` (1, 2 and 32 nodes x 100 x 256 x 6), at C = 17 and 32 (the
+narrow entry point's widest) and
+at the one-vs-all level 5 of one group (4,096 nodes x 100 x 256 x 2),
+first, repo and batched in turns, indices held to the plain
+version's.  One JSON
 line a (kernel, shape, variant), in ms, with the card's name and power
 limit first.  ``--quick`` times (b) and (c) only.
 """
@@ -61,6 +66,25 @@ DIAGNOSED = {
                   "    e = 0;\n    (void)sc;")],
     "no sums": [("      for (int m = 0; m < MF; ++m) {\n        const int2 se",
                  "      for (int m = 0; m < 0; ++m) {\n        const int2 se")]}
+# B2's narrow left sums as the repo loads them (one bin at a time in the
+# chain) and 8 bins at a time ahead of it.
+BATCHED = """      for (int j0 = 0; j0 < nb; j0 += 8) {
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = j0 + j < nb ? e[(j0 + j) * C] : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j0 + j < nb) {
+            acc += static_cast<double>(v[j]);
+            e[(j0 + j) * C] = static_cast<float>(acc);
+          }
+        }
+      }"""
+ONE_BIN = """      for (int j = 0; j < nb; ++j) {
+        acc += static_cast<double>(e[j * C]);
+        e[j * C] = static_cast<float>(acc);
+      }"""
 V, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -78,6 +102,9 @@ def sources() -> dict:
                            "split0"),
            "shap repo": (read(_build.CSRC / "shap.cu"), "shap"),
            "split repo": (read(_build.CSRC / "split.cu"), "split")}
+    split = out["split repo"][0]
+    assert ONE_BIN in split
+    out["split batched"] = (split.replace(ONE_BIN, BATCHED), "split")
     repo = out["shap repo"][0]
     for name, subs in DIAGNOSED.items():
         text = repo
@@ -249,8 +276,8 @@ def main() -> int:
         del want
         torch.cuda.empty_cache()
     cases = [(k, nodes, 6) for k, nodes in CS.SPLIT_NODES.items()]
-    cases += [("n2_c17", 2, 17), ("n32_c17", 32, 17), ("n2_c64", 2, 64),
-              ("n32_c64", 32, 64)]
+    cases += [("n2_c17", 2, 17), ("n32_c17", 32, 17), ("n2_c32", 2, 32),
+              ("n32_c32", 32, 32), ("ova_l5_c2", 4096, 2)]
     for key, nodes, C in cases:
         hist = torch.randn((nodes, 100, 256, C), generator=gen, device=dev)
         hist[..., -1] = torch.randint(0, 40, (nodes, 100, 256),
@@ -258,8 +285,8 @@ def main() -> int:
         mask = torch.ones(100, device=dev)
         mask[7] = 0.0
         pg, pi = ref.split_scan_ref(hist, 1.0, 1.0, mask)
-        for name in ("split first", "split repo", "split repo",
-                     "split first"):
+        for name in ("split first", "split repo", "split batched",
+                     "split repo", "split batched", "split first"):
             run, (gain, idx) = split_runner(libs[name], found[name][1], hist,
                                             mask)
             ms = events_ms(run, 50)
