@@ -21,17 +21,18 @@ Phases (any failure exits non-zero; nothing is caught):
      ``ref.TILE_ROWS`` rows, with each build's registers, shared memory a
      block and blocks an SM; B2's
      wide path at each of SketchBoost Full's levels (1, 2, 4, 8, 16 and 32
-     nodes x 100 x 256 x 513), indices equal to the plain version's, gains
-     within rtol 1e-5, equal run to run, beside its first design
-     (``tools/split_wide_first.cu``); B3, B5 int8 and B5
+     nodes x 100 x 256 x 513, the first bin of each lane's run empty),
+     indices and gains bitwise the plain version's run on the CPU, indices
+     equal to the plain version's on the card, equal run to run, beside its
+     first design (``tools/split_wide_first.cu``); B3, B5 int8 and B5
      bf16 at the four shapes of ``TRAVERSE_SHAPES`` (262,144 rows x 8 trees,
      the 256-row serving window x 100, a 4,096-row chunk x 100, 131,072 x
      1), each bitwise its plain version and the same run to run, B5 also
      against B3 on the dequantized forest, narrow blocks at the first two,
      with each shape's tile and its build's registers, spills, shared bytes
      and blocks an SM; B2 at 1, 2 and 32 nodes (100 x 256 x 6: a level-wise
-     tree's root and deepest level, a leaf-wise expansion), indices equal
-     to the plain version's, gains within rtol 1e-5, equal run to run; B6
+     tree's root and deepest level, a leaf-wise expansion), indices and
+     gains bitwise the plain version's run on the CPU, equal run to run; B6
      at the three shapes of ``SHAP_SHAPES`` (4,096 rows x 8 trees, the
      256-row endpoint window x 100 trees, the 4,096 rows of ``shap_values``
      x 100 trees), bitwise and equal run to run, narrow blocks at per-tree
@@ -104,6 +105,23 @@ Phases (any failure exits non-zero; nothing is caught):
      the CPU (predictions within 1e-4, the same best round), a second card
      fit bitwise, and leaf-wise at 64 leaves against level-wise on the card
      (the same leaves, eval predictions bitwise);
+  9d. row and column sampling, the guards and kill-and-resume training on
+     phase 4's data: (a) 3 rounds each of ``subsample=0.5``, GOSS (a = 0.2,
+     b = 0.1: amplification 8.0), ``colsample=0.8``, GOSS with colsample
+     leaf-wise at 32 leaves, GOSS with the direct engine (B4), GOSS with
+     bf16 statistics, and 1 round of one-vs-all with GOSS: seconds per
+     round, valid loss, peak memory, B1/B2/B4 launches; each also at 65,536
+     x 100, d = 16 on the card and on the CPU with the same injected draws
+     (regression targets; within 1e-4, the same best round); (b) the guards
+     on ``multitask_mse`` targets at full width with `NaNAtRow` at round 1:
+     ``skip_round`` (round 1's values and gains zero, F after round 1
+     bitwise F after round 0), ``clip`` (finite), ``raise``
+     (`NonFiniteError` at round 1), ``hessian_floor=1e-3`` with
+     ``lambda_l2=0`` (finite); (c) 4 level-wise rounds with GOSS and
+     colsample, ``save_every=2``, ``ckpt_keep=1``, killed at round 3 and
+     resumed: forest, F and history bitwise the uninterrupted fit's, the
+     step's bytes, save and load seconds and the free disk printed, the
+     resumed step served by `ForestServer` bitwise ``predict_raw``;
  10. the dense-LM prefill (memory of phases 4-9c freed first):
      h2o-danube-3-4b at full width in bf16 (24 layers, d_model 3840, 3.84 B
      parameters from a seeded ``torch.Generator``) through
@@ -137,8 +155,9 @@ minutes at this size).  Kernel launch counts are set to zero just before
 phase 4 and read just after phase 5 (the fit -> predict path), again just
 before and after phase 7 (the serving path), again around phase 8 (the
 explain path), again around each fit of phase 9 (the direct engine's
-B4, Full's B2-wide), of phase 9b (B1-bf16 in the bf16 fits) and of phase
-9c (B1 and B2 on the one-vs-all path), again
+B4, Full's B2-wide), of phase 9b (B1-bf16 in the bf16 fits), of phase
+9c (B1 and B2 on the one-vs-all path) and of each fit of phase 9d (a),
+again
 around phase 10's prefill requests (B7), and again around phase 11's
 decode steps (B8).
 """
@@ -515,8 +534,9 @@ def first_split_ms(torch, first, hist, mask, reps=50):
 
 def check_split(torch, gen, dev, first):
     """B2 at each of `SPLIT_NODES` (x 100 features x 256 bins x 6
-    channels): idx equal to the plain version's, gains within rtol 1e-5,
-    two runs equal; timed beside the plain version and the first version
+    channels): idx and gains bitwise the plain version's run on the CPU
+    from host copies, idx equal to the plain version's on the card and
+    gains within rtol 1e-5, two runs equal; timed beside the plain version and the first version
     (``tools/split_first.cu``, the kernel ``first``) on the same inputs.
     The row's top-level numbers are 32 nodes'."""
     from repro_torch.kernels import ref, split_kernel
@@ -533,6 +553,9 @@ def check_split(torch, gen, dev, first):
         pg, pi = ref.split_scan_ref(hist, 1.0, 1.0, mask)
         torch.cuda.synchronize()
         assert torch.equal(idx, pi), f"B2 {key}: split indices differ"
+        cg, ci = ref.split_scan_ref(hist.cpu(), 1.0, 1.0, mask.cpu())
+        assert torch.equal(idx.cpu(), ci) and torch.equal(gain.cpu(), cg), \
+            f"B2 {key} is not the CPU's plain version"
         torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
         assert torch.equal(gain, gain2) and torch.equal(idx, idx2), \
             f"B2 {key} is not the same run to run"
@@ -584,17 +607,25 @@ def first_split_wide_ms(torch, first, hist, mask, reps=20):
 def check_split_wide(torch, gen, dev, first):
     """B2's wide path (C > 32) at each of SketchBoost Full's levels
     (`WIDE_NODES` x 100 x 256 x 513: d = 512 gradient channels and the
-    count): idx equal to the plain version's, gains within rtol 1e-5, two
-    runs bitwise equal; timed beside the plain version and the first design
+    count), with the bins where lanes' runs start (8, 16, ... 248) empty:
+    idx and gains bitwise the plain version's run on the CPU from host
+    copies (left sums bin by bin in double there, as in the kernel, so an
+    empty bin ties the bin before it in both; squares summed in double and
+    rounded once in both), idx equal to the plain version's on the card
+    (float left sums there) and gains within rtol 1e-5, two runs bitwise
+    equal; timed
+    beside the plain version and the first design
     (``tools/split_wide_first.cu``, the kernel ``first``) on the same
     inputs.  The row's top-level numbers are 32 nodes'."""
     from repro_torch.kernels import ref, split_kernel
     m, B, C = 100, 256, 513
+    run = B // 32
     shapes, errs = {}, []
     for nodes in WIDE_NODES:
         hist = torch.randn((nodes, m, B, C), generator=gen, device=dev)
         hist[..., -1] = torch.randint(0, 40, (nodes, m, B), generator=gen,
                                       device=dev).float()
+        hist[:, :, run::run] = 0.0                # empty bins at run starts
         mask = torch.ones(m, device=dev)
         mask[7] = 0.0
         before = split_kernel.WIDE_KERNEL.launches
@@ -609,9 +640,12 @@ def check_split_wide(torch, gen, dev, first):
         torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
         assert torch.equal(gain, gain2) and torch.equal(idx, idx2), \
             f"B2-wide at {nodes} nodes is not the same run to run"
+        cg, ci = ref.split_scan_ref(hist.cpu(), 1.0, 1.0, mask.cpu())
+        assert torch.equal(idx.cpu(), ci) and torch.equal(gain.cpu(), cg), \
+            f"B2-wide at {nodes} nodes is not the CPU's plain version"
+        del cg, ci
         first_ms, fi = first_split_wide_ms(torch, first, hist, mask)
-        assert torch.equal(fi, pi), \
-            f"B2-wide's first design at {nodes} nodes differs"
+        first_ties = int((fi != pi).sum())         # its runs break ties
         errs.append(float((gain - pg).abs().max()))
         del pg, pi
         # Masked features are skipped: only the others' histograms count.
@@ -621,7 +655,7 @@ def check_split_wide(torch, gen, dev, first):
         shapes[f"n{nodes}"] = dict(
             nodes=nodes, ms=cuda_ms(
                 lambda: split_kernel.split_scan(hist, 1.0, 1.0, mask), 20),
-            first_ms=first_ms,
+            first_ms=first_ms, first_nodes_differing=first_ties,
             plain_ms=cuda_ms(lambda: ref.split_scan_ref(hist, 1.0, 1.0,
                                                         mask), 2),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[-1])
@@ -1708,6 +1742,311 @@ def ova_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels, engines):
     return rec, launches
 
 
+# Phase 9d (a)'s fits: (name, options, rounds), 3 level-wise "subtract"
+# rounds unless the options say otherwise.  GOSS at a = 0.2, b = 0.1
+# amplifies by (1 - a) / b = 8.0, exact in bf16 too.
+GOSS = dict(goss_a=0.2, goss_b=0.1)
+SAMPLED_FITS = (
+    ("sgb", dict(subsample=0.5), 3),
+    ("goss", GOSS, 3),
+    ("colsample", dict(colsample=0.8), 3),
+    ("goss_colsample_leafwise32", dict(GOSS, colsample=0.8,
+                                       growth="leafwise", max_leaves=32), 3),
+    ("goss_direct", dict(GOSS, hist_engine="direct"), 3),
+    ("goss_bf16", dict(GOSS, hist_dtype="bfloat16"), 3),
+    ("goss_one_vs_all", dict(GOSS, strategy="one_vs_all"), 1))
+
+
+def sampling_phase(torch, dev, Xtr, ytr, Xev, yev, cfg, kernels):
+    """Phase 9d: row and column sampling, the non-finite guards and
+    kill-and-resume training at full width on phase 4's data.  (a) each of
+    `SAMPLED_FITS` (seconds a round, valid loss, peak memory, B1/B2/B4
+    launches), then each at 65,536 x 100, d = 16, depth 6, 2 rounds on the
+    card and on the CPU with the same injected draws (regression targets;
+    predictions within 1e-4, the same best round); (b) the guards
+    (`guards_phase`); (c) kill and resume (`resume_phase`).  Returns the
+    record and the launches of (a)'s fits (counts set to zero just before
+    each), by fit."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import tree as TR
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+
+    rec, launches = {"fits": {}}, {}
+    groups = len(TR.ova_groups(cfg.n_outputs, len(Xtr)))
+    # (a) the sampled fits at full width.
+    for name, kw, rounds in SAMPLED_FITS:
+        c = dataclasses.replace(cfg, n_trees=rounds, **kw)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = SketchBoost(c, device=dev).fit(Xtr, ytr, eval_set=(Xev, yev))
+        torch.cuda.synchronize()
+        times = [h["train_time_s"] for h in model.history]
+        r = dict(round_s=[b - a for a, b in zip([0.0] + times[:-1], times)],
+                 valid_loss=[h["valid_loss"] for h in model.history],
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches={k.name: k.launches for k in kernels})
+        rec["fits"][name] = r
+        launches[name] = L = r["launches"]
+        print(f"[9d] (a) {name}: seconds per round {r['round_s']}, valid "
+              f"loss {r['valid_loss']}, peak {r['peak_gib']:.2f} GiB, "
+              f"launches {L}")
+        assert all(math.isfinite(v) for v in r["valid_loss"]), (name, r)
+        if c.strategy == "one_vs_all":
+            assert L["hist_nodes"] == cfg.depth * groups * rounds, L
+            assert L["split_scan"] == cfg.depth * groups * rounds, L
+        elif c.growth == "leafwise":
+            assert 0 < L["hist_nodes"] <= 32 * rounds, L
+        elif c.hist_engine == "direct":
+            assert L["hist_direct"] == cfg.depth * rounds, L
+            assert L["hist_nodes"] == 0, L
+        elif c.hist_dtype == "bfloat16":
+            assert L["hist_nodes_bf16"] == cfg.depth * rounds, L
+            assert L["hist_nodes"] == 0, L
+        else:
+            assert L["hist_nodes"] == cfg.depth * rounds, L
+        assert L["split_scan"] > 0 and L["forest_traverse"] == rounds, L
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (a) at a reduced size, the card against the CPU, the same draws.
+    n, nv, d, m = 65_536, 16_384, 16, Xtr.shape[1]
+    X, y = make_data(torch, dev, n + nv, m, d, seed=11,
+                     task="multitask_mse")
+    rng = np.random.default_rng(3)
+    draws = dict(
+        sketch_mats=[rng.normal(size=(d, cfg.sketch_k)).astype(np.float32)
+                     / np.sqrt(cfg.sketch_k) for _ in range(2)],
+        sample_draws=[rng.random(n).astype(np.float32) for _ in range(2)],
+        feature_draws=[rng.random(m).astype(np.float32) for _ in range(2)])
+    small = {}
+    for name, kw, _ in SAMPLED_FITS:
+        c = GBDTConfig(loss="multitask_mse", n_trees=2, depth=6, **kw)
+        fits, secs = [], []
+        for dv in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            fits.append(SketchBoost(c, device=dv).fit(
+                X[:n], y[:n], eval_set=(X[n:], y[n:]), **draws))
+            secs.append(time.perf_counter() - t0)
+        pred = [f.predict_raw(X[n:]).cpu() for f in fits]
+        err = float((pred[0] - pred[1]).abs().max())
+        small[name] = dict(card_vs_cpu_max_abs=err, card_s=secs[0],
+                           cpu_s=secs[1], best_round=[f.best_round
+                                                      for f in fits])
+        print(f"[9d] (a) {name} at {n} x {m}, d={d}: card vs CPU max |diff| "
+              f"{err!r} (limit 1e-4), best rounds "
+              f"{small[name]['best_round']}, {secs[0]:.2f} s on the card, "
+              f"{secs[1]:.2f} s on the CPU")
+        assert err <= 1e-4, (name, err)
+        assert fits[0].best_round == fits[1].best_round, name
+    rec["small"] = small
+    del X, y, fits, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["guards"] = guards_phase(torch, dev, len(Xtr), len(Xev), m, cfg)
+    rec["resume"] = resume_phase(torch, dev, Xtr, ytr, Xev, yev, cfg)
+    return rec, launches
+
+
+def guards_phase(torch, dev, n, nv, m, cfg):
+    """Phase 9d (b): the guards at full width on ``multitask_mse`` targets
+    (d = 512), `NaNAtRow` corrupting two rows' targets from round 1 on,
+    2 rounds a fit: ``skip_round`` (round 1's values and gains all 0, and
+    the training scores after round 1 bitwise those after round 0, read
+    from `boosting.boost_round` called round by round), ``clip`` (finite),
+    ``raise`` (`NonFiniteError` names round 1), ``hessian_floor=1e-3``
+    with ``lambda_l2=0`` (finite)."""
+    import dataclasses
+
+    from repro_torch.core import boosting as BO
+    from repro_torch.core import guards as GU
+    from repro_torch.core.boosting import SketchBoost
+    from repro_torch.runtime.chaos import NaNAtRow
+    X, y = make_data(torch, dev, n + nv, m, cfg.n_outputs, seed=5,
+                     task="multitask_mse")
+    base = dataclasses.replace(cfg, loss="multitask_mse", n_trees=2)
+    rows = (0, n // 3)
+    out = {}
+
+    def fit(**kw):
+        c = dataclasses.replace(base, **kw)
+        t0 = time.perf_counter()
+        model = SketchBoost(c, device=dev).fit(
+            X[:n], y[:n], eval_set=(X[n:], y[n:]), check_input=False,
+            chaos=NaNAtRow(1, rows))
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0
+
+    model, secs = fit(guard_policy="skip_round")
+    f = model.forest
+    zero = bool((f.value[1] == 0).all() and (f.gain[1] == 0).all())
+    vl = [h["valid_loss"] for h in model.history]
+    # The training scores, round by round, through the fit's own round.
+    codes, codes_t = model._codes(X[:n])
+    Y = model._targets(y[:n]).clone()       # no view of the host targets
+    F = model.base_score.expand(n, -1).contiguous()
+    c = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(c.seed)
+    BO.boost_round(F, codes, codes_t, Y, c, generator=gen)
+    F0 = F.clone()
+    Y[list(rows)] = float("nan")
+    t1 = BO.boost_round(F, codes, codes_t, Y, c, generator=gen)
+    same_f = bool(torch.equal(F, F0))
+    zero_direct = bool((t1.value == 0).all() and (t1.gain == 0).all())
+    out["skip_round"] = dict(fit_s=secs, round1_zero=zero,
+                             valid_loss=vl, f_round1_bitwise_round0=same_f)
+    print(f"[9d] (b) skip_round: round 1's values and gains all 0 {zero} "
+          f"(fit) {zero_direct} (boost_round), F after round 1 bitwise F "
+          f"after round 0 {same_f}, valid losses {vl}, fit {secs:.2f} s")
+    assert zero and zero_direct and same_f and vl[0] == vl[1]
+    del model, f, codes, codes_t, Y, F, F0, t1
+    model, secs = fit(guard_policy="clip")
+    pred = model.predict_raw(X[n:])
+    finite = bool(torch.isfinite(pred).all())
+    out["clip"] = dict(fit_s=secs, finite=finite,
+                       valid_loss=[h["valid_loss"] for h in model.history])
+    print(f"[9d] (b) clip: eval predictions finite {finite}, valid losses "
+          f"{out['clip']['valid_loss']}, fit {secs:.2f} s")
+    assert finite
+    del model, pred
+    try:
+        fit(guard_policy="raise")
+        raised = None
+    except GU.NonFiniteError as err:
+        raised = err.round
+    out["raise"] = dict(raised_at_round=raised)
+    print(f"[9d] (b) raise: NonFiniteError at round {raised}")
+    assert raised == 1, raised
+    c = dataclasses.replace(base, hessian_floor=1e-3, lambda_l2=0.0)
+    model = SketchBoost(c, device=dev).fit(X[:n], y[:n],
+                                           eval_set=(X[n:], y[n:]))
+    pred = model.predict_raw(X[n:])
+    finite = bool(torch.isfinite(pred).all())
+    out["hessian_floor"] = dict(
+        finite=finite, valid_loss=[h["valid_loss"] for h in model.history])
+    print(f"[9d] (b) hessian_floor=1e-3, lambda_l2=0: finite {finite}, "
+          f"valid losses {out['hessian_floor']['valid_loss']}")
+    assert finite
+    del model, pred, X, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def resume_phase(torch, dev, Xtr, ytr, Xev, yev, cfg):
+    """Phase 9d (c): the paper's configuration with GOSS and ``colsample=
+    0.8`` (every draw from the fit's CUDA generator), 4 level-wise rounds
+    with the eval set: the fit that runs through (its round-4 step read
+    for F), then ``save_every=2``, ``ckpt_keep=1`` killed by
+    ``KillAtRound(3)`` and resumed from the round-2 step: the forest, the
+    packed model, F and the history bitwise; the resumed step served by
+    `ForestServer` (B3), bitwise ``model.predict_raw``.  The steps go to a
+    temporary directory, removed after; if its disk cannot hold two steps
+    the drill's rows are cut, and the cut printed."""
+    import dataclasses
+
+    from repro_torch.core.boosting import SketchBoost
+    from repro_torch.io import checkpoint as CK
+    from repro_torch.runtime.chaos import ChaosKill, KillAtRound
+    from repro_torch.training.serve_lib import ForestServer
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    out = {}
+    try:
+        free = shutil.disk_usage(tmp).free
+        d = cfg.n_outputs
+        n = len(Xtr)
+        step_est = 4 * d * (n + len(Xev)) + 64 * 2 ** 20
+        if 2 * step_est > 0.9 * free:
+            n = max(65_536, int((0.9 * free / 2 - 64 * 2 ** 20) / (4 * d))
+                    - len(Xev))
+            print(f"[9d] (c) the disk holds {free} bytes free: the drill's "
+                  f"rows cut from {len(Xtr)} to {n}")
+        out.update(free_disk_bytes=free, rows=n)
+        X, y = Xtr[:n], ytr[:n]
+        base = dataclasses.replace(cfg, n_trees=4, goss_a=0.2, goss_b=0.1,
+                                   colsample=0.8)
+        times = {"save_s": [], "load_s": []}
+        save, load = CK.save_boost_checkpoint, CK.load_boost_checkpoint
+
+        def timed(fn, key):
+            def wrapper(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*a, **kw)
+                times[key].append(time.perf_counter() - t0)
+                return r
+            return wrapper
+        CK.save_boost_checkpoint = timed(save, "save_s")
+        CK.load_boost_checkpoint = timed(load, "load_s")
+        try:
+            full_dir = os.path.join(tmp, "full")
+            full = SketchBoost(dataclasses.replace(
+                base, save_every=4, ckpt_dir=full_dir, ckpt_keep=1),
+                device=dev).fit(X, y, eval_set=(Xev, yev))
+            F_full = load(full_dir, device="cpu").F
+            shutil.rmtree(full_dir)
+            cut = dataclasses.replace(base, save_every=2,
+                                      ckpt_dir=os.path.join(tmp, "cut"),
+                                      ckpt_keep=1)
+            try:
+                SketchBoost(cut, device=dev).fit(X, y, eval_set=(Xev, yev),
+                                                 chaos=KillAtRound(3))
+                killed = None
+            except ChaosKill as err:
+                killed = err.round
+            step2 = CK.CheckpointManager(cut.ckpt_dir).latest_step()
+            step_bytes = _dir_bytes(os.path.join(cut.ckpt_dir,
+                                                 f"step_{step2}"))
+            resumed = SketchBoost(dataclasses.replace(
+                cut, resume_from=cut.ckpt_dir), device=dev).fit(
+                X, y, eval_set=(Xev, yev))
+        finally:
+            CK.save_boost_checkpoint, CK.load_boost_checkpoint = save, load
+        assert killed == 3 and step2 == 2, (killed, step2)
+        forest_eq = all(torch.equal(a, b) for a, b in
+                        zip(full.forest, resumed.forest))
+        packed_eq = all(
+            torch.equal(a, b) if torch.is_tensor(a) else a == b
+            for a, b in zip(full.packed, resumed.packed))
+        strip = [[{k: v for k, v in r.items() if k != "train_time_s"}
+                  for r in mdl.history] for mdl in (full, resumed)]
+        state = load(cut.ckpt_dir, device="cpu")
+        f_eq = bool(state.round == 4 and torch.equal(state.F, F_full))
+        server = ForestServer.from_checkpoint(cut.ckpt_dir, device=dev)
+        Xs = Xev[:65_536]
+        served = bool(torch.equal(server.predict_raw(Xs),
+                                  resumed.predict_raw(Xs)))
+        out.update(killed_at=killed, step_bytes=step_bytes,
+                   save_s=times["save_s"], load_s=times["load_s"],
+                   forest_bitwise=forest_eq, packed_bitwise=packed_eq,
+                   history_bitwise=strip[0] == strip[1], F_bitwise=f_eq,
+                   served_bitwise=served,
+                   valid_loss=[h["valid_loss"] for h in resumed.history])
+        print(f"[9d] (c) kill at round {killed}, resume from step {step2}: "
+              f"{n} rows, free disk {free} bytes before, a step "
+              f"{step_bytes} bytes, saves {times['save_s']} s, loads "
+              f"{times['load_s']} s; forest bitwise {forest_eq}, packed "
+              f"bitwise {packed_eq}, F bitwise {f_eq}, history bitwise "
+              f"{out['history_bitwise']}, served step bitwise predict_raw "
+              f"{served}, valid losses {out['valid_loss']}")
+        assert forest_eq and packed_eq and f_eq and served
+        assert out["history_bitwise"]
+        del full, resumed, state, F_full, server
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def make_data(torch, dev, n, m, d, seed, task="multiclass"):
     """Guyon-scheme multiclass table on the card (make_tabular's recipe);
     with ``task="multitask_mse"`` the targets are the d noisy logits."""
@@ -2526,6 +2865,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     one_vs_all, ova_launches = ova_phase(torch, dev, Xtr, ytr, Xev, yev,
                                          cfg, kernels, engines)
+    sampling, sampling_launches = sampling_phase(
+        torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b4, b2w, b1bf])
     # Phase 10 runs alone on the card: free the tabular phases' memory.
     del X, y, Xtr, ytr, Xev, yev, Xte
     gc.collect()
@@ -2565,12 +2906,18 @@ def main() -> int:
             r["one_vs_all_launches"] = ova_launches[r["name"]]
     for r, sh in zip((b1_row, b2_row), ova_level):
         r.setdefault("shapes", {})["ova_level5"] = sh
+    for r in rows:                           # the sampled fits of phase 9d
+        by_fit = {k: v[r["name"]] for k, v in sampling_launches.items()
+                  if r["name"] in v}
+        if by_fit:
+            r["sampling_launches"] = by_fit
     print(json.dumps({"kernels": rows, "fit_s": fit_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
                       "engines_and_sketches": engines,
                       "leafwise_bf16_staged": leafwise,
-                      "one_vs_all": one_vs_all, "prefill": prefill,
+                      "one_vs_all": one_vs_all, "sampling": sampling,
+                      "prefill": prefill,
                       "decode": decode, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

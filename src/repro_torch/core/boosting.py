@@ -5,10 +5,14 @@ far: ``strategy="single_tree"`` and ``"one_vs_all"`` (d univariate trees a
 round, grown together in groups: `tree.grow_trees`), level-wise growth
 with any histogram engine (``"direct"``, ``"partition"``, ``"subtract"``)
 and leaf-wise (best-first) growth under a ``max_leaves`` budget, float32
-or bfloat16 histogram statistics, every sketch method, no row or column
-sampling, no guards and no checkpoints.
-Options outside the slice raise a ValueError that names the slice that
-brings them.  The fitted model explains itself as the reference's does:
+or bfloat16 histogram statistics, every sketch method, row sampling (SGB
+``subsample``, GOSS ``goss_a``/``goss_b``: per-row weights in the count
+channel) and column sampling (``colsample``: a feature mask in the split
+scan), the non-finite guards (`core.guards`), round checkpoints and
+resuming (``save_every``/``ckpt_dir``/``resume_from``, format v4 of
+`io.checkpoint`) and the chaos hooks of `runtime.chaos`.
+``dist_hist_compression`` raises a ValueError that names the distributed
+slice.  The fitted model explains itself as the reference's does:
 `SketchBoost.shap_values`, `apply` and `feature_importances` (``explain/``).
 
 The loop runs one round per iteration for both ``loop="scan"`` (the
@@ -16,12 +20,18 @@ default) and ``loop="python"``: the reference guarantees that its two loops
 train bit-identical forests, so one loop stands for both here (PyTorch
 runs eagerly; there is nothing to compile).  ``scan_chunk`` has no effect.
 
-RNG seam: the reference draws each round's sketch from threefry keys, which
-``torch.Generator`` cannot reproduce.  A free-running fit makes each round's
-draw from a generator seeded with ``cfg.seed`` on the fit's device;
-``fit(..., sketch_mats=...)`` takes the per-round draws instead (the parity
-tests replay the reference's draws through it): Pi (d, k) for
-``random_projection``, the Gumbel noise (k, d) for ``random_sampling``.
+RNG seam: the reference splits each round's key into a sketch, a sample
+and a column key, threefry streams that ``torch.Generator`` cannot
+reproduce.  A free-running fit makes each round's draws from a generator
+seeded with ``cfg.seed`` on the fit's device, in this order: the rows'
+uniforms (row sampling only), the features' uniforms (``colsample < 1``
+only), the sketch's draw; a checkpoint stores the generator's state at the
+round boundary, so a resumed fit draws what the uninterrupted one drew.
+``fit`` takes the per-round draws instead (the parity tests replay the
+reference's draws through them): ``sketch_mats`` (Pi (d, k) for
+``random_projection``, the Gumbel noise (k, d) for ``random_sampling``),
+``sample_draws`` (round r's ``uniform(s_key, (n,))``) and
+``feature_draws`` (round r's ``uniform(c_key, (m,))``).
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import torch
 
 from repro_torch import explain as EX
 from repro_torch.core import forest as FO
+from repro_torch.core import guards as GU
 from repro_torch.core import histogram as H
 from repro_torch.core import losses as L
 from repro_torch.core import quantize as Q
@@ -42,6 +53,7 @@ from repro_torch.core import tree as T
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import predict_kernel
 from repro_torch.kernels.ref import HIST_DTYPES
+from repro_torch.runtime import chaos as CH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,23 +99,12 @@ class GBDTConfig:
 
     def validate(self) -> None:
         """Reject options this slice of the port does not implement, naming
-        the slice that brings each, and unknown values."""
-        later = [
-            (self.subsample < 1.0 or self.goss_a > 0.0 or self.goss_b > 0.0
-             or self.colsample < 1.0, "subsample / goss_* / colsample",
-             "the sampling slice"),
-            (self.guard_policy != "off" or self.hessian_floor > 0.0,
-             "guard_policy / hessian_floor", "the robustness slice"),
-            (self.save_every != 0 or bool(self.ckpt_dir)
-             or bool(self.resume_from), "save_every / ckpt_dir / resume_from",
-             "the checkpoint slice"),
-            (self.dist_hist_compression != "none", "dist_hist_compression",
-             "the distributed slice"),
-        ]
-        for out_of_slice, what, slice_name in later:
-            if out_of_slice:
-                raise ValueError(f"{what} is not ported yet: it comes with "
-                                 f"{slice_name} of repro_torch")
+        the slice that brings each, and unknown or illegal values (the
+        reference's checks of the options the port takes)."""
+        if self.dist_hist_compression != "none":
+            raise ValueError("dist_hist_compression is not ported yet: it "
+                             "comes with the distributed slice of "
+                             "repro_torch")
         leafwise = self.growth == "leafwise"
         checks = [
             (self.loss in L.LOSSES, f"unknown loss {self.loss!r}"),
@@ -143,10 +144,122 @@ class GBDTConfig:
             (2 <= self.n_bins <= Q.MAX_BINS,
              f"n_bins must be in [2, {Q.MAX_BINS}]"),
             (self.depth >= 1, f"depth must be >= 1, got {self.depth}"),
+            (self.guard_policy in GU.GUARD_POLICIES,
+             f"unknown guard_policy {self.guard_policy!r}; expected one of "
+             f"{GU.GUARD_POLICIES} (see core.guards)"),
+            (self.guard_clip > 0.0,
+             "guard_clip must be > 0 (the clamp magnitude for the 'clip' "
+             f"policy), got {self.guard_clip}"),
+            (self.hessian_floor >= 0.0,
+             f"hessian_floor must be >= 0, got {self.hessian_floor}"),
+            (self.save_every >= 0,
+             f"save_every must be >= 0, got {self.save_every}"),
+            (self.save_every == 0 or bool(self.ckpt_dir),
+             f"save_every={self.save_every} checkpoints every "
+             f"{self.save_every} rounds but ckpt_dir is empty — there is "
+             "nowhere to write; set ckpt_dir or save_every=0"),
+            (self.ckpt_keep >= 1,
+             "ckpt_keep must be >= 1 (at least the newest checkpoint "
+             f"survives pruning), got {self.ckpt_keep}"),
         ]
         for ok, msg in checks:
             if not ok:
                 raise ValueError(msg)
+
+    def strip_io(self) -> "GBDTConfig":
+        """The config without its checkpoint knobs: what the rounds run
+        under (where and how often a fit checkpoints changes no round)."""
+        return dataclasses.replace(self, save_every=0, ckpt_dir="",
+                                   ckpt_keep=3, resume_from="")
+
+
+#: The hyperparameters a resumed fit must share with the run that wrote the
+#: checkpoint (the reference's list): each changes gradients, sketches,
+#: tree shapes or the draws, so a mismatch breaks bit-identity.
+RESUME_CFG_KEYS = (
+    "loss", "strategy", "sketch_method", "sketch_k", "growth", "max_leaves",
+    "depth", "n_bins", "learning_rate", "lambda_l2", "min_data_in_leaf",
+    "min_gain", "subsample", "goss_a", "goss_b", "colsample", "hist_dtype",
+    "guard_policy", "guard_clip", "hessian_floor", "seed")
+
+
+def _resume_cfg_snapshot(cfg: GBDTConfig) -> Dict[str, Any]:
+    return {k: getattr(cfg, k) for k in RESUME_CFG_KEYS}
+
+
+def _check_resume_compat(cfg: GBDTConfig, state) -> None:
+    """Refuse to resume under a config that breaks bit-identity."""
+    saved = dict(state.meta.get("train", {}).get("cfg", {}))
+    want = _resume_cfg_snapshot(cfg)
+    diffs = [f"{k}: checkpoint={saved[k]!r} != fit={want[k]!r}"
+             for k in RESUME_CFG_KEYS if k in saved and saved[k] != want[k]]
+    if diffs:
+        raise ValueError(
+            "resume_from checkpoint was written under a different config — "
+            "the resumed rounds would not reproduce the uninterrupted run:"
+            "\n  " + "\n  ".join(diffs))
+    if state.round > cfg.n_trees:
+        raise ValueError(
+            f"resume_from checkpoint already holds {state.round} completed "
+            f"rounds but cfg.n_trees={cfg.n_trees}; raise n_trees past the "
+            "checkpoint to continue training")
+
+
+def _draws_rows(cfg: GBDTConfig) -> bool:
+    """Does a round draw row uniforms (SGB or GOSS)?"""
+    return cfg.goss_a > 0.0 or cfg.subsample < 1.0
+
+
+def _draws_sketch(cfg: GBDTConfig) -> bool:
+    return (cfg.strategy == "single_tree" and cfg.sketch_method in
+            ("random_projection", "random_sampling"))
+
+
+# -- fault-injection hooks (duck-typed; see runtime.chaos) -------------------
+
+def _chaos_mutate(chaos, Y, round_idx: int):
+    """Apply data-corruption injections (e.g. NaN-at-row) due at or before
+    ``round_idx``; the corruption persists from its trigger round on."""
+    for c in chaos:
+        mutate = getattr(c, "mutate_targets", None)
+        if mutate is not None:
+            Y = mutate(Y, round_idx)
+    return Y
+
+
+# -- row and column sampling ---------------------------------------------------
+
+def _sample_weights(G: torch.Tensor, cfg: GBDTConfig,
+                    u: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Per-row weights of SGB / GOSS from the round's row uniforms ``u``
+    (n,): (n,) float32, or None without row sampling (all ones).  GOSS
+    (Ke et al., 2017) keeps every row whose squared gradient norm reaches
+    the ``max(int(goss_a n), 1)``-th largest (rows tied at the threshold
+    all stay), and of the rest those with ``u < goss_b``, amplified by
+    ``(1 - goss_a) / goss_b``; SGB keeps the rows with ``u <
+    subsample``."""
+    n = G.shape[0]
+    if cfg.goss_a > 0.0:
+        gnorm = torch.square(G).sum(1)
+        n_top = max(int(cfg.goss_a * n), 1)
+        thresh = torch.kthvalue(gnorm, n - n_top + 1).values
+        top = gnorm >= thresh
+        amp = (1.0 - cfg.goss_a) / max(cfg.goss_b, 1e-12)
+        zero = torch.zeros((), dtype=torch.float32, device=G.device)
+        rand = torch.where(u < cfg.goss_b, torch.full_like(zero, amp), zero)
+        return torch.where(top, torch.ones_like(zero), rand)
+    if cfg.subsample < 1.0:
+        return (u < cfg.subsample).to(torch.float32)
+    return None
+
+
+def _feature_mask(cfg: GBDTConfig, u: Optional[torch.Tensor]
+                  ) -> Optional[torch.Tensor]:
+    """The round's feature mask from its feature uniforms ``u`` (m,):
+    ``u < colsample`` (bool), or None with every feature."""
+    if cfg.colsample >= 1.0:
+        return None
+    return u < cfg.colsample
 
 
 def validate_features(X, *, n_features: Optional[int] = None,
@@ -181,7 +294,10 @@ def validate_targets(y, *, loss: str, n_rows: int, where: str = "y"
     if y.shape[0] != n_rows:
         raise ValueError(f"{where} has {y.shape[0]} rows but X has {n_rows}")
     if y.dtype.kind == "f" and not np.isfinite(y).all():
-        raise ValueError(f"{where} contains non-finite values")
+        raise ValueError(
+            f"{where} contains non-finite values; targets must be finite — "
+            "clean them, or pass check_input=False with a guard_policy to "
+            "exercise the non-finite guards deliberately")
     if loss == "multiclass" and y.ndim == 1:
         if y.dtype.kind == "f" and not np.all(y == np.floor(y)):
             raise ValueError(f"{where} holds non-integer class ids")
@@ -245,53 +361,131 @@ class SketchBoost:
 
     # -- training -----------------------------------------------------------
     def fit(self, X, y, eval_set: Optional[Tuple] = None,
-            verbose: bool = False, *,
-            sketch_mats: Optional[Sequence] = None) -> "SketchBoost":
+            verbose: bool = False, *, check_input: bool = True, chaos=None,
+            sketch_mats: Optional[Sequence] = None,
+            sample_draws: Optional[Sequence] = None,
+            feature_draws: Optional[Sequence] = None) -> "SketchBoost":
         """Train the ensemble.
 
-        ``sketch_mats`` optionally gives round r's sketch draw
-        ``sketch_mats[r]`` (a numpy array): the (d, k) projection for
-        ``random_projection``, the (k, d) Gumbel noise for
-        ``random_sampling``; the other methods draw nothing and ignore it.
-        Without it the draws come from a generator seeded with
-        ``cfg.seed``.
+        ``check_input`` routes X/y (and the eval set) through
+        `validate_features` / `validate_targets`; turn it off only to feed
+        corrupt data to the non-finite guards on purpose.  ``chaos`` takes
+        `runtime.chaos` injections (or a list), consulted at every round
+        boundary.  With ``cfg.save_every > 0`` the fit checkpoints every
+        ``save_every`` rounds into ``cfg.ckpt_dir``; ``cfg.resume_from``
+        restores such a checkpoint and continues the run bit for bit (same
+        data, same config, same device).
+
+        ``sketch_mats``, ``sample_draws`` and ``feature_draws`` optionally
+        give round r's draws (numpy arrays or tensors, indexed by the
+        absolute round): ``sketch_mats[r]`` the (d, k) projection for
+        ``random_projection`` or the (k, d) Gumbel noise for
+        ``random_sampling`` (other methods draw nothing),
+        ``sample_draws[r]`` the (n,) row uniforms of SGB/GOSS,
+        ``feature_draws[r]`` the (m,) feature uniforms of ``colsample``.
+        A draw not given comes from a generator seeded with ``cfg.seed``.
         """
-        cfg = self.cfg
-        X = validate_features(X)
-        y = validate_targets(y, loss=cfg.loss, n_rows=X.shape[0])
+        if check_input:
+            X = validate_features(X)
+            y = validate_targets(y, loss=self.cfg.loss, n_rows=X.shape[0])
+        else:
+            X = np.ascontiguousarray(X, dtype=np.float32)
         d = self._infer_d(y)
         cfg = dataclasses.replace(
-            cfg, n_outputs=d,
-            hist_engine=H.resolve_hist_engine(cfg.hist_engine))
+            self.cfg, n_outputs=d,
+            hist_engine=H.resolve_hist_engine(self.cfg.hist_engine))
         loss = L.get_loss(cfg.loss)
+        chaos = CH.as_chaos_list(chaos)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
-        self.quantizer = Q.fit_quantizer(X, cfg.n_bins, seed=cfg.seed,
-                                         device=self.device)
+        state = None
+        if cfg.resume_from:
+            from repro_torch.io import checkpoint as CK
+            state = CK.load_boost_checkpoint(cfg.resume_from,
+                                             device=self.device)
+            _check_resume_compat(cfg, state)
+            if state.quantizer is None:
+                raise ValueError(
+                    f"checkpoint under {cfg.resume_from!r} carries no "
+                    "quantizer; resume needs the binning saved at fit time "
+                    "(cfg.save_every checkpoints store it automatically)")
+            # The saved binning and base score: refitting them would risk
+            # drift and break bit-identity.
+            self.quantizer = state.quantizer
+            self.base_score = state.packed.base.to(torch.float32)
+        else:
+            self.quantizer = Q.fit_quantizer(X, cfg.n_bins, seed=cfg.seed,
+                                             device=self.device)
         codes, codes_t = self._codes(X)
         Y = self._targets(y)
-        self.base_score = self._base(Y, d).to(torch.float32)
+        if state is None:
+            self.base_score = self._base(Y, d).to(torch.float32)
         n = codes.shape[0]
-        F = self.base_score.expand(n, d).contiguous()
+        if state is not None:
+            if tuple(state.F.shape) != (n, d):
+                raise ValueError(
+                    f"resume_from checkpoint holds training scores of shape "
+                    f"{tuple(state.F.shape)} but X/y give ({n}, {d}); "
+                    "resume must rerun fit() on the same training data")
+            F = state.F.to(self.device, torch.float32).contiguous()
+        else:
+            F = self.base_score.expand(n, d).contiguous()
         has_eval = eval_set is not None
+        Fv = None
         if has_eval:
-            Xv = validate_features(eval_set[0], n_features=X.shape[1],
-                                   where="eval_set X")
+            m = self.quantizer.edges.shape[0]
+            Xv = (validate_features(eval_set[0], n_features=m,
+                                    where="eval_set X") if check_input
+                  else np.ascontiguousarray(eval_set[0], dtype=np.float32))
             codes_v, _ = self._codes(Xv)
-            Yv = self._targets(validate_targets(
-                eval_set[1], loss=cfg.loss, n_rows=Xv.shape[0],
-                where="eval_set y"))
-            Fv = self.base_score.expand(Xv.shape[0], d).contiguous()
+            yv = (validate_targets(eval_set[1], loss=cfg.loss,
+                                   n_rows=Xv.shape[0], where="eval_set y")
+                  if check_input else eval_set[1])
+            Yv = self._targets(yv)
+            if state is not None:
+                if state.Fv is None:
+                    raise ValueError(
+                        "resume_from checkpoint was saved without an eval "
+                        "set but fit() got one; the early-stopping "
+                        "trajectory cannot be reconstructed — drop eval_set "
+                        "or refit from scratch")
+                if tuple(state.Fv.shape) != (Xv.shape[0], d):
+                    raise ValueError(
+                        f"resume_from checkpoint holds eval scores of shape "
+                        f"{tuple(state.Fv.shape)} but eval_set gives "
+                        f"({Xv.shape[0]}, {d}); resume must use the same "
+                        "eval set")
+                Fv = state.Fv.to(self.device, torch.float32).contiguous()
+            else:
+                Fv = self.base_score.expand(Xv.shape[0], d).contiguous()
+        elif state is not None and state.Fv is not None:
+            raise ValueError(
+                "resume_from checkpoint carries eval scores but fit() got "
+                "no eval_set; pass the same eval_set so early stopping "
+                "replays bit-identically")
 
-        trees: List[T.Tree] = []
-        best_loss, best_round = np.inf, -1
-        self.history = []
+        if state is not None:
+            self._resume_generator(gen, state, cfg, sketch_mats,
+                                   sample_draws, feature_draws)
+            start, trees = state.round, T.unstack_trees(state.trees)
+            best_loss, best_round = state.best_loss, state.best_round
+            self.history = list(state.history)
+        else:
+            start, trees, best_loss, best_round = 0, [], np.inf, -1
+            self.history = []
+        saver = self._make_saver(cfg, has_eval, gen)
+        run_cfg = cfg.strip_io()
         t0 = time.perf_counter()
-        for it in range(cfg.n_trees):
-            draw = (None if sketch_mats is None
-                    else np.array(sketch_mats[it], np.float32))
-            tree = boost_round(F, codes, codes_t, Y, cfg, draw=draw,
-                               generator=gen)
+        for it in range(start, cfg.n_trees):
+            CH.check_round_all(chaos, it)
+            Y = _chaos_mutate(chaos, Y, it)
+            tree = boost_round(
+                F, codes, codes_t, Y, run_cfg,
+                draw=_round_draw(sketch_mats, it), generator=gen,
+                sample_draw=_round_draw(sample_draws, it),
+                feature_draw=_round_draw(feature_draws, it))
+            if cfg.guard_policy == "raise":
+                GU.check_scores_host(F, it)
             trees.append(tree)
             rec = {"round": it, "train_time_s": time.perf_counter() - t0}
             if has_eval:
@@ -309,6 +503,9 @@ class SketchBoost:
                               f"(best {best_loss:.5f} @ {best_round})")
                     break
             self.history.append(rec)
+            if saver is not None and (it + 1) % cfg.save_every == 0:
+                saver(it + 1, trees, F, Fv, best_loss, best_round,
+                      list(self.history))
             if verbose and it % 20 == 0:
                 msg = f"[sketchboost] round {it}"
                 if "valid_loss" in rec:
@@ -320,12 +517,71 @@ class SketchBoost:
         self.best_round = best_round if best_round >= 0 else len(trees) - 1
         self.cfg = cfg
         self.forest = T.stack_trees(trees)
-        self.packed = FO.pack_forest(
-            self.forest, self.base_score, cfg.learning_rate,
-            strategy=cfg.strategy,
-            max_depth=cfg.depth if cfg.growth == "leafwise" else None)
+        self.packed = self._pack(self.forest, cfg)
         self._path_pack = None
         return self
+
+    def _pack(self, forest, cfg: GBDTConfig) -> FO.PackedForest:
+        return FO.pack_forest(
+            forest, self.base_score, cfg.learning_rate,
+            strategy=cfg.strategy,
+            max_depth=cfg.depth if cfg.growth == "leafwise" else None)
+
+    def _resume_generator(self, gen: torch.Generator, state,
+                          cfg: GBDTConfig, sketch_mats, sample_draws,
+                          feature_draws) -> None:
+        """Put the fit's generator where the checkpointed run's was at its
+        round boundary.  A step the JAX package wrote holds a threefry key
+        instead, which torch cannot continue: such a step resumes only with
+        every draw the remaining rounds make injected."""
+        if state.generator is not None:
+            if state.generator_device != self.device.type:
+                raise ValueError(
+                    f"resume_from checkpoint holds the draws' generator of "
+                    f"a fit on {state.generator_device!r}, but this fit runs "
+                    f"on {self.device.type!r}; resume on the device that "
+                    "wrote it")
+            gen.set_state(state.generator)
+            return
+        missing = [name for name, needed, given in (
+            ("sketch_mats", _draws_sketch(cfg), sketch_mats),
+            ("sample_draws", _draws_rows(cfg), sample_draws),
+            ("feature_draws", cfg.colsample < 1.0, feature_draws))
+            if needed and given is None]
+        if missing and state.round < cfg.n_trees:
+            raise ValueError(
+                f"resume_from checkpoint under {cfg.resume_from!r} was "
+                "written by the JAX package: it holds a threefry key "
+                "('train/key') and no 'train/generator', and torch cannot "
+                "continue a threefry stream; pass the remaining rounds' "
+                f"draws ({', '.join(missing)}) to fit()")
+
+    def _make_saver(self, cfg: GBDTConfig, has_eval: bool,
+                    gen: torch.Generator):
+        """Round-boundary checkpoint closure (None when checkpointing is
+        off).  Every save is a format-v4 step: the packed serving prefix
+        plus the raw resume state, with the generator's state at the
+        boundary under ``train/generator``."""
+        if not (cfg.save_every > 0 and cfg.ckpt_dir):
+            return None
+        from repro_torch.io import checkpoint as CK
+
+        def save(round_done, trees, F, Fv, best_loss, best_round, history):
+            forest = T.stack_trees(trees)
+            packed = self._pack(forest, cfg)
+            meta = _resume_cfg_snapshot(cfg)
+            meta["extra_meta"] = {
+                "best_iteration": int(best_round) + 1 if best_round >= 0
+                else int(round_done)}
+            CK.save_boost_checkpoint(
+                cfg.ckpt_dir, round_done=int(round_done), packed=packed,
+                quantizer=self.quantizer, trees=forest, F=F,
+                Fv=(Fv if has_eval else None), generator=gen,
+                history=history, best_loss=float(best_loss),
+                best_round=int(best_round), cfg_meta=meta,
+                keep_n=cfg.ckpt_keep)
+
+        return save
 
     # -- inference ----------------------------------------------------------
     @property
@@ -410,58 +666,107 @@ class SketchBoost:
                                                      self._targets(y)))
 
 
+def _round_draw(draws: Optional[Sequence], it: int):
+    """Round ``it``'s injected draw, or None."""
+    return None if draws is None else draws[it]
+
+
+def _draw_tensor(draw, device) -> Optional[torch.Tensor]:
+    """An injected draw (numpy array or tensor) as float32 on ``device``."""
+    if draw is None:
+        return None
+    if not torch.is_tensor(draw):
+        draw = torch.from_numpy(np.array(draw, np.float32))
+    return draw.to(device=device, dtype=torch.float32)
+
+
 def boost_round(F: torch.Tensor, codes: torch.Tensor, codes_t: torch.Tensor,
                 Y: torch.Tensor, cfg: GBDTConfig, *,
-                draw: Optional[np.ndarray] = None,
-                generator: Optional[torch.Generator] = None):
-    """One boosting round: gradients -> sketch -> tree -> leaf values,
-    adding the tree's ``lr * value`` to the training scores ``F`` in place.
-    The tree is a heap `tree.Tree` (level-wise) or a `tree.NodeTree`
-    (``growth="leafwise"``); under ``strategy="one_vs_all"`` its fields
-    carry a leading axis of the d univariate trees (no sketch).
+                draw=None, generator: Optional[torch.Generator] = None,
+                sample_draw=None, feature_draw=None):
+    """One boosting round: gradients -> guards -> sample weights and
+    feature mask -> sketch -> tree -> leaf values, adding the tree's ``lr *
+    value`` to the training scores ``F`` in place.  The tree is a heap
+    `tree.Tree` (level-wise) or a `tree.NodeTree` (``growth="leafwise"``);
+    under ``strategy="one_vs_all"`` its fields carry a leading axis of the
+    d univariate trees (no sketch).
 
-    ``draw`` is this round's sketch draw (see `SketchBoost.fit`), else it
-    is drawn from ``generator``.  Sample weights are all ones in this
-    slice, so the count channel is ones and ``G * w`` is ``G``.
+    ``draw``, ``sample_draw`` and ``feature_draw`` are this round's sketch
+    draw, row uniforms (n,) and feature uniforms (m,) (see
+    `SketchBoost.fit`); a draw the round needs and is not given comes from
+    ``generator``: the row uniforms first, then the feature uniforms, then
+    the sketch's.  Under ``guard_policy="skip_round"`` a round that met a
+    non-finite value has its leaf values and gains multiplied by 0 (a
+    device flag: no host read), so F is unchanged.
     """
     loss = L.get_loss(cfg.loss)
+    device = F.device
     G, Hd = loss.grad_hess(F, Y)
+    G, Hd, bad = GU.guard_grad_hess(G, Hd, cfg.guard_policy, cfg.guard_clip,
+                                    cfg.hessian_floor)
+    n, m = codes.shape
+    u_rows = _draw_tensor(sample_draw, device)
+    if u_rows is None and _draws_rows(cfg):
+        u_rows = torch.rand((n,), generator=generator, dtype=torch.float32,
+                            device=device)
+    w = _sample_weights(G, cfg, u_rows)
+    del u_rows
+    u_feat = _draw_tensor(feature_draw, device)
+    if u_feat is None and cfg.colsample < 1.0:
+        u_feat = torch.rand((m,), generator=generator, dtype=torch.float32,
+                            device=device)
+    fmask = _feature_mask(cfg, u_feat)
     if cfg.strategy == "one_vs_all":
-        return _one_vs_all_round(F, codes, codes_t, G, Hd, cfg)
-    draw_t = None if draw is None else torch.as_tensor(draw, device=F.device)
-    Gk = SK.build_sketch(G, method=cfg.sketch_method, k=cfg.sketch_k,
-                         draw=draw_t, generator=generator)
-    ones = torch.ones((F.shape[0], 1), dtype=torch.float32, device=F.device)
-    stats = torch.cat([Gk, ones], 1)
-    del Gk
+        return _one_vs_all_round(F, codes, codes_t, G, Hd, cfg, w, fmask,
+                                 bad)
+    Gk = SK.build_sketch(G if w is None else G * w[:, None],
+                         method=cfg.sketch_method, k=cfg.sketch_k,
+                         draw=_draw_tensor(draw, device),
+                         generator=generator)
+    count = (torch.ones((n, 1), dtype=torch.float32, device=device)
+             if w is None else w[:, None])
+    stats = torch.cat([Gk, count], 1)
+    del Gk, count
+    # Again after the sketch: a projection can overflow on its own.
+    stats, bad = GU.guard_stats(stats, cfg.guard_policy, cfg.guard_clip, bad)
     kw = dict(depth=cfg.depth, n_bins=cfg.n_bins, lam=cfg.lambda_l2,
               min_data_in_leaf=cfg.min_data_in_leaf, min_gain=cfg.min_gain,
-              hist_dtype=cfg.hist_dtype)
+              feature_mask=fmask, hist_dtype=cfg.hist_dtype, weights=w)
     if cfg.growth == "leafwise":
         tree, leaf_pos = T.grow_tree_leafwise(
             codes, codes_t, stats, G, Hd, max_leaves=cfg.max_leaves, **kw)
     else:
         tree, leaf_pos = T.grow_tree(codes, codes_t, stats, G, Hd,
                                      hist_engine=cfg.hist_engine, **kw)
-    del G, Hd, stats
+    del G, Hd, stats, w
+    if cfg.guard_policy == "skip_round":
+        scale = GU.skip_scale(bad, cfg.guard_policy, device)
+        tree = tree._replace(value=tree.value * scale,
+                             gain=tree.gain * scale)
     contrib = tree.value[leaf_pos.long()]
     contrib.mul_(torch.tensor(cfg.learning_rate, dtype=torch.float32,
-                              device=F.device))      # lr * v, then the add
+                              device=device))        # lr * v, then the add
     F.add_(contrib)
     return tree
 
 
 def _one_vs_all_round(F: torch.Tensor, codes: torch.Tensor,
                       codes_t: torch.Tensor, G: torch.Tensor,
-                      Hd: torch.Tensor, cfg: GBDTConfig):
-    """A one-vs-all round: output j's univariate tree grows from ``g_j``
-    and ``h_j``, the outputs in groups (`tree.ova_groups`), and each
+                      Hd: torch.Tensor, cfg: GBDTConfig,
+                      w: Optional[torch.Tensor] = None,
+                      fmask: Optional[torch.Tensor] = None, bad=None):
+    """A one-vs-all round: output j's univariate tree grows from ``g_j w``,
+    ``w`` and ``h_j``, the outputs in groups (`tree.ova_groups`), and each
     group's ``lr * value`` is added to its columns of ``F`` (two
-    roundings, as the reference's ``F + lr * delta.T``).  Returns the
-    round's trees, fields ``(d, ...)``."""
+    roundings, as the reference's ``F + lr * delta.T``).  Under
+    ``skip_round`` a round that met a non-finite value zeroes every
+    output's tree (the statistics are the sanitized gradients: no sketch
+    to check again).  Returns the round's trees, fields ``(d, ...)``."""
     n, d = G.shape
     lr = torch.tensor(cfg.learning_rate, dtype=torch.float32,
                       device=F.device)
+    scale = (GU.skip_scale(bad, cfg.guard_policy, F.device)
+             if cfg.guard_policy == "skip_round" else None)
     parts = []
     for t0, t1 in T.ova_groups(d, n):
         tree, leaf_pos = T.grow_trees(
@@ -469,7 +774,11 @@ def _one_vs_all_round(F: torch.Tensor, codes: torch.Tensor,
             hist_engine=cfg.hist_engine, depth=cfg.depth,
             max_leaves=cfg.max_leaves, n_bins=cfg.n_bins,
             lam=cfg.lambda_l2, min_data_in_leaf=cfg.min_data_in_leaf,
-            min_gain=cfg.min_gain, hist_dtype=cfg.hist_dtype)
+            min_gain=cfg.min_gain, feature_mask=fmask,
+            hist_dtype=cfg.hist_dtype, weights=w)
+        if scale is not None:
+            tree = tree._replace(value=tree.value * scale,
+                                 gain=tree.gain * scale)
         contrib = tree.value[..., 0].gather(1, leaf_pos.long())
         del leaf_pos
         contrib.mul_(lr)                       # lr * v, then the add

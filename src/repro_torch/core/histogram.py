@@ -28,7 +28,7 @@ partition.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -200,27 +200,42 @@ def interleave_children(side: torch.Tensor, built: torch.Tensor,
 
 
 def leaf_sums(leaf_pos: torch.Tensor, G: torch.Tensor, H: torch.Tensor, *,
-              n_leaves: int):
+              n_leaves: int, weights: Optional[torch.Tensor] = None):
     """Per-leaf full-gradient sums for the leaf-value pass (eq. (3)).
 
     Rows are grouped by a stable sort of ``leaf_pos`` and each leaf's rows
     summed with one reduction, so the result is the same run to run on
-    every device (a scatter-add on CUDA would not be).  Returns
-    ``(G_sum, H_sum, counts)``: (n_leaves, d), (n_leaves, d), (n_leaves,).
+    every device (a scatter-add on CUDA would not be).  With ``weights``
+    (n,) (SGB/GOSS) the sums are of ``G * w`` and ``H * w``, each product
+    rounded once as the reference's, and a leaf's cover is the sum of its
+    rows' weights.  Returns ``(G_sum, H_sum, cover)``: (n_leaves, d),
+    (n_leaves, d), (n_leaves,) float32 (row counts without weights).
     """
     d = G.shape[1]
     perm = torch.sort(leaf_pos.long(), stable=True).indices
     counts = torch.bincount(leaf_pos.long(), minlength=n_leaves)
     gs = torch.zeros((n_leaves, d), dtype=torch.float32, device=G.device)
     hs = torch.zeros_like(gs)
+    cover = (counts.to(torch.float32) if weights is None else
+             torch.zeros(n_leaves, dtype=torch.float32, device=G.device))
     start = 0
     for j, cnt in enumerate(counts.tolist()):
         if cnt:
+            # One gathered (rows, d) block alive at a time: a leaf can hold
+            # most of the rows.
             rows = perm[start:start + cnt]
-            gs[j] = G.index_select(0, rows).sum(0)
-            hs[j] = H.index_select(0, rows).sum(0)
+            w = (None if weights is None
+                 else weights.index_select(0, rows)[:, None])
+            for src, out in ((G, gs), (H, hs)):
+                block = src.index_select(0, rows)
+                if w is not None:
+                    block.mul_(w)
+                out[j] = block.sum(0)
+                del block
+            if w is not None:
+                cover[j] = w.sum()
         start += cnt
-    return gs, hs, counts
+    return gs, hs, cover
 
 
 # Rows a chunk of `segment_sums`.

@@ -4,6 +4,13 @@ Port of the JAX package's ``core/split.py``.  ``gain = 0.5 * (S(R_l) +
 S(R_r) - S(R_p))`` with ``S(R) = ||sum_R g||^2 / (|R| + lambda)``; the last
 bin, ``min_data`` violations and masked features are illegal (-inf).  The
 arg-max keeps the first maximum over the flattened (feature, bin) axis.
+
+Each ``||.||^2`` sums the channels' squares in float64 and rounds once to
+float32 (`_sq_sum`): the float32 result then does not depend on the order
+of the sum (but in the rare case that two orders' float64 sums straddle a
+float32 rounding boundary), so the card's split scan (B2, which sums them
+in its own order, in float64 too) gives the plain version's gains bit for
+bit at any channel count.
 """
 from __future__ import annotations
 
@@ -19,6 +26,13 @@ class Splits(NamedTuple):
     is_leaf: torch.Tensor  # (nodes,) bool, no positive-gain split found
 
 
+def _sq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over the last axis in float64, rounded once to
+    float32."""
+    xd = x.to(torch.float64)
+    return xd.square_().sum(-1).to(torch.float32)
+
+
 def split_scores(hist: torch.Tensor, lam: float, min_data: float,
                  feature_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(nodes, m, B, k+1) histograms -> (nodes, m, B) gains, -inf where
@@ -28,9 +42,9 @@ def split_scores(hist: torch.Tensor, lam: float, min_data: float,
     gl, cl = csum[..., :-1], csum[..., -1]
     gr = total[..., :-1] - gl
     cr = total[..., -1] - cl
-    s_left = torch.square(gl).sum(-1) / (cl + lam)
-    s_right = torch.square(gr).sum(-1) / (cr + lam)
-    s_parent = torch.square(total[..., :-1]).sum(-1) / (total[..., -1] + lam)
+    s_left = _sq_sum(gl) / (cl + lam)
+    s_right = _sq_sum(gr) / (cr + lam)
+    s_parent = _sq_sum(total[..., :-1]) / (total[..., -1] + lam)
     gain = 0.5 * (s_left + s_right - s_parent)
     B = hist.shape[2]
     legal = (torch.arange(B, device=hist.device) < B - 1)[None, None, :]

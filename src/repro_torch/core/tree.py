@@ -6,9 +6,11 @@ A level-wise tree of depth D is a perfect heap: internal nodes ``0 ..
 2^D - 2`` (level ``l`` at ``[2^l - 1, 2^(l+1) - 1)``) and leaves ``0 ..
 2^D - 1``.  Rows that reach a no-split node go left.  A leaf-wise tree is
 a `NodeTree` of ``2 * max_leaves - 1`` node slots numbered in creation
-order.  The split search reads the sketched statistics ``[G_k | 1]``; leaf
-values use the full gradients (eq. (3)): ``v_j = - sum_i g_i / (sum_i h_i
-+ lambda)``.
+order.  The split search reads the sketched statistics ``[G_k | w]``, ``w``
+the rows' sample weights (SGB/GOSS; all ones without row sampling) in the
+count channel; leaf values use the full gradients (eq. (3)): ``v_j = -
+sum_i w_i g_i / (sum_i w_i h_i + lambda)``, and a leaf's cover is the sum
+of its rows' weights.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ class Tree(NamedTuple):
     thr: torch.Tensor      # (2^D - 1,) int32, go left if code <= thr
     value: torch.Tensor    # (2^D, d) float32 leaf values
     gain: torch.Tensor     # (2^D - 1,) float32
-    cover: Optional[torch.Tensor] = None   # (2^D,) train rows per leaf
+    cover: Optional[torch.Tensor] = None   # (2^D,) weighted rows per leaf
 
     @property
     def depth(self) -> int:
@@ -66,7 +68,7 @@ class NodeTree(NamedTuple):
     right: torch.Tensor       # (N,) int32
     value: torch.Tensor       # (N, d) float32 leaf values, 0 on internal
     gain: torch.Tensor        # (N,) float32 split gains, 0 on leaves
-    cover: torch.Tensor       # (N,) float32 train rows through each node
+    cover: torch.Tensor       # (N,) float32 weighted rows through each node
     node_count: torch.Tensor  # () int32 slots used
 
     @property
@@ -89,6 +91,14 @@ def stack_trees(trees):
     return Forest(*stacked)
 
 
+def unstack_trees(stacked):
+    """The rounds' trees of a stacked `Forest` or `NodeTree` (the inverse
+    of `stack_trees`): a `Tree` or `NodeTree` a round."""
+    cls = NodeTree if isinstance(stacked, NodeTree) else Tree
+    return [cls(*[None if f is None else f[i] for f in stacked])
+            for i in range(stacked.feat.shape[0])]
+
+
 def route_bits(codes: torch.Tensor, node_pos: torch.Tensor,
                feat: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     """Per-row routing bit at the current level: ``[code > thr]``.
@@ -103,12 +113,15 @@ def grow_tree(codes: torch.Tensor, codes_t: torch.Tensor,
               depth: int, n_bins: int, lam: float,
               min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
               feature_mask: Optional[torch.Tensor] = None,
-              hist_engine: str = "auto", hist_dtype: str = "float32"):
+              hist_engine: str = "auto", hist_dtype: str = "float32",
+              weights: Optional[torch.Tensor] = None):
     """Grow one multivariate tree level by level.
 
     ``codes`` (n, m) and ``codes_t`` (m, n) are the same uint8 codes in
     both layouts; ``stats`` (n, k+1) the sketched gradients and the count
-    channel; ``G``/``H_diag`` (n, d) the full gradients for the leaf pass.
+    channel; ``G``/``H_diag`` (n, d) the full gradients for the leaf pass;
+    ``weights`` (n,) the rows' sample weights (the count channel), None
+    for all ones; ``feature_mask`` (m,) bool, None for every feature.
     ``hist_engine`` (`histogram.resolve_hist_engine`) picks each level's
     step: ``"direct"`` runs `ops.histogram_splits` on the rows in dataset
     order (B4, then B2) and keeps no partition; ``"partition"`` and
@@ -157,13 +170,10 @@ def grow_tree(codes: torch.Tensor, codes_t: torch.Tensor,
         if state is not None and lvl < depth - 1:
             state = H.advance_level_state(state, bits)
 
-    # Sample weights are all ones in this slice (no SGB/GOSS), so the
-    # reference's ``G * w`` / ``H * w`` are G and H themselves.
-    g_sum, h_sum, counts = H.leaf_sums(node_pos, G, H_diag,
-                                       n_leaves=2 ** depth)
+    g_sum, h_sum, cover = H.leaf_sums(node_pos, G, H_diag,
+                                      n_leaves=2 ** depth, weights=weights)
     value = -g_sum / (h_sum + lam)
-    tree = Tree(feat=feat, thr=thr, value=value, gain=gain,
-                cover=counts.to(torch.float32))
+    tree = Tree(feat=feat, thr=thr, value=value, gain=gain, cover=cover)
     return tree, node_pos
 
 
@@ -173,7 +183,8 @@ def grow_tree_leafwise(codes: torch.Tensor, codes_t: torch.Tensor,
                        n_bins: int, lam: float,
                        min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
                        feature_mask: Optional[torch.Tensor] = None,
-                       hist_dtype: str = "float32"):
+                       hist_dtype: str = "float32",
+                       weights: Optional[torch.Tensor] = None):
     """Grow one multivariate tree leaf-wise (best-first).
 
     Each step expands the frontier leaf with the highest pending split gain
@@ -195,6 +206,8 @@ def grow_tree_leafwise(codes: torch.Tensor, codes_t: torch.Tensor,
     built/derived histograms are those of the level-wise ``"subtract"``
     engine, so with ``max_leaves = 2^depth`` and every node splitting the
     two growers give the same leaves, bit for bit.
+    The partition's row counts (which child is built) are unweighted, as
+    the reference's are; leaf sums and covers are weighted by ``weights``.
     Returns ``(NodeTree, leaf_pos)``, ``leaf_pos`` the (n,) int32 terminal
     node of each row.
     """
@@ -265,14 +278,14 @@ def grow_tree_leafwise(codes: torch.Tensor, codes_t: torch.Tensor,
 
     leaf_pos = torch.empty(n, dtype=torch.int32, device=device)
     leaf_pos[part.order.long()] = part.node_perm
-    # Sample weights are all ones in this slice: ``G * w`` is G.
-    g_sum, h_sum, counts = H.leaf_sums(leaf_pos, G, H_diag, n_leaves=N)
+    g_sum, h_sum, cover_leaf = H.leaf_sums(leaf_pos, G, H_diag, n_leaves=N,
+                                           weights=weights)
     is_term = torch.from_numpy(left == np.arange(N)).to(device)
     value = torch.where(is_term[:, None], -g_sum / (h_sum + lam),
                         torch.zeros((), device=device))
     # Covers bottom-up: children carry larger ids, so one reverse sweep
     # makes every internal cover the sum of its children's.
-    cover = counts.cpu().numpy().astype(np.float32)
+    cover = cover_leaf.cpu().numpy()
     for j in range(N - 1, -1, -1):
         if left[j] != j:
             cover[j] = cover[left[j]] + cover[right[j]]
@@ -339,14 +352,31 @@ def _flat_index(major: torch.Tensor, minor: torch.Tensor, n: int,
     return major.long() * n + minor.long()
 
 
-def _entry_stats(g_h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """A univariate tree's split statistics ``[g, 1]`` in partition order
-    (sample weights are all ones in this slice), in ``g_h``'s type."""
+def _entry_stats(g_h: torch.Tensor, idx: torch.Tensor,
+                 w_h: Optional[torch.Tensor],
+                 rows: torch.Tensor) -> torch.Tensor:
+    """A univariate tree's split statistics ``[g w, w]`` in partition order,
+    in ``g_h``'s type: ``g_h`` the (trees * n) products ``g w`` and ``idx``
+    each entry's index into them; ``w_h`` the (n,) weights (None: all
+    ones) and ``rows`` each entry's row."""
     stats_p = torch.empty((idx.shape[0], 2), dtype=g_h.dtype,
                           device=g_h.device)
     stats_p[:, 0] = g_h.index_select(0, idx)
-    stats_p[:, 1] = 1.0
+    if w_h is None:
+        stats_p[:, 1] = 1.0
+    else:
+        stats_p[:, 1] = w_h.index_select(0, rows)
     return stats_p
+
+
+def _flat_weighted(X: torch.Tensor,
+                   weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """The one-vs-all growers' flat (trees * n) ``x w`` of an (n, trees)
+    tensor, tree t's in ``[t * n, (t + 1) * n)``: the reference's ``g_j *
+    w`` (or ``H_t * w``), one rounding each."""
+    if weights is not None:
+        X = X * weights[:, None]
+    return X.t().contiguous().reshape(-1)
 
 
 def _route(codes_t: torch.Tensor, order: torch.Tensor, node: torch.Tensor,
@@ -359,14 +389,17 @@ def _route(codes_t: torch.Tensor, order: torch.Tensor, node: torch.Tensor,
     return code > thr.to(torch.uint8).index_select(0, node)
 
 
-def _leaf_sums(g_flat, h_flat, idx, lengths):
+def _leaf_sums(g_flat, h_flat, idx, lengths, weights=None, rows=None):
     """Leaf sums of one-vs-all trees over their final partition, segment
     ``s`` the next ``lengths[s]`` entries (`histogram.segment_sums`):
-    ``(n_segments, 2)``, the sums of g and of h.  ``idx`` is each entry's
-    index into the ``(trees, n)`` gradients."""
-    return H.segment_sums(torch.stack([g_flat.index_select(0, idx),
-                                       h_flat.index_select(0, idx)], 1),
-                          lengths)
+    ``(n_segments, 2)``, the sums of g w and of h w, or with ``weights``
+    ``(n_segments, 3)``, the third column the sum of w (the cover).
+    ``idx`` is each entry's index into the ``(trees, n)`` products,
+    ``rows`` its row."""
+    cols = [g_flat.index_select(0, idx), h_flat.index_select(0, idx)]
+    if weights is not None:
+        cols.append(weights.index_select(0, rows))
+    return H.segment_sums(torch.stack(cols, 1), lengths)
 
 
 def grow_trees_levelwise(codes_t: torch.Tensor, G: torch.Tensor,
@@ -375,13 +408,15 @@ def grow_trees_levelwise(codes_t: torch.Tensor, G: torch.Tensor,
                          min_gain: float = 0.0,
                          feature_mask: Optional[torch.Tensor] = None,
                          subtract: bool = True,
-                         hist_dtype: str = "float32"):
+                         hist_dtype: str = "float32",
+                         weights: Optional[torch.Tensor] = None):
     """Grow one univariate tree per column of ``G`` level by level, all in
     one partition (the ``"partition"`` engine, or ``"subtract"`` with
     ``subtract``).
 
-    ``G``/``H_diag`` (n, trees): tree t's split statistics are ``[g_t,
-    1]`` and its leaf pass sums ``g_t`` and ``h_t``.  The trees share one
+    ``G``/``H_diag`` (n, trees), ``weights`` (n,) or None (all ones):
+    tree t's split statistics are ``[g_t w, w]`` and its leaf pass sums
+    ``g_t w``, ``h_t w`` and (the cover) ``w``.  The trees share one
     `histogram.LevelState` over ``trees * n`` entries, tree t's in the
     block ``[t * n, (t + 1) * n)``, node ``t * 2^l + v`` at level l; each
     level gathers the statistics in partition order once, runs one B1 (or
@@ -402,13 +437,14 @@ def grow_trees_levelwise(codes_t: torch.Tensor, G: torch.Tensor,
                      device=device)
     gain = torch.zeros((trees, heap), dtype=torch.float32, device=device)
     entries = trees * n
-    g_flat = G.t().contiguous().reshape(-1)       # entry t*n + i: G[i, t]
+    g_flat = _flat_weighted(G, weights)           # entry t*n + i: [i, t]
     g_h = ops.stats_for(g_flat, hist_dtype)
+    w_h = None if weights is None else ops.stats_for(weights, hist_dtype)
     state = H.init_level_state(n, device=device, trees=trees)
     prev_hist = None
     for lvl in range(depth):
         idx = _flat_index(state.node_perm >> lvl, state.order, n, entries)
-        stats_p = _entry_stats(g_h, idx)
+        stats_p = _entry_stats(g_h, idx, w_h, state.order)
         del idx
         best_gain, best_idx, hist = ops.histogram_splits_partitioned(
             codes_t, stats_p, state.order, state.counts, prev_hist, lam, min_data_in_leaf,
@@ -427,14 +463,15 @@ def grow_trees_levelwise(codes_t: torch.Tensor, G: torch.Tensor,
         del bits
     del prev_hist
     idx = _flat_index(state.node_perm >> depth, state.order, n, entries)
-    sums = _leaf_sums(g_flat, H_diag.t().contiguous().reshape(-1), idx,
-                      state.counts)
+    sums = _leaf_sums(g_flat, _flat_weighted(H_diag, weights), idx,
+                      state.counts, weights, state.order)
     value = -sums[:, 0] / (sums[:, 1] + lam)
+    cover = (state.counts.to(torch.float32) if weights is None
+             else sums[:, 2])
     leaf_pos = torch.empty(trees * n, dtype=torch.int32, device=device)
     leaf_pos[idx] = state.node_perm & (2 ** depth - 1)
     tree = Tree(feat=feat, thr=thr, value=value.reshape(trees, -1, 1),
-                gain=gain,
-                cover=state.counts.to(torch.float32).reshape(trees, -1))
+                gain=gain, cover=cover.reshape(trees, -1))
     return tree, leaf_pos.reshape(trees, n)
 
 
@@ -471,11 +508,13 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
                         n_bins: int, lam: float,
                         min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
                         feature_mask: Optional[torch.Tensor] = None,
-                        hist_dtype: str = "float32"):
+                        hist_dtype: str = "float32",
+                        weights: Optional[torch.Tensor] = None):
     """Grow one univariate tree per column of ``G`` leaf-wise, in lockstep.
 
-    Each tree's steps are `grow_tree_leafwise`'s on statistics ``[g_t,
-    1]``: the first arg-max pending leaf expands while its gain is above
+    Each tree's steps are `grow_tree_leafwise`'s on statistics ``[g_t w,
+    w]`` (``weights`` None: all ones; the partition's counts stay
+    unweighted): the first arg-max pending leaf expands while its gain is above
     ``min_gain``, children at ``depth`` are not expandable, the smaller
     child (ties: the left) is built and its sibling derived from the
     parent's pooled histogram.  The trees go together: at each step every
@@ -498,8 +537,9 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
     N = 2 * max_leaves - 1
     gate = np.float32(min_gain)
     entries = trees * n
-    g_flat = G.t().contiguous().reshape(-1)
+    g_flat = _flat_weighted(G, weights)
     g_h = ops.stats_for(g_flat, hist_dtype)
+    w_h = None if weights is None else ops.stats_for(weights, hist_dtype)
     order = torch.arange(n, dtype=torch.int32, device=device).repeat(trees)
 
     def build(starts, counts, total):
@@ -507,7 +547,8 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
         entries in all), one B1 launch."""
         pos, _, _ = _segments(starts, counts, total, entries)
         rows = order.index_select(0, pos)
-        stats_p = _entry_stats(g_h, _flat_index(pos // n, rows, n, entries))
+        stats_p = _entry_stats(g_h, _flat_index(pos // n, rows, n, entries),
+                               w_h, rows)
         cnt = counts.to(torch.int32)
         return hist_kernel.hist_nodes(codes_t, rows, stats_p, cnt, cnt,
                                       n_bins=n_bins, hist_dtype=hist_dtype)
@@ -619,9 +660,10 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
     idx = _flat_index(torch.repeat_interleave(up[1], lengths,
                                               output_size=entries),
                       order, n, entries)
-    sums = torch.zeros((trees * N, 2), dtype=torch.float32, device=device)
-    sums[up[3]] = _leaf_sums(g_flat, H_diag.t().contiguous().reshape(-1),
-                             idx, lengths)
+    sums = torch.zeros((trees * N, 2 if weights is None else 3),
+                       dtype=torch.float32, device=device)
+    sums[up[3]] = _leaf_sums(g_flat, _flat_weighted(H_diag, weights), idx,
+                             lengths, weights, order)
     is_term_d = _upload([is_term.reshape(-1)], device)[0].bool()
     value = torch.where(is_term_d, -sums[:, 0] / (sums[:, 1] + lam),
                         torch.zeros((), device=device))
@@ -629,7 +671,8 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
     leaf_pos[idx] = torch.repeat_interleave(up[2].to(torch.int32), lengths,
                                             output_size=entries)
     # Covers bottom-up, as `grow_tree_leafwise` sweeps them.
-    cover = counts.astype(np.float32)
+    cover = (counts.astype(np.float32) if weights is None
+             else sums[:, 2].reshape(trees, N).cpu().numpy())
     rows_t = np.arange(trees)
     for j in range(N - 1, -1, -1):
         inner = left[:, j] != j
@@ -650,9 +693,11 @@ def grow_trees(codes: torch.Tensor, codes_t: torch.Tensor, G: torch.Tensor,
                depth: int, max_leaves: int, n_bins: int, lam: float,
                min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
                feature_mask: Optional[torch.Tensor] = None,
-               hist_dtype: str = "float32"):
+               hist_dtype: str = "float32",
+               weights: Optional[torch.Tensor] = None):
     """The univariate trees of one group of one-vs-all outputs (``G``,
-    ``H_diag`` (n, trees)): `grow_trees_leafwise` for ``growth=
+    ``H_diag`` (n, trees); ``weights`` (n,) the rows' sample weights, None
+    for all ones): `grow_trees_leafwise` for ``growth=
     "leafwise"``, `grow_trees_levelwise` for the partitioned engines, and
     for ``"direct"`` `grow_tree` one tree at a time (B4 bins rows in
     dataset order from one node position a row, so it takes no shared
@@ -660,7 +705,8 @@ def grow_trees(codes: torch.Tensor, codes_t: torch.Tensor, G: torch.Tensor,
     leaf_pos)`` with a leading ``trees`` axis."""
     kw = dict(depth=depth, n_bins=n_bins, lam=lam,
               min_data_in_leaf=min_data_in_leaf, min_gain=min_gain,
-              feature_mask=feature_mask, hist_dtype=hist_dtype)
+              feature_mask=feature_mask, hist_dtype=hist_dtype,
+              weights=weights)
     if growth == "leafwise":
         return grow_trees_leafwise(codes_t, G, H_diag, max_leaves=max_leaves,
                                    **kw)
@@ -668,8 +714,10 @@ def grow_trees(codes: torch.Tensor, codes_t: torch.Tensor, G: torch.Tensor,
     if engine != "direct":
         return grow_trees_levelwise(codes_t, G, H_diag,
                                     subtract=engine == "subtract", **kw)
-    ones = torch.ones((G.shape[0], 1), dtype=torch.float32, device=G.device)
-    out = [grow_tree(codes, codes_t, torch.cat([G[:, t:t + 1], ones], 1),
+    w = (torch.ones((G.shape[0], 1), dtype=torch.float32, device=G.device)
+         if weights is None else weights[:, None])
+    gw = G if weights is None else G * w
+    out = [grow_tree(codes, codes_t, torch.cat([gw[:, t:t + 1], w], 1),
                      G[:, t:t + 1], H_diag[:, t:t + 1], hist_engine="direct",
                      **kw) for t in range(G.shape[1])]
     trees, pos = zip(*out)

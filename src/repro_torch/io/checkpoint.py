@@ -1,7 +1,8 @@
 """Checkpoints: atomic, optionally asynchronous, in the JAX package's format.
 
-Port of the JAX package's ``io/checkpoint.py`` (`CheckpointManager` and the
-serving-forest half).  The format needs no framework: each step is one
+Port of the JAX package's ``io/checkpoint.py``: `CheckpointManager`, the
+serving-forest steps and the resumable training steps (format v4's
+``train/*`` subtree).  The format needs no framework: each step is one
 ``state.npz`` of flattened arrays plus a ``manifest.json`` (step, keys,
 metadata), so either package reads what the other writes.  Keys are the
 ``/``-joined paths of nested dicts, taken in sorted key order as JAX
@@ -23,7 +24,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,14 +73,16 @@ def _to_host(v) -> Tuple[np.ndarray, Optional[str]]:
 
 
 def _from_host(arr: np.ndarray, dtype: Optional[str]) -> torch.Tensor:
+    # ascontiguousarray makes a 0-d array 1-d: keep the stored shape.
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if dtype is None:
-        return torch.from_numpy(np.ascontiguousarray(arr))
+        return torch.from_numpy(arr)
     target = getattr(torch, dtype, None)
     if not isinstance(target, torch.dtype):
         raise ValueError(f"checkpoint holds dtype {dtype!r}, which torch "
                          "has no dtype for")
     size = arr.dtype.itemsize
-    ints = np.ascontiguousarray(arr).view(_VIEW_UINT[size]).view(
+    ints = arr.view(_VIEW_UINT[size]).view(
         np.dtype(f"int{8 * size}"))
     return torch.from_numpy(ints).view(target)
 
@@ -233,6 +236,22 @@ class CheckpointManager:
                                   "state.npz")) as data:
             return {k: _from_host(data[k], dtypes.get(k)) for k in keys}
 
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None, *, device=None) -> Tuple[Any, int]:
+        """Restore into the structure of ``like`` (nested dicts, lists and
+        tuples; its leaves are replaced) as tensors on ``device`` (the
+        device rule: CUDA unless named).  ``shardings`` re-lays a restored
+        state onto a mesh, which comes with the distributed slice."""
+        if shardings is not None:
+            raise NotImplementedError(
+                "CheckpointManager.restore(shardings=...) is not ported yet: "
+                "it comes with the distributed slice of repro_torch")
+        device = resolve_device(device)
+        step = self._resolve(step)
+        arrays = self.read(step, [k for k, _ in _flatten(like)])
+        leaves = iter(arrays[k].to(device) for k, _ in _flatten(like))
+        return _unflatten(like, leaves), step
+
     def restore_raw(self, step: Optional[int] = None
                     ) -> Tuple[Dict[str, torch.Tensor], int]:
         """Template-free restore: ``({flat_key: CPU tensor}, step)``."""
@@ -246,6 +265,22 @@ class CheckpointManager:
         with open(os.path.join(self.root, f"step_{step}",
                                "manifest.json")) as f:
             return json.load(f)
+
+
+def _unflatten(like: Any, leaves) -> Any:
+    """``like`` with its leaves replaced from the iterator ``leaves``, in
+    `_flatten`'s order."""
+    if isinstance(like, dict):
+        out = {k: None for k in like}
+        for k in sorted(like, key=str):
+            out[k] = _unflatten(like[k], leaves)
+        return out
+    if isinstance(like, (list, tuple)):
+        items = [_unflatten(v, leaves) for v in like]
+        if hasattr(like, "_fields"):                  # a NamedTuple
+            return type(like)(*items)
+        return type(like)(items)
+    return next(leaves)
 
 
 def _step_of(name: str) -> Optional[int]:
@@ -332,3 +367,130 @@ def load_forest_checkpoint(root: str, step: Optional[int] = None, *,
         quantizer = Quantizer(edges=arrays["quantizer/edges"].to(device),
                               n_bins=int(arrays["quantizer/n_bins"]))
     return packed, quantizer, meta
+
+
+# ---------------------------------------------------------------------------
+# Training checkpoints (format v4): the serving forest's fields plus the
+# resume state, as the JAX package writes them: ``train/trees/*`` (the raw
+# stacked training trees), ``train/F`` and ``train/Fv`` (raw scores), and in
+# the manifest's ``train`` block the round, the eval history, the
+# early-stopping state and the schedule-critical config.  The JAX package
+# stores its threefry key under ``train/key``; the port stores its draws'
+# generator state under ``train/generator`` (a key of its own: torch cannot
+# continue a threefry stream) and the generator's device type in the
+# ``train`` block.
+# ---------------------------------------------------------------------------
+
+class BoostState(NamedTuple):
+    """Everything a fit needs to resume at a round boundary."""
+    packed: Any               # PackedForest prefix (serving-complete)
+    quantizer: Any            # Quantizer | None
+    trees: Any                # stacked tree.Forest | tree.NodeTree
+    F: torch.Tensor           # (n, d) raw train scores at the boundary
+    Fv: Optional[torch.Tensor]  # (nv, d) eval scores | None
+    generator: Optional[torch.Tensor]  # the port's generator state | None
+    generator_device: Optional[str]    # the device type it belongs to
+    key: Optional[np.ndarray]  # a JAX-written step's raw key data | None
+    round: int                # completed rounds
+    history: List[Dict]       # eval-history records so far
+    best_loss: float          # early-stopping tracker (inf: no eval yet)
+    best_round: int
+    meta: Dict                # the manifest's metadata
+
+
+def save_boost_checkpoint(root: str, *, round_done: int, packed,
+                          quantizer, trees, F, Fv,
+                          generator: torch.Generator, history: List[Dict],
+                          best_loss: float, best_round: int, cfg_meta: Dict,
+                          keep_n: int = 3) -> None:
+    """Write a resumable (and serving-complete) training step.
+
+    ``trees`` is the raw stacked training forest of the completed rounds,
+    stored as it is; ``packed`` the same rounds through
+    `forest.pack_forest`, so `load_forest_checkpoint` and `ForestServer`
+    read the step unchanged.  ``generator`` is the fit's draws' generator
+    AT the round boundary (before the next round draws); its state goes
+    under ``train/generator``.  ``cfg_meta`` is the config snapshot the
+    resuming fit is checked against (``extra_meta`` goes to the manifest's
+    top level)."""
+    forest_dict = {k: v for k, v in packed._asdict().items()
+                   if v is not None and k != "depth"}
+    tree_dict = {k: v for k, v in trees._asdict().items() if v is not None}
+    train: Dict[str, Any] = {"trees": tree_dict, "F": F,
+                             "generator": generator.get_state()}
+    if Fv is not None:
+        train["Fv"] = Fv
+    state: Dict[str, Any] = {"forest": forest_dict, "train": train}
+    if quantizer is not None:
+        state["quantizer"] = {"edges": quantizer.edges,
+                              "n_bins": np.int32(quantizer.n_bins)}
+    meta = dict(cfg_meta.get("extra_meta") or {})
+    meta.update(
+        kind="packed_forest", fields=list(forest_dict),
+        has_quantizer=quantizer is not None, depth=int(packed.depth),
+        format_version=FOREST_FORMAT_VERSION,
+        loss=cfg_meta.get("loss", meta.get("loss")),
+        train={
+            "round": int(round_done),
+            "tree_kind": type(trees).__name__,      # "Forest" | "NodeTree"
+            "tree_fields": list(tree_dict),
+            "has_eval": Fv is not None,
+            "history": history,
+            # JSON has no inf: None encodes "no eval seen yet".
+            "best_loss": (None if not np.isfinite(best_loss)
+                          else float(best_loss)),
+            "best_round": int(best_round),
+            "generator_device": generator.device.type,
+            "cfg": {k: v for k, v in cfg_meta.items() if k != "extra_meta"},
+        })
+    CheckpointManager(root, keep_n=keep_n, async_save=False).save(
+        round_done, state, metadata=meta)
+
+
+def load_boost_checkpoint(root: str, step: Optional[int] = None, *,
+                          device=None) -> BoostState:
+    """Restore a training step onto ``device`` (the device rule): a step
+    `save_boost_checkpoint` wrote, or one the JAX package wrote (its
+    threefry key comes back as ``key``, and ``generator`` is None)."""
+    from repro_torch.core import tree as T
+    from repro_torch.core.forest import PackedForest
+    from repro_torch.core.quantize import Quantizer
+
+    device = resolve_device(device)
+    mgr = CheckpointManager(root, async_save=False)
+    step = mgr._resolve(step)
+    meta = dict(mgr.manifest(step).get("metadata", {}))
+    train_meta = meta.get("train")
+    if meta.get("kind") != "packed_forest" or train_meta is None:
+        raise ValueError(
+            f"checkpoint step_{step} under {root} has no train state "
+            f"(kind={meta.get('kind')!r}, format_version="
+            f"{meta.get('format_version', 1)}): it is a serving-only "
+            "checkpoint and cannot seed a resume — retrain with "
+            "cfg.save_every > 0 to produce resumable (v4) steps")
+    raw, _ = mgr.restore_raw(step)
+    forest = {f: raw[f"forest/{f}"].to(device) for f in meta["fields"]}
+    forest["lr"] = raw["forest/lr"]
+    packed = PackedForest(**forest, depth=int(meta["depth"]))
+    quantizer = None
+    if meta.get("has_quantizer"):
+        quantizer = Quantizer(edges=raw["quantizer/edges"].to(device),
+                              n_bins=int(raw["quantizer/n_bins"]))
+    tree_cls = {"Forest": T.Forest, "NodeTree": T.NodeTree}[
+        train_meta["tree_kind"]]
+    trees = tree_cls(**{f: raw[f"train/trees/{f}"].to(device)
+                        for f in train_meta["tree_fields"]})
+    best = train_meta.get("best_loss")
+    gen = raw.get("train/generator")
+    key = raw.get("train/key")
+    return BoostState(
+        packed=packed, quantizer=quantizer, trees=trees, F=raw["train/F"],
+        Fv=raw.get("train/Fv"),
+        generator=None if gen is None else gen.to(torch.uint8),
+        generator_device=train_meta.get("generator_device"),
+        key=None if key is None else key.numpy(),
+        round=int(train_meta["round"]),
+        history=list(train_meta.get("history", [])),
+        best_loss=(float("inf") if best is None else float(best)),
+        best_round=int(train_meta.get("best_round", -1)),
+        meta=meta)

@@ -34,15 +34,19 @@
 //   2. lane q takes the R = ceil(B / 32) consecutive bins [qR, qR + R) and
 //      scores every bin but the last with right = total - left (the total
 //      is the last bin's left sums), as the plain version does (|G_l|^2 is
-//      the sum over the C - 1 gradient channels of the squared left sums:
-//      the TPU kernel's sum_c s_c^2 - count^2 shortcut,
-//      split_kernel.py:53-60, cancels);
+//      the sum over the C - 1 gradient channels of the squared left sums,
+//      each square exact in double, summed in double and rounded once to
+//      float, as the plain version's `split._sq_sum`: so the float result
+//      is the plain version's whatever the order of the sum; the TPU
+//      kernel's sum_c s_c^2 - count^2 shortcut, split_kernel.py:53-60,
+//      cancels);
 //   3. each lane keeps its first maximum (strict >, bins ascending), and a
 //      shuffle butterfly keeps the larger gain, the lower index on ties.
-// With one gradient channel (C = 2, a one-vs-all tree) every gain is the
-// plain version's, bit for bit.
-// The order of every sum is fixed in the source; the counts are integers,
-// so the min_data tests see the plain version's counts exactly.  A second
+// So every gain is the plain version's on the CPU, bit for bit (but where
+// two orders' double sums straddle a float rounding boundary, a chance of
+// about 2^-20 a sum).  The order of every sum is fixed in the source; the
+// counts (integers, or fractional under row weights) are summed as the
+// plain version sums them, so the min_data tests see its counts exactly.  A second
 // kernel, `split_pick_kernel` (shared with the wide entry point), takes
 // each node's best over its features in ascending order (strict >), so
 // ties go to the lowest index.  No atomics: the result is the same on every
@@ -52,40 +56,43 @@
 // channels, 513 on the paper's configuration) do not fit a thread's
 // registers well (64 channels took 254 registers, 3 warps an SM).  Their
 // entry point, split_scan_wide_launch, runs three kernels and no block
-// barrier a bin:
-//   1. split_wide_scan_kernel: a block of W warps a (node, feature, span of
-//      `chunks` x 32 gradient channels).  The block copies each chunk of
-//      32 channels x B bins into shared memory once, double-buffered, with
-//      4-byte cp.async copies: one instruction copies one bin's 32
-//      channels, 128 contiguous bytes (a bin's row is 4 C bytes, not a
-//      multiple of 16 at odd C; the histogram is read as B1 wrote it).  The
-//      chunk is stored transposed and swizzled so that lane q's bins
-//      [qR, qR + R) sit on their own banks.  Warp w takes 32 / W channels
-//      of every chunk; for each, in order, lane q sums its run of bins,
-//      the runs are joined by a Kogge-Stone scan over the warp (shuffle-up
-//      by 1, 2, 4, 8, 16; a lane's value added after the one it
-//      receives), lane q walks its run again from the runs' sum before it
-//      (the narrow kernel's first design: an empty bin at a run's start
-//      may take other bits than the bin before it, ROADMAP §C), and adds
-//      cs^2 and (T - cs)^2 into its
-//      R bins' partial sums, from 0 in channel order.  Each warp is one
-//      group of channels: it writes (sum cs^2, sum (T - cs)^2) a bin into
-//      the scratch (nodes, m, G, B, 2), G = W x spans; bin B - 1, never a
-//      candidate, carries the group's sum of T^2 in their place.  One block
-//      barrier a chunk of 32 channels, none a bin.
-//   2. split_wide_score_kernel: one warp a (node, feature).  Lane q folds
-//      its bins' partials over the groups in group order from 0, scans the
-//      count channel as the scan kernel scans a channel, scores each bin with
-//      right = total - left and keeps its first maximum; a shuffle
-//      butterfly keeps the larger gain, the lower index on ties.
+// barrier:
+//   1. split_wide_scan_kernel: a warp a (node, feature, span of `chunks`
+//      x 32 gradient channels).  For each chunk of 32 channels in order,
+//      lane k copies channel k's B bins into shared memory with 4-byte
+//      cp.async copies (a bin's 32 channels are 128 contiguous bytes, one
+//      copy across the warp; a bin's row is 4 C bytes, not a multiple of
+//      16 at odd C, so the histogram is read as B1 wrote it), stored
+//      transposed and swizzled so that a lane's bins sit on their own
+//      banks; lane k turns channel k into its left sums in place, bin by
+//      bin from 0 in double, each rounded to float, as the narrow kernel
+//      does (a 256-step chain a channel: an empty bin's left sums are the
+//      bin before it, bit for bit, wherever it lies; the design before it
+//      joined per-lane runs of bins by a Kogge-Stone scan, which gave a
+//      run's first bin other bits, ROADMAP §C); then lane q adds, channel
+//      by channel in order from 0, cs^2 and (T - cs)^2 in double into the
+//      partial sums of its R bins [qR, qR + R).  Each span is one group of
+//      channels: its warp writes (sum cs^2, sum (T - cs)^2) a bin, in
+//      double, into the scratch (nodes, m, G, B, 2), G = spans; bin B - 1,
+//      never a candidate, carries the span's sum of T^2 in their place.  A block
+//      holds `warps` such units, each with a 32 KB buffer of its own (at
+//      256 bins), so that several units share an SM's shared memory.
+//   2. split_wide_score_kernel: one warp a (node, feature).  The count
+//      channel's left sums are summed bin by bin in double as above (by
+//      one lane; weighted rows give fractional counts); lane q folds its
+//      bins' partials over the groups in group order from 0 in double,
+//      rounds each sum once to float (the plain version's gains, bit for
+//      bit, as in the narrow kernel), scores each
+//      bin with right = total - left and keeps its first maximum; a
+//      shuffle butterfly keeps the larger gain, the lower index on ties.
 //   3. split_pick_kernel, as above.
-// Every sum runs in an order fixed by the source and the wrapper's W and
-// chunks (the narrow kernel is the case of one group), so the result is
+// Every sum runs in an order fixed by the source and the wrapper's
+// `chunks` (the narrow kernel is the case of one group), so the result is
 // the same on every run; `tests/test_torch_split_order.py` replays it in
 // numpy.  Bound: the histogram read once (1.68 GB at Full's level 5, 0.50
-// ms at 3.35 TB/s); the scratch, 8 bytes a (node, feature, group, bin)
-// written once and read once, adds 12.5% to that traffic at 32 channels a
-// group.
+// ms at 3.35 TB/s); the scratch, 16 bytes a (node, feature, group, bin)
+// written once and read once, adds 3.1% to that traffic at 256 channels
+// a group.
 #include <climits>
 #include <cmath>
 
@@ -101,6 +108,13 @@ constexpr int SCAN_WARPS = 4;   // (node, feature) units a block, at most
 // starts at q * stride, stride = R * C rounded up to an odd count.
 __host__ __device__ __forceinline__ int slab_stride(int run, int C) {
   return run * C + ((run * C) % 2 == 0 ? 1 : 0);
+}
+
+// x^2 in float64: exact (a float's square fits a double), so the sums of
+// squares below round only in float64, and once to float at the end.
+__device__ __forceinline__ double sq(float x) {
+  const double d = static_cast<double>(x);
+  return d * d;
 }
 
 __device__ __forceinline__ void keep_better(float& g, int& i, float g2,
@@ -180,31 +194,34 @@ split_unit_kernel(const float* __restrict__ hist,
   float tot[MAXC];
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) tot[c] = c < C ? last[c] : 0.0f;
-  float tot_sq = 0.0f, ct = 0.0f;
+  double tot_sq = 0.0;
+  float ct = 0.0f;
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) {
-    if (c < C - 1) tot_sq += tot[c] * tot[c];
+    if (c < C - 1) tot_sq += sq(tot[c]);
     if (c == C - 1) ct = tot[c];
   }
-  const float s_parent = tot_sq / (ct + lam);
+  const float s_parent = static_cast<float>(tot_sq) / (ct + lam);
   float best = -INFINITY;
   int best_idx = INT_MAX;
   for (int j = 0; j < nb; ++j) {
     const int b = b0 + j;
-    float sl = 0.0f, sr = 0.0f, cl = 0.0f;
+    double sl = 0.0, sr = 0.0;
+    float cl = 0.0f;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
       const float cs = c < C ? mine[j * C + c] : 0.0f;
       if (c < C - 1) {
-        const float r = tot[c] - cs;
-        sl += cs * cs;
-        sr += r * r;
+        sl += sq(cs);
+        sr += sq(tot[c] - cs);
       }
       if (c == C - 1) cl = cs;
     }
     if (b >= B - 1) break;
     const float cr = ct - cl;
-    const float gain = 0.5f * (sl / (cl + lam) + sr / (cr + lam) - s_parent);
+    const float gain = 0.5f * (static_cast<float>(sl) / (cl + lam) +
+                               static_cast<float>(sr) / (cr + lam) -
+                               s_parent);
     if (cl >= min_data && cr >= min_data && gain > best) {
       best = gain;
       best_idx = f * B + b;
@@ -254,106 +271,93 @@ int launch_units(const float* h, const float* mk, float* pg, int32_t* pi,
 
 constexpr int kSpan = 32;          // channels a staged chunk: a lane each
 constexpr int kMaxRun = 8;         // bins a lane: B <= 256
-constexpr int MAX_WIDE_WARPS = 8;  // warps a scan block
+constexpr int MAX_WIDE_WARPS = 8;  // scan units a block, a warp each
 constexpr int SCORE_WARPS = 4;     // warps a score block
 constexpr int MAX_WIDE_CHANNELS = 1024;
 
 // Shared-memory slot of channel k (0..31), bin q * run + j of a chunk:
 // each channel's bins in lane-major order, the lane bits XORed with k, so
-// that a copy (one bin, 32 channels) and a read (one channel, 32 lanes)
-// each meet 32 banks.
+// that a copy or a left-sum step (one bin, 32 channels) and a read (one
+// channel, 32 lanes) each meet 32 banks.
 __device__ __forceinline__ int chunk_slot(int k, int q, int j, int run) {
   return (k * run + j) * 32 + (q ^ k);
 }
 
-// Block per (node, feature, span of `chunks` x 32 gradient channels); the
-// W = blockDim.x / 32 warps stage each chunk of 32 channels x B bins
-// together, double-buffered, and warp w scans channels [w P, w P + P) of
-// every chunk, P = 32 / W.  Its partial sums are group g = s W + w of the
-// (node, feature), G groups in all.
+// Warp per scan unit (node, feature, span of `chunks` x 32 gradient
+// channels), W = blockDim.x / 32 units a block, each with a chunk buffer
+// of its own.  For each chunk in order: lane k copies channel k's B bins
+// into shared memory, turns them into their left sums in place, bin by bin
+// from 0 in double, each rounded to float (the plain version's cumsum on
+// the CPU, so an empty bin's left sums are the bin before it, bit for
+// bit); then lane q adds, channel by channel in order, cs^2 and (T - cs)^2
+// into its bins' partial sums (T the channel's last left sum).  The span's
+// sums are group `span` of the (node, feature), G = spans groups in all.
 __global__ void __launch_bounds__(MAX_WIDE_WARPS * 32)
 split_wide_scan_kernel(const float* __restrict__ hist,
                        const float* __restrict__ mask,
-                       float2* __restrict__ part, int m, int B, int C, int G,
-                       int chunks) {
+                       double2* __restrict__ part, long long scan_units,
+                       int m, int B, int C, int G, int chunks) {
   extern __shared__ float s_chunk[];
-  const int W = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int spans = G / W;
-  const long long nf = blockIdx.x / spans;
-  const int span = static_cast<int>(blockIdx.x - nf * spans);
-  if (!(mask[nf % m] > 0.0f)) return;          // the whole block; the score
-                                               // kernel skips the feature
+  const long long su = static_cast<long long>(blockIdx.x) *
+                           (blockDim.x >> 5) + warp;
+  if (su >= scan_units) return;                // whole warps only
+  const long long nf = su / G;
+  const int span = static_cast<int>(su - nf * G);
+  if (!(mask[nf % m] > 0.0f)) return;          // the score kernel skips it
   const int c0 = span * chunks * kSpan;        // first channel of the span
   const int nch = min(chunks * kSpan, C - 1 - c0);
-  const int nchunks = (nch + kSpan - 1) / kSpan;
-  const int per = kSpan / W;
   const int run = (B + 31) / 32;
   const int b0 = lane * run;
   const int nb = max(0, min(run, B - b0));     // bins in this lane's run
-  const int buf_floats = kSpan * 32 * run;
+  const int qB = (B - 1) / run, jB = (B - 1) - qB * run;
+  float* buf = s_chunk + warp * kSpan * 32 * run;
   const float* h = hist + nf * B * C + c0;
-  // Warp w copies bins w, w + W, ... of channel c0 + 32 chunk + lane.
-  auto stage = [&](int chunk) {
-    if (chunk * kSpan + lane >= nch) return;
-    float* buf = s_chunk + (chunk & 1) * buf_floats;
-    int q = warp / run, j = warp - q * run;
-    for (int b = warp; b < B; b += W) {
-      cp_async4(smem_addr(buf + chunk_slot(lane, q, j, run)),
-                h + static_cast<long long>(b) * C + chunk * kSpan + lane);
-      for (j += W; j >= run; j -= run) ++q;
-    }
-  };
-  float sl[kMaxRun], sr[kMaxRun];
+  double sl[kMaxRun], sr[kMaxRun];
 #pragma unroll
-  for (int j = 0; j < kMaxRun; ++j) sl[j] = sr[j] = 0.0f;
-  float tsq = 0.0f;
-  stage(0);
-  cp_async_commit();
-  for (int ch = 0; ch < nchunks; ++ch) {
-    cp_async_wait<0>();
-    __syncthreads();             // chunk ch is in, chunk ch - 1 is done with
-    if (ch + 1 < nchunks) stage(ch + 1);
+  for (int j = 0; j < kMaxRun; ++j) sl[j] = sr[j] = 0.0;
+  double tsq = 0.0;
+  for (int ch = 0; ch * kSpan < nch; ++ch) {
+    const int width = min(kSpan, nch - ch * kSpan);
+    if (lane < width) {
+      const float* src = h + ch * kSpan + lane;
+      for (int q = 0, b = 0; b < B; ++q)
+        for (int j = 0; j < run && b < B; ++j, ++b)
+          cp_async4(smem_addr(buf + chunk_slot(lane, q, j, run)),
+                    src + static_cast<long long>(b) * C);
+    }
     cp_async_commit();
-    const float* buf = s_chunk + (ch & 1) * buf_floats;
-    const int k0 = warp * per;
-    const int k1 = min(k0 + per, nch - ch * kSpan);
-    for (int k = k0; k < k1; ++k) {
-      float v[kMaxRun];
-      float p = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kMaxRun; ++j) {
-        if (j < nb) {
-          v[j] = buf[chunk_slot(k, lane, j, run)];
-          p += v[j];
+    cp_async_wait<0>();
+    if (lane < width) {                        // channel `lane`'s left sums
+      double acc = 0.0;
+      for (int q = 0, b = 0; b < B; ++q)
+        for (int j = 0; j < run && b < B; ++j, ++b) {
+          float* e = buf + chunk_slot(lane, q, j, run);
+          acc += static_cast<double>(*e);
+          *e = static_cast<float>(acc);
         }
-      }
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_up_sync(FULL, p, off);
-        if (lane >= off) p = t + p;
-      }
-      const float tot = __shfl_sync(FULL, p, 31);
-      const float before = __shfl_up_sync(FULL, p, 1);
-      float cs = lane == 0 ? 0.0f : before;
-      tsq += tot * tot;
+    }
+    __syncwarp();
+    for (int k = 0; k < width; ++k) {
+      const float tot = buf[chunk_slot(k, qB, jB, run)];
+      tsq += sq(tot);
 #pragma unroll
       for (int j = 0; j < kMaxRun; ++j) {
         if (j < nb) {
-          cs += v[j];
-          const float r = tot - cs;
-          sl[j] += cs * cs;
-          sr[j] += r * r;
+          const float cs = buf[chunk_slot(k, lane, j, run)];
+          sl[j] += sq(cs);
+          sr[j] += sq(tot - cs);
         }
       }
     }
+    __syncwarp();                              // the buffer is free again
   }
-  float2* out = part + (nf * G + span * W + warp) * B + b0;
+  double2* out = part + su * B + b0;
 #pragma unroll
   for (int j = 0; j < kMaxRun; ++j)
     if (j < nb)
-      out[j] = b0 + j == B - 1 ? make_float2(tsq, 0.0f)
-                               : make_float2(sl[j], sr[j]);
+      out[j] = b0 + j == B - 1 ? make_double2(tsq, 0.0)
+                               : make_double2(sl[j], sr[j]);
 }
 
 // Warp per (node, feature) unit u = node * m + f: its first maximum over
@@ -361,7 +365,7 @@ split_wide_scan_kernel(const float* __restrict__ hist,
 __global__ void __launch_bounds__(SCORE_WARPS * 32)
 split_wide_score_kernel(const float* __restrict__ hist,
                         const float* __restrict__ mask,
-                        const float2* __restrict__ part,
+                        const double2* __restrict__ part,
                         float* __restrict__ part_gain,
                         int32_t* __restrict__ part_idx, int units, int m,
                         int B, int C, int G, float lam, float min_data) {
@@ -379,55 +383,55 @@ split_wide_score_kernel(const float* __restrict__ hist,
   const int run = (B + 31) / 32;
   const int b0 = lane * run;
   const int nb = max(0, min(run, B - b0));
-  // The count channel, scanned as the narrow kernel scans a channel.
+  // The count channel's left sums, bin by bin from 0 in double as a
+  // gradient channel's (fractional counts when rows carry weights): the
+  // lanes stage the counts in shared memory, lane 0 sums them in place.
+  __shared__ float s_cnt[SCORE_WARPS][32 * kMaxRun];
+  float* cw = s_cnt[warp];
   const float* hc = hist + static_cast<long long>(u) * B * C + (C - 1);
-  float cnt[kMaxRun];
-  float p = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kMaxRun; ++j) {
-    if (j < nb) {
-      cnt[j] = __ldg(hc + static_cast<long long>(b0 + j) * C);
-      p += cnt[j];
+  for (int b = lane; b < B; b += 32)
+    cw[b] = __ldg(hc + static_cast<long long>(b) * C);
+  __syncwarp();
+  if (lane == 0) {
+    double acc = 0.0;
+    for (int b = 0; b < B; ++b) {
+      acc += static_cast<double>(cw[b]);
+      cw[b] = static_cast<float>(acc);
     }
   }
+  __syncwarp();
+  const float ct = cw[B - 1];
+  // The groups' partials, folded in float64 in group order from 0.
+  const double2* pu = part + static_cast<long long>(u) * G * B;
+  double sl[kMaxRun], sr[kMaxRun];
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float t = __shfl_up_sync(FULL, p, off);
-    if (lane >= off) p = t + p;
-  }
-  const float ct = __shfl_sync(FULL, p, 31);
-  const float before = __shfl_up_sync(FULL, p, 1);
-  float cl = lane == 0 ? 0.0f : before;
-  // The groups' partials, folded in group order from 0.
-  const float2* pu = part + static_cast<long long>(u) * G * B;
-  float sl[kMaxRun], sr[kMaxRun];
-#pragma unroll
-  for (int j = 0; j < kMaxRun; ++j) sl[j] = sr[j] = 0.0f;
-  float tot_sq = 0.0f;
+  for (int j = 0; j < kMaxRun; ++j) sl[j] = sr[j] = 0.0;
+  double tot_sq = 0.0;
   for (int g = 0; g < G; ++g) {
-    const float2* pg = pu + static_cast<long long>(g) * B;
+    const double2* pg = pu + static_cast<long long>(g) * B;
 #pragma unroll
     for (int j = 0; j < kMaxRun; ++j) {
       if (j < nb) {
-        const float2 x = pg[b0 + j];
+        const double2 x = pg[b0 + j];
         sl[j] += x.x;
         sr[j] += x.y;
       }
     }
     tot_sq += pg[B - 1].x;
   }
-  const float s_parent = tot_sq / (ct + lam);
+  const float s_parent = static_cast<float>(tot_sq) / (ct + lam);
   float best = -INFINITY;
   int best_idx = INT_MAX;
 #pragma unroll
   for (int j = 0; j < kMaxRun; ++j) {
     if (j < nb) {
       const int b = b0 + j;
-      cl += cnt[j];
+      const float cl = cw[b];
       if (b < B - 1) {
         const float cr = ct - cl;
-        const float gain =
-            0.5f * (sl[j] / (cl + lam) + sr[j] / (cr + lam) - s_parent);
+        const float gain = 0.5f * (static_cast<float>(sl[j]) / (cl + lam) +
+                                   static_cast<float>(sr[j]) / (cr + lam) -
+                                   s_parent);
         if (cl >= min_data && cr >= min_data && gain > best) {
           best = gain;
           best_idx = f * B + b;
@@ -504,10 +508,11 @@ extern "C" int split_scan_launch(const void* hist, const void* mask,
 
 // Wide histograms: 2 to 1,024 channels (the wrapper sends those above 32)
 // and at most 256 bins.  part_gain and part_idx are (n_nodes, m) scratch
-// for the per-feature maxima; scan_part is (n_nodes, m, G, B) float2
-// scratch for the groups' partial sums, G = warps * ceil((C - 1) /
-// (32 * chunks)): a scan block of `warps` warps (1, 2, 4 or 8) takes
-// `chunks` chunks of 32 gradient channels.
+// for the per-feature maxima; scan_part is (n_nodes, m, G, B) double2
+// scratch for the spans' partial sums, G = ceil((C - 1) / (32 * chunks)):
+// a scan unit (a warp) takes a span of `chunks` chunks of 32 gradient
+// channels, and a scan block holds `warps` units (1 to 8, as shared
+// memory allows: 32 KB a unit at 256 bins).
 extern "C" int split_scan_wide_launch(const void* hist, const void* mask,
                                       void* gain, void* idx, void* part_gain,
                                       void* part_idx, void* scan_part,
@@ -515,31 +520,36 @@ extern "C" int split_scan_wide_launch(const void* hist, const void* mask,
                                       int warps, int chunks, float lam,
                                       float min_data, void* stream) {
   if (C < 2 || C > MAX_WIDE_CHANNELS || B < 1 || B > 32 * kMaxRun ||
-      m < 1 || warps < 1 || warps > MAX_WIDE_WARPS || 32 % warps != 0 ||
-      chunks < 1)
+      m < 1 || warps < 1 || warps > MAX_WIDE_WARPS || chunks < 1)
     return cudaErrorInvalidValue;
   if (n_nodes < 1) return 0;
   const long long units = static_cast<long long>(n_nodes) * m;
-  const int spans = (C - 2) / (chunks * kSpan) + 1;
-  if (units * spans > INT_MAX) return cudaErrorInvalidValue;
-  const int G = spans * warps;
+  const int G = (C - 2) / (chunks * kSpan) + 1;
+  const long long scan_units = units * G;
+  const long long blocks = (scan_units + warps - 1) / warps;
+  if (units > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto mk = static_cast<const float*>(mask);
   auto h = static_cast<const float*>(hist);
-  auto sp = static_cast<float2*>(scan_part);
+  auto sp = static_cast<double2*>(scan_part);
   auto pg = static_cast<float*>(part_gain);
   auto pi = static_cast<int32_t*>(part_idx);
-  // Two chunk buffers a block: 64 KB at 256 bins.
-  const int smem = 2 * 4 * kSpan * 32 * ((B + 31) / 32);
-  cudaError_t e = cudaSuccess;
+  const int smem = warps * 4 * kSpan * 32 * ((B + 31) / 32);
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (smem > limit) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(split_wide_scan_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  split_wide_scan_kernel<<<static_cast<int>(units * spans), warps * 32, smem,
-                           s>>>(h, mk, sp, m, B, C, G, chunks);
+  split_wide_scan_kernel<<<static_cast<int>(blocks), warps * 32, smem, s>>>(
+      h, mk, sp, scan_units, m, B, C, G, chunks);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int u = static_cast<int>(units);

@@ -24,9 +24,10 @@ WIDE_KERNEL = CudaKernel(
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2)
 NARROW_CHANNELS = 32    # in registers; wider histograms spread over warps
 MAX_CHANNELS = 1024
-# The wide scan: a block of WIDE_WARPS warps takes WIDE_CHUNKS chunks of
-# 32 gradient channels, each warp 32 / WIDE_WARPS channels of a chunk.
-WIDE_WARPS = 8
+# The wide scan: a warp takes a span of WIDE_CHUNKS chunks of 32 gradient
+# channels, summing their squares channel by channel in order; a block
+# holds WIDE_WARPS such warps, each with its own 32 KB chunk buffer.
+WIDE_WARPS = 1
 WIDE_CHUNKS = 8
 WIDE_MAX_BINS = 256
 
@@ -34,10 +35,9 @@ WIDE_MAX_BINS = 256
 def wide_groups(c: int):
     """The wide scan's groups of gradient channels of a C-channel
     histogram, in group order, each in the order its warp sums them."""
-    per, span = 32 // WIDE_WARPS, 32 * WIDE_CHUNKS
-    return [[c0 + 32 * k + per * w + i for k in range(WIDE_CHUNKS)
-             for i in range(per) if c0 + 32 * k + per * w + i < c - 1]
-            for c0 in range(0, c - 1, span) for w in range(WIDE_WARPS)]
+    span = 32 * WIDE_CHUNKS
+    return [list(range(c0, min(c0 + span, c - 1)))
+            for c0 in range(0, c - 1, span)]
 
 
 def split_scan(hist: torch.Tensor, lam: float, min_data: float,
@@ -67,9 +67,9 @@ def split_scan(hist: torch.Tensor, lam: float, min_data: float,
     if B > WIDE_MAX_BINS:
         raise ValueError(f"split_scan takes at most {WIDE_MAX_BINS} bins "
                          f"above {NARROW_CHANNELS} channels, got {B}")
-    # Each group's per-bin partial sums (sum cs^2, sum (T - cs)^2).
-    groups = WIDE_WARPS * -(-(c - 1) // (32 * WIDE_CHUNKS))
-    scan_part = torch.empty((nodes, m, groups, B, 2), dtype=torch.float32,
+    # Each group's per-bin partial sums (sum cs^2, sum (T - cs)^2), float64.
+    groups = len(wide_groups(c))
+    scan_part = torch.empty((nodes, m, groups, B, 2), dtype=torch.float64,
                             device=hist.device)
     WIDE_KERNEL.launch(*ptrs, scan_part.data_ptr(), nodes, m, B, c,
                        WIDE_WARPS, WIDE_CHUNKS, float(lam), float(min_data))

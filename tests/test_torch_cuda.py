@@ -152,8 +152,9 @@ def test_split_scan_dyadic_ties_bitwise(dev, nodes, B, C):
 def test_split_scan_empty_bin_at_a_run_start_ties_the_bin_before(dev, B, C):
     """Random (inexact) sums with empty bins where lanes' runs of bins
     start: the narrow kernel's left sums there are the bin before's, bit
-    for bit, so it picks the plain version's (lower) bin; at one gradient
-    channel (C = 2) its gains are the CPU plain version's bits."""
+    for bit, so it picks the plain version's (lower) bin, and its gains
+    are the CPU plain version's bits (squares summed in float64, rounded
+    once)."""
     rng = np.random.default_rng(B + C)
     run = -(-B // 32)
     h = rng.normal(size=(8, 5, B, C)).astype(np.float32)
@@ -164,10 +165,53 @@ def test_split_scan_empty_bin_at_a_run_start_ties_the_bin_before(dev, B, C):
     gain, idx = split_kernel.split_scan(hist, 1.0, 1.0, mask)
     pg, pi = ref.split_scan_ref(hist.cpu(), 1.0, 1.0, mask.cpu())
     assert torch.equal(idx.cpu(), pi)
-    if C == 2:
+    assert torch.equal(gain.cpu(), pg)
+
+
+@pytest.mark.parametrize("B", [256, 37])
+@pytest.mark.parametrize("C", [33, 64, 513])
+def test_split_scan_wide_empty_bin_at_a_run_start_ties_the_bin_before(
+        dev, C, B):
+    """The wide entry point (C > 32) on random (inexact) sums with empty
+    bins where lanes' runs of bins start: each channel's left sums are
+    summed bin by bin in double, so an empty bin's are the bin before's,
+    bit for bit, the two gains tie, and the kernel picks the CPU plain
+    version's (lower) bin, with the CPU's gains bit for bit."""
+    rng = np.random.default_rng(B * C)
+    run = -(-B // 32)
+    h = rng.normal(size=(6, 4, B, C)).astype(np.float32)
+    h[..., -1] = rng.integers(1, 9, (6, 4, B))
+    h[:, :, np.arange(run, B - 1, run)] = 0.0
+    hist = torch.from_numpy(h).to(dev)
+    mask = torch.ones(4, device=dev)
+    before = split_kernel.WIDE_KERNEL.launches
+    for min_data in (1.0, 100.0):
+        gain, idx = split_kernel.split_scan(hist, 1.0, min_data, mask)
+        pg, pi = ref.split_scan_ref(hist.cpu(), 1.0, min_data, mask.cpu())
+        assert torch.equal(idx.cpu(), pi)
         assert torch.equal(gain.cpu(), pg)
-    else:
-        torch.testing.assert_close(gain.cpu(), pg, rtol=1e-5, atol=0)
+        g2, i2 = split_kernel.split_scan(hist, 1.0, min_data, mask)
+        assert torch.equal(gain, g2) and torch.equal(idx, i2)
+    assert split_kernel.WIDE_KERNEL.launches == before + 4
+
+
+def test_split_scan_wide_fractional_counts(dev):
+    """Weighted rows (GOSS's 8.0, SGB's 0/1, and non-dyadic weights) make
+    fractional counts in the count channel: the wide kernel sums them bin
+    by bin in double as the CPU does, and ``min_data`` cuts where the
+    CPU's does: the CPU's indices and gains, bit for bit."""
+    rng = np.random.default_rng(5)
+    h = rng.normal(size=(4, 5, 256, 65)).astype(np.float32)
+    h[..., -1] = (rng.integers(0, 4, (4, 5, 256))
+                  * rng.choice([0.0, 1.0, 8.0, 2.6666667], (4, 5, 256))
+                  ).astype(np.float32)
+    hist = torch.from_numpy(h).to(dev)
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0, 1.0], device=dev)
+    for min_data in (1.0, 37.3, 400.0):
+        gain, idx = split_kernel.split_scan(hist, 1.0, min_data, mask)
+        pg, pi = ref.split_scan_ref(hist.cpu(), 1.0, min_data, mask.cpu())
+        assert torch.equal(idx.cpu(), pi)
+        assert torch.equal(gain.cpu(), pg)
 
 
 @pytest.mark.parametrize("C,wide", [(2, False), (32, False), (33, True),
@@ -1185,3 +1229,155 @@ def test_one_vs_all_fit_on_card_matches_cpu(dev, cfg, monkeypatch):
     again = SketchBoost(config, device=dev).fit(
         X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]))
     assert torch.equal(again.predict_raw(X[2400:]).cpu(), pred[0])
+
+
+@pytest.mark.parametrize("d", [8, 40])
+def test_full_fit_on_card_matches_cpu(dev, d):
+    """SketchBoost Full (``sketch_method="none"``: the split scan reads d +
+    1 channels, B2's wide entry point at d = 40) on the card against the
+    CPU: predictions within atol 1e-4 and the same best round, as the
+    one-vs-all checks; a second card fit is the same bit for bit."""
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+    from repro_torch.data.pipeline import make_tabular
+    X, y = make_tabular("multitask_mse", 3000, 12, d, seed=3,
+                        n_informative=12)
+    config = GBDTConfig(loss="multitask_mse", sketch_method="none",
+                        n_trees=5, depth=4, min_data_in_leaf=20,
+                        early_stopping_rounds=2)
+    before = split_kernel.WIDE_KERNEL.launches
+    fits = [SketchBoost(config, device=dv).fit(
+        X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]))
+        for dv in (dev, "cpu")]
+    wide = split_kernel.WIDE_KERNEL.launches - before
+    assert wide == (4 * len(fits[0].history) if d + 1 > 32 else 0)
+    pred = [f.predict_raw(X[2400:]).cpu() for f in fits]
+    assert float((pred[0] - pred[1]).abs().max()) <= 1e-4
+    assert fits[0].best_round == fits[1].best_round
+    again = SketchBoost(config, device=dev).fit(
+        X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]))
+    assert torch.equal(again.predict_raw(X[2400:]).cpu(), pred[0])
+
+
+SAMPLED_CASES = [
+    dict(subsample=0.5), dict(goss_a=0.2, goss_b=0.1), dict(colsample=0.8),
+    dict(goss_a=0.2, goss_b=0.1, colsample=0.8, growth="leafwise",
+         max_leaves=12),
+    dict(goss_a=0.2, goss_b=0.1, hist_engine="direct"),
+    dict(goss_a=0.2, goss_b=0.1, hist_dtype="bfloat16"),
+    dict(goss_a=0.2, goss_b=0.1, strategy="one_vs_all"),
+    dict(guard_policy="skip_round"), dict(guard_policy="clip")]
+
+
+def _sampled_draws(n_rounds, n, m, d, k, seed=0):
+    """Injected draws for a fit: Pi (d, k), row and feature uniforms."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        sketch_mats=[rng.normal(size=(d, k)).astype(np.float32)
+                     / np.sqrt(k) for _ in range(n_rounds)],
+        sample_draws=[rng.random(n).astype(np.float32)
+                      for _ in range(n_rounds)],
+        feature_draws=[rng.random(m).astype(np.float32)
+                       for _ in range(n_rounds)])
+
+
+@pytest.mark.parametrize("cfg", SAMPLED_CASES)
+def test_sampled_and_guarded_fit_on_card_matches_cpu(dev, cfg):
+    """Row and column sampling (and the guards, with NaN targets from round
+    1) on the card against the CPU with the same injected draws:
+    predictions within atol 1e-4, the same best round, node counts and
+    weighted covers; regression targets, as the one-vs-all checks."""
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+    from repro_torch.data.pipeline import make_tabular
+    from repro_torch.runtime.chaos import NaNAtRow
+    X, y = make_tabular("multitask_mse", 3000, 12, 8, seed=3,
+                        n_informative=12)
+    config = GBDTConfig(loss="multitask_mse", n_trees=5, depth=4,
+                        sketch_k=3, min_data_in_leaf=20,
+                        early_stopping_rounds=2, **cfg)
+    draws = _sampled_draws(5, 2400, 12, 8, 3)
+    guard = "guard_policy" in cfg
+    fits = [SketchBoost(config, device=dv).fit(
+        X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]),
+        check_input=not guard,
+        chaos=NaNAtRow(1, rows=[0, 9]) if guard else None, **draws)
+        for dv in (dev, "cpu")]
+    pred = [f.predict_raw(X[2400:]).cpu() for f in fits]
+    assert torch.isfinite(pred[0]).all()
+    assert float((pred[0] - pred[1]).abs().max()) <= 1e-4
+    assert fits[0].best_round == fits[1].best_round
+    a, b = fits[0].packed, fits[1].packed
+    assert torch.equal(a.node_count.cpu(), b.node_count)
+    torch.testing.assert_close(a.cover.cpu(), b.cover, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(goss_a=0.2, goss_b=0.1, colsample=0.8),
+    dict(subsample=0.7, growth="leafwise", max_leaves=12),
+    dict(strategy="one_vs_all", goss_a=0.2, goss_b=0.1),
+    dict(sketch_method="random_sampling", colsample=0.8)])
+def test_kill_and_resume_on_card_is_bitwise(dev, cfg, tmp_path):
+    """Killed at round 3 with a checkpoint at 2 and resumed on the card,
+    with every draw from the fit's CUDA generator: the forest, the packed
+    model, the history and the last step's training scores are the
+    uninterrupted fit's, bit for bit."""
+    import dataclasses
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+    from repro_torch.data.pipeline import make_tabular
+    from repro_torch.io import checkpoint as CK
+    from repro_torch.runtime.chaos import ChaosKill, KillAtRound
+    X, y = make_tabular("multiclass", 3000, 12, 6, seed=3, n_informative=12)
+    base = GBDTConfig(n_trees=5, depth=4, sketch_k=3, min_data_in_leaf=20,
+                      **cfg)
+
+    def fit(c, chaos=None):
+        return SketchBoost(c, device=dev).fit(
+            X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]), chaos=chaos)
+
+    full = fit(dataclasses.replace(base, save_every=5,
+                                   ckpt_dir=str(tmp_path / "full")))
+    ck = dataclasses.replace(base, save_every=2,
+                             ckpt_dir=str(tmp_path / "cut"))
+    with pytest.raises(ChaosKill):
+        fit(ck, KillAtRound(3))
+    resumed = fit(dataclasses.replace(ck, resume_from=str(tmp_path / "cut"),
+                                      save_every=5))
+    for f in full.packed._fields:
+        x, z = getattr(full.packed, f), getattr(resumed.packed, f)
+        assert (torch.equal(x, z) if torch.is_tensor(x) else x == z), f
+    strip = [[{k: v for k, v in r.items() if k != "train_time_s"}
+              for r in m.history] for m in (full, resumed)]
+    assert strip[0] == strip[1]
+    a = CK.load_boost_checkpoint(str(tmp_path / "full"), device=dev)
+    b = CK.load_boost_checkpoint(str(tmp_path / "cut"), device=dev)
+    assert a.round == b.round == 5
+    assert torch.equal(a.F, b.F) and torch.equal(a.Fv, b.Fv)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(goss_a=0.2, goss_b=0.1, colsample=0.8),
+    dict(strategy="one_vs_all", subsample=0.7),
+    dict(growth="leafwise", max_leaves=12, goss_a=0.2, goss_b=0.1)])
+def test_sampled_fit_runs_under_deterministic_algorithms(dev, cfg):
+    """Every PyTorch op of a sampled fit with an eval set has a
+    deterministic implementation on the card: the fit runs under
+    ``torch.use_deterministic_algorithms(True)``, which raises at any op
+    without one (a scatter-add by atomics, say), and gives the same model
+    as without it."""
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+    from repro_torch.data.pipeline import make_tabular
+    X, y = make_tabular("multiclass", 3000, 12, 6, seed=3, n_informative=12)
+    config = GBDTConfig(n_trees=3, depth=4, sketch_k=3, min_data_in_leaf=20,
+                        **cfg)
+
+    def fit():
+        return SketchBoost(config, device=dev).fit(
+            X[:2400], y[:2400], eval_set=(X[2400:], y[2400:]))
+
+    free = fit()
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = fit()
+    finally:
+        torch.use_deterministic_algorithms(before)
+    assert torch.equal(free.predict_raw(X[2400:]), det.predict_raw(X[2400:]))

@@ -1,24 +1,25 @@
 """B2's order of the sums on the card, replayed in numpy on the CPU.
 
-`csrc/split.cu` scans one (node, feature) a warp.  The narrow kernel
-(C <= 32) turns each channel into its left sums bin by bin in bin order in
-double, each rounded to float32 (the plain version's cumsum on the CPU),
-then scores every bin with right = total - left.  The wide entry point (C > 32) scans each channel by runs:
-lane q sums its run of R = ceil(B / 32) consecutive bins, a Kogge-Stone
-scan over the 32 lanes joins the runs, and each lane walks its run again
-from the prefix before it; one warp sums a group of gradient channels
-(``split_kernel.wide_groups``: a block of ``WIDE_WARPS`` warps takes chunks
-of 32 channels, each warp 32 / ``WIDE_WARPS`` of every chunk): the squared
-left and right sums (and the squared totals) are summed over a group's
-channels in that order from 0, and the groups' sums are folded in group
-order from 0.  `replay_split_scan` repeats either order in float32
-(``groups=wide_groups(C)`` the wide one) and is held to the port's plain
-version (`ref.split_scan_ref`) and to the JAX package's
-``split_scan_ref``: the same indices, gains within rtol 1e-5, and the same
-bits where every sum is exact (dyadic histograms).  The narrow order is
-the plain version's, so at one gradient channel (C = 2) its gains are the
-plain version's bits on any histogram, and an empty bin ties the bin
-before it wherever it lies.
+`csrc/split.cu` scans one (node, feature) a warp.  Both entry points turn
+each channel into its left sums bin by bin in bin order in double, each
+rounded to float32 (the plain version's cumsum on the CPU), then score
+every bin with right = total - left.  The narrow kernel (C <= 32) sums the
+squared left and right sums over all gradient channels in channel order
+from 0; the wide entry point (C > 32) sums them within each group of
+channels (``split_kernel.wide_groups``: a warp a span of ``WIDE_CHUNKS``
+chunks of 32 channels) in channel order from 0, then folds the groups'
+sums in group order from 0.  Both sum the squares in float64 and round
+once to float32, as the plain version does (``split._sq_sum``).
+`replay_split_scan` repeats either order (``groups=wide_groups(C)`` the
+wide one) and is held to the port's plain version (`ref.split_scan_ref`)
+bit for bit on any histogram (the float64 sums round to the same float32
+whatever their order), and to the JAX package's ``split_scan_ref``
+(float32 sums in XLA's order): the same indices, gains within rtol 1e-5,
+and the same bits where every sum is exact (dyadic histograms).  In both
+orders an empty bin ties the bin before it wherever it lies.
+`_run_scan` keeps the order both kernels had first (per-lane
+runs of bins joined by a Kogge-Stone scan), to show the empty-bin ties it
+broke.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -61,18 +62,20 @@ def _lane_scan(p):
 
 
 def _sq_sum(v, groups=None):
-    """Sum over the last axis of squares: within each group of channels in
-    its order from 0, then the groups' sums in group order from 0
-    (``None``: one group of every channel in channel order)."""
+    """Sum over the last axis of squares, in float64: within each group of
+    channels in its order from 0, then the groups' sums in group order
+    from 0 (``None``: one group of every channel in channel order),
+    rounded once to float32."""
     if groups is None:
         groups = [range(v.shape[-1])]
-    total = np.zeros(v.shape[:-1], np.float32)
+    total = np.zeros(v.shape[:-1], np.float64)
     for group in groups:
-        s = np.zeros(v.shape[:-1], np.float32)
+        s = np.zeros(v.shape[:-1], np.float64)
         for c in group:
-            s = s + v[..., c] * v[..., c]
+            x = v[..., c].astype(np.float64)
+            s = s + x * x
         total = total + s
-    return total
+    return total.astype(np.float32)
 
 
 def _run_scan(h):
@@ -98,24 +101,12 @@ def _cumsum(h):
     return np.cumsum(h, axis=-2, dtype=np.float64).astype(np.float32)
 
 
-def replay_split_scan(h, lam, min_data, mask, groups=None, runs=None):
-    """(nodes, m, B, C) float32 -> per-node (best_gain, best_idx) in the
-    kernel's order: the first maximum over (feature, bin), ties to the
-    lowest index, (-inf, 0) where nothing is legal.  ``groups``: the wide
-    kernel's groups of gradient channels (``None``: the narrow kernel);
-    ``runs``: the left sums by runs and a lane scan (the wide kernel's, the
-    default with ``groups``) rather than bin by bin (the narrow
-    kernel's)."""
-    h = np.asarray(h, np.float32)
-    nodes, m, B, C = h.shape
-    lam, min_data = np.float32(lam), np.float32(min_data)
-    if runs is None:
-        runs = groups is not None
-    if runs:
-        cs, tot = _run_scan(h)
-    else:
-        cs = _cumsum(h)
-        tot = cs[..., -1, :]
+def _replay_gains(h, lam, groups=None):
+    """Every (node, feature, bin) gain in the kernel's order, before the
+    legality tests, and the left counts: ``(gain, cl, cr)``."""
+    cs = _cumsum(np.asarray(h, np.float32))
+    tot = cs[..., -1, :]
+    lam = np.float32(lam)
     sl = _sq_sum(cs[..., :-1], groups)                  # (nodes, m, B)
     sr = _sq_sum(tot[..., None, :-1] - cs[..., :-1], groups)
     s_parent = _sq_sum(tot[..., :-1], groups) / (tot[..., -1] + lam)
@@ -123,6 +114,17 @@ def replay_split_scan(h, lam, min_data, mask, groups=None, runs=None):
     cr = tot[..., -1:] - cl
     g = np.float32(0.5) * (sl / (cl + lam) + sr / (cr + lam)
                            - s_parent[..., None])
+    return g, cl, cr
+
+
+def replay_split_scan(h, lam, min_data, mask, groups=None):
+    """(nodes, m, B, C) float32 -> per-node (best_gain, best_idx) in the
+    kernel's order: the first maximum over (feature, bin), ties to the
+    lowest index, (-inf, 0) where nothing is legal.  ``groups``: the wide
+    kernel's groups of gradient channels (``None``: the narrow kernel)."""
+    nodes, m, B, C = h.shape
+    g, cl, cr = _replay_gains(h, lam, groups)
+    min_data = np.float32(min_data)
     legal = ((cl >= min_data) & (cr >= min_data) & (mask[None, :, None] > 0)
              & (np.arange(B) < B - 1))
     gain = np.where(legal, g, np.float32(-np.inf))
@@ -182,7 +184,7 @@ def test_replay_matches_plain_and_reference(nodes, m, B, C):
         jg, ji = _jax(h, 1.0, min_data, mask)
         np.testing.assert_array_equal(i, pi)
         np.testing.assert_array_equal(i, ji)
-        np.testing.assert_allclose(g, pg, rtol=1e-5, atol=0)
+        assert np.array_equal(g.view(np.int32), pg.view(np.int32))
         np.testing.assert_allclose(g, jg, rtol=1e-5, atol=0)
 
 
@@ -252,7 +254,7 @@ def test_wide_replay_matches_plain_and_reference(C, B, nodes):
         jg, ji = _jax(h, 1.0, min_data, mask)
         np.testing.assert_array_equal(i, pi)
         np.testing.assert_array_equal(i, ji)
-        np.testing.assert_allclose(g, pg, rtol=1e-5, atol=0)
+        assert np.array_equal(g.view(np.int32), pg.view(np.int32))
         np.testing.assert_allclose(g, jg, rtol=1e-5, atol=0)
         assert not (i // B == 1).any()
 
@@ -318,8 +320,7 @@ def test_one_group_of_every_channel_is_the_narrow_order():
     h = _random_hist(rng, 2, 3, 256, 40)
     mask = np.ones(3, np.float32)
     g, i = replay_split_scan(h, 1.0, 1.0, mask)
-    g1, i1 = replay_split_scan(h, 1.0, 1.0, mask, groups=[range(39)],
-                               runs=False)
+    g1, i1 = replay_split_scan(h, 1.0, 1.0, mask, groups=[range(39)])
     np.testing.assert_array_equal(i, i1)
     assert np.array_equal(g.view(np.int32), g1.view(np.int32))
 
@@ -330,8 +331,8 @@ def test_narrow_replay_ties_an_empty_bin_at_a_run_start(B):
     the narrow order's left sums at an empty bin are the bin before it,
     bit for bit, so the lower bin wins as in the plain version; at one
     gradient channel every gain is the plain version's bits.  The runs
-    order (the wide kernel's, and the narrow kernel's first design) gives
-    such a bin other bits."""
+    order (the first design of both kernels) gives such a bin other
+    bits."""
     rng = np.random.default_rng(B)
     run = -(-B // LANES)
     h = _random_hist(rng, 3, 4, B, 2)
@@ -349,3 +350,37 @@ def test_narrow_replay_ties_an_empty_bin_at_a_run_start(B):
                        torch.from_numpy(cs))
     rcs, _ = _run_scan(h)
     assert not np.array_equal(rcs[:, :, starts], rcs[:, :, starts - 1])
+
+
+@pytest.mark.parametrize("C", [33, 64, 513])
+def test_wide_replay_ties_an_empty_bin_at_a_run_start(C):
+    """The wide counterpart: random (inexact) sums over 32 to 512 gradient
+    channels with empty bins at the start of lanes' runs.  Every channel's
+    left sums at an empty bin are the bin before it, bit for bit, so the
+    two bins' gains tie exactly and the lower bin wins, as in the plain
+    version and the reference; the runs order gives such bins other
+    bits."""
+    B, m = 256, 3
+    rng = np.random.default_rng(C)
+    run = -(-B // LANES)
+    h = _random_hist(rng, 2, m, B, C)
+    h[..., -1] = rng.integers(1, 9, h.shape[:-1])
+    starts = np.arange(run, B - 1, run)
+    h[:, :, starts] = 0.0
+    mask = np.ones(m, np.float32)
+    groups = wide_groups(C)
+    cs = _cumsum(h)
+    assert np.array_equal(cs[:, :, starts], cs[:, :, starts - 1])
+    for min_data in (1.0, 200.0):
+        g, i = replay_split_scan(h, 1.0, min_data, mask, groups=groups)
+        pg, pi = _plain(h, 1.0, min_data, mask)
+        jg, ji = _jax(h, 1.0, min_data, mask)
+        np.testing.assert_array_equal(i, pi)
+        np.testing.assert_array_equal(i, ji)
+        assert np.array_equal(g.view(np.int32), pg.view(np.int32))
+        # Gains at a run start tie the bin before it exactly.
+        full = _replay_gains(h, 1.0, groups)[0]
+        assert np.array_equal(full[:, :, starts], full[:, :, starts - 1])
+    rcs, _ = _run_scan(h)
+    assert not np.array_equal(rcs[:, :, starts], rcs[:, :, starts - 1])
+

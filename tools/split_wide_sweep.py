@@ -14,34 +14,22 @@ together):
 - ``repo``: the repo's ``split.cu`` as it is, called with the wrapper's
   scan blocks (``split_kernel.WIDE_WARPS`` warps, ``WIDE_CHUNKS`` chunks
   of 32 gradient channels);
-- ``repo W x K``: the same build called with scan blocks of W warps and K
-  chunks (another grouping of the channels, so another order of the sums:
-  held to the plain version, not bitwise to the repo build);
-- ``regs``: the repo's ``split.cu`` with the scan's copies made by loads
-  into registers, issued before the sums of the chunk before and stored to
-  shared memory after them, in place of ``cp.async`` (32 rows a warp, so
-  for the wrapper's 8 warps a block at up to 256 bins; the same sums);
-- ``narrow 64``: the repo's ``split.cu`` with its narrow entry point
-  taking up to 64 channels again (the ``launch_units<64>`` build, 64
-  channels in registers), for the threshold below;
-- ``l2 N``: the repo's ``split.cu`` with the scan's copies hinting an L2
-  prefetch of N bytes (``cp.async.ca...L2::NB``) around each;
-- ``diag copy only`` and ``diag sums only``: the repo's ``split.cu`` with
-  the scan kernel's sums taken out (copies and barriers only), or its
-  copies taken out (sums over whatever shared memory holds).  Neither is
-  the function: they show what the parts cost.
+- ``repo W x K``: the same build called with W scan warps a block and
+  spans of K chunks of 32 gradient channels (another grouping of the
+  channels, so another order of the sums: held to the plain version, not
+  bitwise to the repo build).
 
 At each of SketchBoost Full's level shapes (1, 2, 4, 8, 16 and 32 nodes x
 100 features x 256 bins x 513 channels) every build is timed in turns:
 first, repo, each variant, repo, first.  Indices are held to the plain
-version's (``ref.split_scan_ref``), and the builds called with the
-wrapper's scan blocks (repo, regs, l2 N) bitwise to the repo's first call.
+version's (``ref.split_scan_ref``), and the repo build's second call
+bitwise to its first.
 Then the repo build is called under ``torch.profiler`` at each shape and
 its device time split by kernel (scan, score, pick), beside ``hist.sum()``
 (one PyTorch read of the same bytes, a yardstick of the read rate).  Then,
-for the narrow/wide threshold, the narrow entry point of ``narrow 64`` and
-the repo build's wide entry point at C = 17, 32, 33, 48 and 64, at 1, 2
-and 32 nodes, in turns.  One JSON line a (shape, variant), in ms (CUDA
+for the narrow/wide threshold, the repo build's narrow and wide entry
+points at C = 17 and 32 (the narrow one takes at most 32 channels, one
+lane each), at 1, 2 and 32 nodes, in turns.  One JSON line a (shape, variant), in ms (CUDA
 events around 20 calls straight, after one warm-up), with the card's name
 and power limit first.  ``--quick`` times 1 and 32 nodes only.
 """
@@ -60,77 +48,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 OUT = os.path.join(ROOT, "build", "split_sweep")
 NODES = (1, 2, 4, 8, 16, 32)
-# Scan blocks (warps, chunks of 32 channels) beside the wrapper's.
-BLOCKS = ((4, 4), (4, 8), (8, 4), (8, 16))
-# Diagnostics of the repo's build: (anchor, replacement) in split.cu.
-DIAGNOSED = {
-    "copy only": ("    for (int k = k0; k < k1; ++k) {",
-                  "    for (int k = k0; k < k0; ++k) {"),
-    "sums only": ("      cp_async4(smem_addr(buf + chunk_slot(lane, q, j, "
-                  "run)),\n", "      if (0) cp_async4(smem_addr(buf + "
-                  "chunk_slot(lane, q, j, run)),\n")}
-# The scan's copies through registers: (anchor, replacement) in split.cu.
-REGS = [("""  auto stage = [&](int chunk) {
-    if (chunk * kSpan + lane >= nch) return;
-    float* buf = s_chunk + (chunk & 1) * buf_floats;
-    int q = warp / run, j = warp - q * run;
-    for (int b = warp; b < B; b += W) {
-      cp_async4(smem_addr(buf + chunk_slot(lane, q, j, run)),
-                h + static_cast<long long>(b) * C + chunk * kSpan + lane);
-      for (j += W; j >= run; j -= run) ++q;
-    }
-  };""", """  float pre[32];
-  auto load = [&](int chunk) {
-    const bool ok = chunk * kSpan + lane < nch;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int b = warp + i * W;
-      if (ok && b < B)
-        pre[i] = __ldg(h + static_cast<long long>(b) * C + chunk * kSpan +
-                       lane);
-    }
-  };
-  auto stage = [&](int chunk) {
-    if (chunk * kSpan + lane >= nch) return;
-    float* buf = s_chunk + (chunk & 1) * buf_floats;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int b = warp + i * W;
-      if (b < B) {
-        const int q = b / run, j = b - q * run;
-        buf[chunk_slot(lane, q, j, run)] = pre[i];
-      }
-    }
-  };"""), ("""  stage(0);
-  cp_async_commit();
-  for (int ch = 0; ch < nchunks; ++ch) {
-    cp_async_wait<0>();
-    __syncthreads();             // chunk ch is in, chunk ch - 1 is done with
-    if (ch + 1 < nchunks) stage(ch + 1);
-    cp_async_commit();
-""", """  load(0);
-  stage(0);
-  for (int ch = 0; ch < nchunks; ++ch) {
-    __syncthreads();
-    if (ch + 1 < nchunks) load(ch + 1);
-"""), ("""    }
-  }
-  float2* out""", """    }
-    if (ch + 1 < nchunks) stage(ch + 1);
-  }
-  float2* out""")]
-# The narrow entry point up to 64 channels: (anchor, replacement).
-NARROW64 = [("  if (C < 2 || C > 32 || B < 1 || m < 1) return cudaErrorInvalidValue;",
-             "  if (C < 2 || C > 64 || B < 1 || m < 1) return cudaErrorInvalidValue;"),
-            ("""  else
-    err = launch_units<32>(h, mk, pg, pi, u, m, B, C, lam, min_data, s);""",
-             """  else if (C <= 32)
-    err = launch_units<32>(h, mk, pg, pi, u, m, B, C, lam, min_data, s);
-  else
-    err = launch_units<64>(h, mk, pg, pi, u, m, B, C, lam, min_data, s);""")]
-# L2 prefetch sizes hinted by the ``l2 N`` builds' copies.
-PREFETCH = (128, 256)
-THRESHOLD_C = (17, 32, 33, 48, 64)
+# Scan blocks (warps a block, chunks of 32 channels a span) beside the
+# wrapper's.
+BLOCKS = ((1, 4), (1, 16), (2, 8), (4, 8))
+THRESHOLD_C = (17, 32)
 THRESHOLD_NODES = (1, 2, 32)
 V, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -139,33 +60,8 @@ def sources() -> dict:
     """{name: source text} of every build."""
     from repro_torch.kernels import _build
     repo = open(_build.CSRC / "split.cu").read()
-    out = {"first": open(os.path.join(HERE, "split_wide_first.cu")).read(),
-           "repo": repo}
-    text = repo
-    for old, new in REGS:
-        assert text.count(old) == 1, old
-        text = text.replace(old, new)
-    out["regs"] = text
-    text = repo
-    for old, new in NARROW64:
-        assert text.count(old) == 1, old
-        text = text.replace(old, new)
-    out["narrow 64"] = text
-    call = "      cp_async4(smem_addr(buf + chunk_slot(lane, q, j, run)),"
-    assert repo.count(call) == 1
-    for n in PREFETCH:
-        helper = (
-            '#include "common.cuh"\n'
-            "__device__ __forceinline__ void cp_async4_l2(uint32_t dst, "
-            "const void* src) {\n"
-            f'  asm volatile("cp.async.ca.shared.global.L2::{n}B [%0], '
-            '[%1], 4;\\n" ::"r"(dst), "l"(src) : "memory");\n}\n')
-        out[f"l2 {n}"] = helper + repo.replace(call, call.replace(
-            "cp_async4(", "cp_async4_l2("))
-    for name, (old, new) in DIAGNOSED.items():
-        assert old in repo, old
-        out["diag " + name] = repo.replace(old, new)
-    return out
+    return {"first": open(os.path.join(HERE, "split_wide_first.cu")).read(),
+            "repo": repo}
 
 
 def build(found: dict) -> dict:
@@ -223,8 +119,9 @@ def runner(lib, entry: str, hist, mask, block=None):
             torch.empty((nodes, m), dtype=torch.int32, device=dev)]
     ints = [nodes, m, B, C]
     if entry == "wide":
-        groups = warps * -(-(C - 1) // (32 * chunks))
-        ptrs.append(torch.empty((nodes, m, groups, B, 2), device=dev))
+        groups = -(-(C - 1) // (32 * chunks))
+        ptrs.append(torch.empty((nodes, m, groups, B, 2),
+                                dtype=torch.float64, device=dev))
         ints += [warps, chunks]
     fn = (lib.split_scan_launch if entry == "narrow"
           else lib.split_scan_wide_launch)
@@ -286,9 +183,6 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     variants = [("first", "first", None), ("repo", "wide", None)]
     variants += [(f"repo {w} x {k}", "wide", (w, k)) for w, k in BLOCKS]
-    variants += [("regs", "wide", None)]
-    variants += [(f"l2 {n}", "wide", None) for n in PREFETCH]
-    variants += [("diag " + d, "wide", None) for d in DIAGNOSED]
     variants += [("repo", "wide", None), ("first", "first", None)]
     for nodes in ((1, 32) if quick else NODES):
         hist, mask = case(torch, gen, dev, nodes, 513)
@@ -298,12 +192,11 @@ def main() -> int:
             lib = libs["repo" if name.startswith("repo") else name]
             run, (gain, idx) = runner(lib, entry, hist, mask, block)
             ms = events_ms(run)
-            rec = {"shape": f"n{nodes}_c513", "variant": name, "ms": ms}
-            if not name.startswith("diag"):
-                rec.update(idx_equal=bool(torch.equal(idx, pi)),
-                           max_abs_err=float((gain - pg).abs().max()))
-                assert rec["idx_equal"], f"{name} at {nodes} nodes differs"
-            if block is None and entry == "wide" and "diag" not in name:
+            rec = {"shape": f"n{nodes}_c513", "variant": name, "ms": ms,
+                   "idx_equal": bool(torch.equal(idx, pi)),
+                   "max_abs_err": float((gain - pg).abs().max())}
+            assert rec["idx_equal"], f"{name} at {nodes} nodes differs"
+            if block is None and entry == "wide":
                 if want is None:
                     want = gain.clone()
                 rec["bitwise_repo"] = bool(torch.equal(gain, want))
@@ -320,7 +213,7 @@ def main() -> int:
             hist, mask = case(torch, gen, dev, nodes, C)
             pg, pi = ref.split_scan_ref(hist, 1.0, 1.0, mask)
             for entry in ("narrow", "wide", "wide", "narrow"):
-                lib = libs["narrow 64" if entry == "narrow" else "repo"]
+                lib = libs["repo"]
                 run, (gain, idx) = runner(lib, entry, hist, mask)
                 ms = events_ms(run)
                 same_idx = bool(torch.equal(idx, pi))
