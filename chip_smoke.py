@@ -146,7 +146,22 @@ Phases (any failure exits non-zero; nothing is caught):
      within 1e-4 of the largest; with the default bf16 cache, the CPU
      attending over the card's cache bits within 1e-4 of it, and card vs
      CPU running free within 1e-3 of it;
- 12. print the kernel table as one JSON line, the card's line, and last
+ 12. distributed SketchBoost (`core.distributed.fit_distributed`) in
+     worlds of ranks that `launch.dist.spawn` starts on the one card, each
+     rank on card 0 (`distributed_phase`): (a) one rank over NCCL, mesh (1,
+     1), phase 4's data at full width, 3 rounds with Pi injected: forest
+     and F bitwise a single-device fit's, the test rows through B3; (b)
+     four ranks over gloo with CUDA tensors, mesh (2, 2): the same splits
+     as (a), the valid loss within 1e-4 relative, each rank's histogram
+     bytes equal to `round_collective_bytes`, seconds a round and peak
+     memory a rank, B3 on rank 0; (c) 65,536 x 16, d = 8 dyadic targets,
+     one round of every sketch method in both growth modes, the direct
+     engine, bf16 statistics, ``feature_shard``, one-vs-all and the
+     pass-through compressed collective, (1, 1) against (2, 2), and one
+     compressed run at ``dist_hist_k=2`` with its drift; (d) 4 rounds on
+     (2, 2) killed at round 2 and resumed in a two-rank world on (1, 2),
+     bitwise;
+ 13. print the kernel table as one JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
@@ -158,8 +173,9 @@ explain path), again around each fit of phase 9 (the direct engine's
 B4, Full's B2-wide), of phase 9b (B1-bf16 in the bf16 fits), of phase
 9c (B1 and B2 on the one-vs-all path) and of each fit of phase 9d (a),
 again
-around phase 10's prefill requests (B7), and again around phase 11's
-decode steps (B8).
+around phase 10's prefill requests (B7), again around phase 11's
+decode steps (B8), and in each rank of phase 12 around each distributed
+fit and the prediction after it (B1, B2, B3, B4, B1-bf16).
 """
 from __future__ import annotations
 
@@ -2047,6 +2063,326 @@ def resume_phase(torch, dev, Xtr, ytr, Xev, yev, cfg):
     return out
 
 
+# Phase 12 (c) and (d): 65,536 x 16 codes drawn uniformly (no duplicate
+# features, so no exact-tie splits), d = 8 dyadic multitask_mse targets.
+DIST_SMALL = (65_536, 16, 8)
+SKETCHES = ("none", "top_outputs", "random_sampling", "random_projection",
+            "truncated_svd")
+
+
+def dist_small_data(seed=12):
+    """(codes, Yc, Yd, Yw): uint8 codes; ``Yd`` piecewise constant in three
+    features' thresholds at quarter multiples in [-2, 2], so that with
+    ``lambda_l2=0`` every leaf is pure, every leaf value a mean of equal
+    values and F stays dyadic round after round (the sums exact in any
+    order); ``Yc`` = Yd plus dyadic noise, for one-round fits; ``Yw`` 40
+    dyadic outputs (SketchBoost Full's 41 channels take B2's wide path)."""
+    import numpy as np
+    n, m, d = DIST_SMALL
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (n, m), dtype=np.uint8)
+    cell = ((codes[:, 0] > 127).astype(int) + 2 * (codes[:, 1] > 63)
+            + 4 * (codes[:, 2] > 191))
+    levels = rng.integers(-8, 9, (8, d)) / 4.0
+    Yd = levels[cell].astype(np.float32)
+    noise = np.round(rng.normal(size=(n, d)) * 2) / 4
+    wide = np.round(rng.normal(size=(n, 40)) * 4) / 4
+    return (codes, (Yd + noise).astype(np.float32), Yd,
+            (np.repeat(Yd, 5, axis=1) + wide).astype(np.float32))
+
+
+def dist_small_cases():
+    """Phase 12 (c)'s one-round cases (name, config, fit options, targets),
+    the same on both meshes, and (d)'s four-round kill-and-resume
+    configuration."""
+    n, m, d = DIST_SMALL
+    base = dict(loss="multitask_mse", n_outputs=d, depth=6, n_bins=256,
+                learning_rate=0.5, n_trees=1, seed=3)
+    cases = []
+    for method in SKETCHES:
+        for growth, leaves in (("levelwise", 0), ("leafwise", 8)):
+            cases.append((f"c_{method}_{growth}", dict(
+                base, sketch_method=method,
+                sketch_k=0 if method == "none" else 3, growth=growth,
+                max_leaves=leaves), {}, "Yc"))
+    top = dict(base, sketch_method="top_outputs", sketch_k=3)
+    full = dict(base, sketch_method="none", sketch_k=0)
+    cases += [
+        ("c_direct", dict(top, hist_engine="direct"), {}, "Yc"),
+        ("c_bf16", dict(top, hist_dtype="bfloat16"), {}, "Yc"),
+        ("c_feature_shard", top, {"feature_shard": True}, "Yc"),
+        ("c_one_vs_all", dict(base, strategy="one_vs_all"), {}, "Yc"),
+        ("c_full_wide", dict(full, n_outputs=40), {}, "Yw"),
+        ("c_passthrough_levelwise", dict(
+            full, dist_hist_compression="sketch", dist_hist_k=d), {}, "Yc"),
+        ("c_passthrough_leafwise", dict(
+            full, growth="leafwise", max_leaves=8,
+            dist_hist_compression="sketch", dist_hist_k=d), {}, "Yc"),
+        ("c_compressed_k2", dict(
+            full, dist_hist_compression="sketch", dist_hist_k=2), {}, "Yc"),
+    ]
+    resume = dict(base, sketch_method="top_outputs", sketch_k=3, n_trees=4,
+                  lambda_l2=0.0)
+    return cases, resume
+
+
+def distributed_phase(torch, dev, Xtr, ytr, Xte, yte, cfg,
+                      phase4_round_s=None):
+    """Phase 12: distributed SketchBoost (`core.distributed.
+    fit_distributed`) in worlds of ranks started by `launch.dist.spawn`,
+    every rank on card 0 (``torch.cuda.set_device(0)``).  (a) a one-rank
+    NCCL world, mesh (1, 1): phase 4's data at full width, 3 rounds with Pi
+    injected, the forest and F bitwise a single-device fit's
+    (`boosting.boost_round`, as `SketchBoost.fit` runs it), and the
+    test rows predicted through B3 on the rank; (b) four ranks on the one
+    card over gloo (CUDA tensors), mesh (2, 2), 1,048,576 rows and 256
+    outputs a rank: the same splits as (a) (or the first differing node a
+    near-tie, named), the valid loss within 1e-4 relative, the histogram
+    bytes each rank all-reduced equal to `round_collective_bytes`, seconds
+    a round, peak memory a rank, and B3 on rank 0; (c) 65,536 x 16, d = 8,
+    one round each of every sketch method level-wise and leaf-wise at 8
+    leaves, the direct engine (B4), bf16 statistics (B1-bf16),
+    ``feature_shard``, one-vs-all, SketchBoost Full at d = 40 (B2-wide)
+    and the pass-through compressed
+    collective, (1, 1) against (2, 2): F and the trees bitwise, the gains
+    within 1e-5 of the tree's largest (sums of non-dyadic sketch
+    statistics, added in another order on each mesh); one compressed run at
+    ``dist_hist_k=2`` with its drift from the exact run; (d) 4 rounds on
+    (2, 2) saving every round, killed at round 2 by `KillAtRound`,
+    resumed in a new two-rank world on (1, 2): forest and F bitwise the
+    uninterrupted (2, 2) run's.  Returns the record and each kernel's
+    launches by world and case."""
+    import dataclasses
+    import hashlib
+    import numpy as np
+    from repro_torch.core import boosting as B
+    from repro_torch.core import distributed as D
+    from repro_torch.core import forest as FO
+    from repro_torch.core import histogram as H
+    from repro_torch.core import losses as L
+    from repro_torch.core import quantize as Q
+    from repro_torch.core import sketch as SK
+    from repro_torch.core import tree as T
+    from repro_torch.launch import dist as LD
+
+    t_phase = time.perf_counter()
+    rec = {}
+    d, k = cfg.n_outputs, cfg.sketch_k
+    cfg3 = dataclasses.replace(cfg, n_trees=3)
+    rounds = cfg3.n_trees
+    gen = torch.Generator(device=dev).manual_seed(12)
+    mats = [SK.random_projection_matrix(d, k, gen, device=dev)
+            for _ in range(rounds)]
+    # The single-device fit: SketchBoost.fit's binning, base score and
+    # rounds, F kept.
+    q = Q.fit_quantizer(Xtr, cfg.n_bins, seed=cfg.seed, device=dev)
+    codes_t = Q.apply_quantizer(q, torch.as_tensor(Xtr, device=dev))
+    codes = Q.codes_rows(codes_t)
+    Y = torch.as_tensor(ytr, device=dev).long()
+    counts = torch.bincount(Y, minlength=d).to(torch.float32) + 1.0
+    base = torch.log(counts / counts.sum()).to(torch.float32)
+    run = dataclasses.replace(cfg3.strip_io(),
+                              hist_engine=H.resolve_hist_engine("auto"))
+    F = base.expand(len(Xtr), d).contiguous()
+    trees, single_s = [], []
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trees.append(B.boost_round(F, codes, codes_t, Y, run, draw=mats[r]))
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t0)
+    forest1 = T.stack_trees(trees)
+    F_sha = hashlib.sha256(F.cpu().numpy().tobytes()).hexdigest()
+    codes_te = Q.codes_rows(Q.apply_quantizer(
+        q, torch.as_tensor(Xte, device=dev)))
+    packed1 = FO.pack_forest(forest1, base, cfg.learning_rate)
+    raw1 = FO.predict_raw(packed1, codes_te)
+    loss = L.get_loss(cfg.loss)
+    yte_t = torch.as_tensor(yte, device=dev).long()
+    vloss1 = float(loss.value(raw1, yte_t))
+    forest1 = {f: getattr(forest1, f).cpu().numpy() for f in forest1._fields}
+    arrays = dict(codes=codes.cpu().numpy(), Y=np.asarray(ytr, np.int64),
+                  base=base.cpu().numpy(),
+                  mats=[m_.cpu().numpy() for m_ in mats],
+                  codes_te=codes_te.cpu().numpy(),
+                  yte=np.asarray(yte, np.int64))
+    del F, trees, codes, codes_t, Y, raw1, packed1, codes_te, yte_t, mats
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[12] single-device fit, 3 rounds with Pi injected: seconds a "
+          f"round {single_s}, valid loss {vloss1!r}")
+
+    big = dict(cfg=dataclasses.asdict(cfg3), codes="codes", Y="Y",
+               kw=dict(base_score="base", sketch_mats="mats", n_rounds=3),
+               predict=dict(codes="codes_te", labels="yte"),
+               bytes_model=True)
+    small_codes, Yc, Yd, Yw = dist_small_data()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        small, resume = dist_small_cases()
+        arrays.update(small_codes=small_codes, Yc=Yc, Yd=Yd, Yw=Yw)
+
+        def small_cases(shape):
+            return [dict(name=name, mesh=(shape, ("data", "model")),
+                         cfg=c, codes="small_codes", Y=y_, kw=kw,
+                         return_F=True, bytes_model=True)
+                    for name, c, kw, y_ in small]
+        cut = os.path.join(tmp, "cut")
+        mesh11, mesh22 = ((1, 1), ("data", "model")), ((2, 2),
+                                                       ("data", "model"))
+        world_a = [dict(big, name="a", mesh=mesh11)] + small_cases((1, 1))
+        world_b = ([dict(big, name="b", mesh=mesh22)] + small_cases((2, 2))
+                   + [dict(name="d_full", mesh=mesh22, cfg=resume,
+                           codes="small_codes", Y="Yd", return_F=True),
+                      dict(name="d_cut", mesh=mesh22, codes="small_codes",
+                           Y="Yd", cfg=dict(resume, save_every=1,
+                                            ckpt_dir=cut, ckpt_keep=4),
+                           kill_at=2)])
+        world_c = [dict(name="d_resume", mesh=((1, 2), ("data", "model")),
+                        cfg=dict(resume, resume_from=cut),
+                        codes="small_codes", Y="Yd", return_F=True)]
+        small_arrays = dict(small_codes=small_codes, Yd=Yd)
+        worlds = {}
+        for label, size, backend, cases, arr in (
+                ("A (1 rank, nccl)", 1, "nccl", world_a, arrays),
+                ("B (4 ranks, gloo)", 4, "gloo", world_b, arrays),
+                ("C (2 ranks, gloo)", 2, "gloo", world_c, small_arrays)):
+            t0 = time.perf_counter()
+            worlds[label] = LD.spawn(
+                "repro_torch.launch.dist:run_cases", size,
+                os.path.join(tmp, label.split()[0]), backend=backend,
+                device="cuda:0", payload=dict(arrays=arr, cases=cases),
+                timeout=400)
+            print(f"[12] world {label}: {len(cases)} cases in "
+                  f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wa = worlds["A (1 rank, nccl)"]
+    wb = worlds["B (4 ranks, gloo)"]
+    wc = worlds["C (2 ranks, gloo)"]
+
+    # (a): bitwise the single-device fit.
+    a = wa[0]["a"]
+    a_forest = all(np.array_equal(a["forest"][f], forest1[f])
+                   for f in forest1)
+    a_F = a["F_local_sha256"] == F_sha
+    print(f"[12] (a) mesh (1, 1), NCCL: forest bitwise {a_forest}, F "
+          f"bitwise {a_F}; seconds a round {a['round_s']} (single-device "
+          f"{single_s}, phase 4 {phase4_round_s}); valid loss {a['valid_loss']!r} (single-device "
+          f"{vloss1!r}); bytes by axis/tag {a['bytes']}; histogram bytes "
+          f"{a['hist_bytes']}, round_collective_bytes over the rounds "
+          f"{a['hist_bytes_model']}; launches {a['launches']}"
+          f", predict {a['predict_launches']}")
+    assert a_forest and a_F and a["valid_loss"] == vloss1
+    assert a["hist_bytes"] == a["hist_bytes_model"], a["bytes"]
+
+    # (b): the same splits, the valid loss, the bytes a rank.
+    b = wb[0]["b"]
+    fb = b["forest"]
+    diff = np.flatnonzero((fb["feat"] != forest1["feat"])
+                          | (fb["thr"] != forest1["thr"]))
+    near = None
+    if diff.size:
+        r_, v_ = np.unravel_index(diff[0], fb["feat"].shape)
+        near = dict(round=int(r_), node=int(v_),
+                    gain_a=float(forest1["gain"][r_, v_]),
+                    gain_b=float(fb["gain"][r_, v_]))
+        print(f"[12] (b) {diff.size} node slots differ from (a); the first "
+              f"{near}")
+    rel = abs(b["valid_loss"] - vloss1) / abs(vloss1)
+    per_rank = [r["b"]["hist_bytes"] for r in wb]
+    want = b["hist_bytes_model"]
+    peaks = [r["b"]["peak_bytes"] for r in wb]
+    print(f"[12] (b) mesh (2, 2), 4 ranks on one card over gloo: node slots "
+          f"that differ from (a) {diff.size}; valid loss {b['valid_loss']!r}"
+          f" (relative to (a) {rel!r}); histogram bytes a rank {per_rank} "
+          f"(round_collective_bytes over the rounds {want}); bytes by axis/tag on "
+          f"rank 0 {b['bytes']}; seconds a round by rank "
+          f"{[r['b']['round_s'] for r in wb]}; peak memory a rank "
+          f"{[p / 2**30 for p in peaks]} GiB; B3 on rank 0: "
+          f"{b['predict_shape']} in {b['predict_s']:.4f} s, launches "
+          f"{b['predict_launches']}; launches a rank "
+          f"{[r['b']['launches'] for r in wb]}")
+    assert rel <= 1e-4, rel
+    assert diff.size == 0 or abs(near["gain_a"] - near["gain_b"]) <= \
+        1e-5 * abs(near["gain_a"]), near
+    assert all(p == want for p in per_rank), (per_rank, want)
+    assert b["predict_finite"] and b["predict_shape"] == (len(Xte), d)
+
+    # (c): (1, 1) against (2, 2), bitwise but for the gains' rounding.
+    small_rec = {}
+    for name, c, _, _ in small:
+        one, four = wa[0][name], wb[0][name]
+        # The gains are differences of squares of histogram sums, which
+        # the two meshes add in different orders where the sketch's
+        # statistics are not dyadic: held within 1e-5 of the tree's largest
+        # gain; everything else bitwise.
+        differ = [f for f in one["forest"] if f != "gain" and not
+                  np.array_equal(one["forest"][f], four["forest"][f])]
+        if not np.array_equal(one["F"], four["F"]):
+            differ.append("F")
+        g1, g4 = one["forest"]["gain"], four["forest"]["gain"]
+        gain_rel = float(np.abs(g1 - g4).max() / np.abs(g1).max())
+        same = not differ and gain_rel <= 1e-5
+        hist = [r[name]["hist_bytes"] for r in wb]
+        small_rec[name] = dict(bitwise=same, differ=differ,
+                               gain_rel=gain_rel, hist_bytes=hist,
+                               bytes_model=four["hist_bytes_model"],
+                               seconds_11=one["seconds"],
+                               seconds_22=four["seconds"])
+        assert all(h == small_rec[name]["bytes_model"] for h in hist), (
+            name, hist)
+        if name == "c_compressed_k2":
+            # Its drift from the exact collective is a reading, not a check.
+            exact = wb[0]["c_none_levelwise"]
+            y_ = Yc
+            l_ex = float(0.5 * np.mean((exact["F"] - y_) ** 2))
+            l_sk = float(0.5 * np.mean((four["F"] - y_) ** 2))
+            small_rec[name].update(
+                drift_max_abs=float(np.abs(four["F"] - exact["F"]).max()),
+                loss_exact=l_ex, loss_compressed=l_sk)
+            continue
+        assert same, (name, differ, gain_rel)
+    print(f"[12] (c) 65,536 x 16, d = 8, (1, 1) against (2, 2): "
+          f"{json.dumps(small_rec)}")
+    rec["small"] = small_rec
+
+    # (d): kill at round 2 on (2, 2), resume on (1, 2).
+    full, resumed = wb[0]["d_full"], wc[0]["d_resume"]
+    killed = [r["d_cut"] for r in wb]
+    # At lambda_l2 = 0 a leaf no row reaches holds 0 / 0: NaN in both.
+    d_forest = all(np.array_equal(full["forest"][f], resumed["forest"][f],
+                                  equal_nan=True) for f in full["forest"])
+    d_F = bool(np.array_equal(full["F"], resumed["F"]))
+    print(f"[12] (d) killed {killed}; resumed on (1, 2) to 4 rounds: forest "
+          f"bitwise {d_forest}, F bitwise {d_F}")
+    assert all(x == {"killed_at": 2} for x in killed), killed
+    assert d_forest and d_F
+
+    launches = {"a": a["launches"], "b_rank0": b["launches"],
+                "predict_a": a["predict_launches"],
+                "predict_b": b["predict_launches"],
+                "small_22_rank0": {
+                    kname: sum(wb[0][name]["launches"][kname]
+                               for name, _, _, _ in small)
+                    for kname in a["launches"]}}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[12] phase 12 took {rec['phase_s']:.2f} s")
+    rec.update(single_round_s=single_s, valid_loss_single=vloss1,
+               a=dict(round_s=a["round_s"], valid_loss=a["valid_loss"],
+                      bytes=a["bytes"], forest_bitwise=a_forest,
+                      F_bitwise=a_F),
+               b=dict(round_s=[r["b"]["round_s"] for r in wb],
+                      valid_loss=b["valid_loss"], rel_to_a=rel,
+                      differing_slots=int(diff.size), near_tie=near,
+                      hist_bytes=per_rank, model_bytes=want,
+                      peak_bytes=peaks, bytes=b["bytes"],
+                      predict_s=b["predict_s"]),
+               d=dict(killed=killed, forest_bitwise=d_forest,
+                      F_bitwise=d_F), launches=launches)
+    return rec, launches
+
+
 def make_data(torch, dev, n, m, d, seed, task="multiclass"):
     """Guyon-scheme multiclass table on the card (make_tabular's recipe);
     with ``task="multitask_mse"`` the targets are the d noisy logits."""
@@ -2716,6 +3052,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2868,7 +3205,9 @@ def main() -> int:
     sampling, sampling_launches = sampling_phase(
         torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b4, b2w, b1bf])
     # Phase 10 runs alone on the card: free the tabular phases' memory.
-    del X, y, Xtr, ytr, Xev, yev, Xte
+    # The host copies of the training and test rows stay for phase 12.
+    yte = y[N_TRAIN + N_EVAL:]
+    del X, y, Xev, yev
     gc.collect()
     torch.cuda.empty_cache()
     prefill, prefill_launches = prefill_phase(torch, dev, b7, every)
@@ -2878,6 +3217,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     decode, decode_launches = decode_phase(torch, dev, b8, every)
+    # Phase 12 spawns its worlds of ranks on the card: free phase 11's memory.
+    gc.collect()
+    torch.cuda.empty_cache()
+    distributed, dist_launches = distributed_phase(
+        torch, dev, Xtr, ytr, Xte, yte, cfg, phase4_round_s=round_s)
+    for key in ("a", "b_rank0", "predict_a", "predict_b"):
+        for name in (hist_kernel.KERNEL.name, split_kernel.KERNEL.name,
+                     predict_kernel.KERNEL.name):
+            if key.startswith("predict") == (
+                    name == predict_kernel.KERNEL.name):
+                assert dist_launches[key][name] > 0, (key, dist_launches)
     for r in rows:
         if r["name"] in launches:            # B1-B3: the fit -> predict path
             r["launches"], r["path"] = launches[r["name"]], "fit+predict"
@@ -2911,14 +3261,22 @@ def main() -> int:
                   if r["name"] in v}
         if by_fit:
             r["sampling_launches"] = by_fit
-    print(json.dumps({"kernels": rows, "fit_s": fit_s,
+    for r in rows:                           # the distributed fits of 12
+        by_run = {k: v[r["name"]] for k, v in dist_launches.items()
+                  if v.get(r["name"])}
+        if by_run:
+            r["distributed_launches"] = by_run
+    script_s = time.perf_counter() - t_script
+    print(f"[13] the script took {script_s:.1f} s")
+    print(json.dumps({"kernels": rows, "fit_s": fit_s, "script_s": script_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
                       "engines_and_sketches": engines,
                       "leafwise_bf16_staged": leafwise,
                       "one_vs_all": one_vs_all, "sampling": sampling,
                       "prefill": prefill,
-                      "decode": decode, "card": smi}))
+                      "decode": decode, "distributed": distributed,
+                      "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,8 @@ channel) and column sampling (``colsample``: a feature mask in the split
 scan), the non-finite guards (`core.guards`), round checkpoints and
 resuming (``save_every``/``ckpt_dir``/``resume_from``, format v4 of
 `io.checkpoint`) and the chaos hooks of `runtime.chaos`.
-``dist_hist_compression`` raises a ValueError that names the distributed
-slice.  The fitted model explains itself as the reference's does:
+``dist_hist_compression="sketch"`` is legal only in the distributed fit
+(`core.distributed`); here it raises, as the reference's does.  The fitted model explains itself as the reference's does:
 `SketchBoost.shap_values`, `apply` and `feature_importances` (``explain/``).
 
 The loop runs one round per iteration for both ``loop="scan"`` (the
@@ -97,15 +97,21 @@ class GBDTConfig:
     resume_from: str = ""
     seed: int = 0
 
-    def validate(self) -> None:
-        """Reject options this slice of the port does not implement, naming
-        the slice that brings each, and unknown or illegal values (the
-        reference's checks of the options the port takes)."""
-        if self.dist_hist_compression != "none":
-            raise ValueError("dist_hist_compression is not ported yet: it "
-                             "comes with the distributed slice of "
-                             "repro_torch")
+    @property
+    def dist_hist_k_effective(self) -> int:
+        """JL width the sketched histogram collective actually uses."""
+        return self.dist_hist_k if self.dist_hist_k > 0 else self.sketch_k
+
+    def validate(self, *, distributed: bool = False) -> None:
+        """Reject unknown or illegal values and options that would be
+        silently ignored (the reference's checks of the options the port
+        takes).  The distributed entry points (`core.distributed`) call it
+        with ``distributed=True``: the histogram collective's options are
+        legal there only, and row and column sampling are single-device
+        only."""
         leafwise = self.growth == "leafwise"
+        sampled = (self.subsample < 1.0 or self.goss_a > 0.0
+                   or self.colsample < 1.0)
         checks = [
             (self.loss in L.LOSSES, f"unknown loss {self.loss!r}"),
             (self.strategy in ("single_tree", "one_vs_all"),
@@ -161,6 +167,27 @@ class GBDTConfig:
             (self.ckpt_keep >= 1,
              "ckpt_keep must be >= 1 (at least the newest checkpoint "
              f"survives pruning), got {self.ckpt_keep}"),
+            (self.dist_hist_compression in ("none", "sketch"),
+             "unknown dist_hist_compression "
+             f"{self.dist_hist_compression!r}; expected 'none' (exact "
+             "all-reduce) or 'sketch' (JL-compressed collective)"),
+            (self.dist_hist_k >= 0,
+             f"dist_hist_k must be >= 0, got {self.dist_hist_k}"),
+            (distributed or self.dist_hist_compression == "none",
+             "dist_hist_compression='sketch' compresses the multi-device "
+             "histogram collective; the single-device path has no "
+             "collective and would silently ignore it: train through "
+             "core.distributed (fit_distributed) or keep 'none'"),
+            (not distributed or self.dist_hist_compression == "none"
+             or self.dist_hist_k_effective >= 1,
+             "dist_hist_compression='sketch' needs a JL width for the "
+             "collective: set dist_hist_k >= 1 (or leave it 0 with "
+             "sketch_k >= 1)"),
+            (not distributed or not sampled,
+             "row and column sampling (subsample, goss_a/goss_b, "
+             "colsample) are single-device only: the distributed round "
+             "would silently ignore them; train through SketchBoost.fit "
+             "or drop them"),
         ]
         for ok, msg in checks:
             if not ok:
@@ -754,14 +781,17 @@ def _one_vs_all_round(F: torch.Tensor, codes: torch.Tensor,
                       codes_t: torch.Tensor, G: torch.Tensor,
                       Hd: torch.Tensor, cfg: GBDTConfig,
                       w: Optional[torch.Tensor] = None,
-                      fmask: Optional[torch.Tensor] = None, bad=None):
+                      fmask: Optional[torch.Tensor] = None, bad=None,
+                      reduce=None):
     """A one-vs-all round: output j's univariate tree grows from ``g_j w``,
     ``w`` and ``h_j``, the outputs in groups (`tree.ova_groups`), and each
     group's ``lr * value`` is added to its columns of ``F`` (two
     roundings, as the reference's ``F + lr * delta.T``).  Under
     ``skip_round`` a round that met a non-finite value zeroes every
     output's tree (the statistics are the sanitized gradients: no sketch
-    to check again).  Returns the round's trees, fields ``(d, ...)``."""
+    to check again).  ``reduce`` (`core.distributed.RowReduce`) makes the
+    groups this rank's share of distributed trees.  Returns the round's
+    trees, fields ``(d, ...)``."""
     n, d = G.shape
     lr = torch.tensor(cfg.learning_rate, dtype=torch.float32,
                       device=F.device)
@@ -775,7 +805,7 @@ def _one_vs_all_round(F: torch.Tensor, codes: torch.Tensor,
             max_leaves=cfg.max_leaves, n_bins=cfg.n_bins,
             lam=cfg.lambda_l2, min_data_in_leaf=cfg.min_data_in_leaf,
             min_gain=cfg.min_gain, feature_mask=fmask,
-            hist_dtype=cfg.hist_dtype, weights=w)
+            hist_dtype=cfg.hist_dtype, weights=w, reduce=reduce)
         if scale is not None:
             tree = tree._replace(value=tree.value * scale,
                                  gain=tree.gain * scale)

@@ -13,8 +13,9 @@ with it the float32 histogram bits, is the same run to run.  With
 is ``parent - built``.
 
 The partitioned level step (the reference's ``build_level_jnp``) is
-the fused `repro_torch.kernels.ops.histogram_splits_level`: the B1 kernel
-on the card, its plain version on the CPU.
+`repro_torch.kernels.ops.build_level` then `ops.combine_scan` (together
+`ops.histogram_splits_level`): the B1 kernel on the card, its plain
+version on the CPU.
 
 The leaf-wise grower carries a `NodePartition` instead: the same stable
 row order, split one node's segment at a time (`split_partition_at`); its

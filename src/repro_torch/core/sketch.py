@@ -149,3 +149,72 @@ def build_sketch(G: torch.Tensor, *, method: str, k: int,
         Pi = truncated_svd_projector(G, k)
     with _full_fp32():
         return G.to(torch.float32) @ Pi
+
+
+def sketch_sharded(G_local: torch.Tensor, *, method: str, k: int, mesh,
+                   model_axis: str = "model", data_axes=("data",),
+                   d_global: Optional[int] = None,
+                   draw: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """The sketch of a sharded G (the reference's ``sketch_sharded``).
+
+    ``G_local`` is this rank's (n_local, d_local) block: rows sharded over
+    ``data_axes``, outputs over ``model_axis`` of `mesh`.  Every method is
+    ``psum_model(G_local @ Pi_local)``, ``Pi_local`` this rank's rows of
+    the global (d, k) operator, built alike on every rank:
+
+    * top_outputs / random_sampling: the column norms summed over the data
+      axes and gathered over the model axis;
+    * random_projection: Pi from ``draw`` or ``generator`` (seeded alike on
+      every rank), never sent;
+    * truncated_svd: G gathered over the model axis, its d x d Gram summed
+      over the data axes;
+    * ``none`` (or ``k >= d``): G's outputs gathered over the model axis.
+
+    Returns the (n_local, k) sketch, the same on every rank of the model
+    axis.  On a (1, 1) mesh each step computes what `build_sketch` does,
+    bit for bit.
+    """
+    from repro_torch.distributed import collectives as C
+
+    if method not in SKETCH_METHODS:
+        raise ValueError(f"unknown sketch method {method!r}")
+    n_loc, d_loc = G_local.shape
+    tp = mesh.axis_size(model_axis)
+    d = d_global if d_global is not None else d_loc * tp
+    Gf = G_local.to(torch.float32)
+
+    def gather_cols(x):
+        parts = C.all_gather(x, mesh, model_axis, tag="sketch")
+        return torch.cat(list(parts), -1)
+
+    if method == "none" or k >= d:
+        return gather_cols(Gf)
+    if draw is not None:
+        draw = draw.to(device=G_local.device, dtype=torch.float32)
+    if method in ("top_outputs", "random_sampling"):
+        norms = gather_cols(C.psum(column_sq_norms(Gf), mesh, data_axes,
+                                   tag="sketch"))
+        if method == "top_outputs":
+            Pi = top_outputs_selector(norms, k)
+        else:
+            if draw is None:
+                draw = gumbel_noise(k, d, _generator(generator, method),
+                                    device=G_local.device)
+            Pi = random_sampling_selector(norms, k, draw)
+    elif method == "random_projection":
+        Pi = draw if draw is not None else random_projection_matrix(
+            d, k, _generator(generator, method), device=G_local.device)
+    else:
+        G_full = gather_cols(Gf)
+        with _full_fp32():
+            gram = G_full.T @ G_full
+        del G_full
+        gram = C.psum(gram, mesh, data_axes, tag="sketch")
+        Pi = torch.linalg.eigh(gram).eigenvectors[:, -k:]
+    j = mesh.index(model_axis)
+    Pi_local = Pi[j * d_loc:(j + 1) * d_loc]
+    with _full_fp32():
+        part = Gf @ Pi_local
+    return C.psum(part, mesh, model_axis, tag="sketch")

@@ -114,7 +114,7 @@ def grow_tree(codes: torch.Tensor, codes_t: torch.Tensor,
               min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
               feature_mask: Optional[torch.Tensor] = None,
               hist_engine: str = "auto", hist_dtype: str = "float32",
-              weights: Optional[torch.Tensor] = None):
+              weights: Optional[torch.Tensor] = None, reduce=None):
     """Grow one multivariate tree level by level.
 
     ``codes`` (n, m) and ``codes_t`` (m, n) are the same uint8 codes in
@@ -123,14 +123,22 @@ def grow_tree(codes: torch.Tensor, codes_t: torch.Tensor,
     ``weights`` (n,) the rows' sample weights (the count channel), None
     for all ones; ``feature_mask`` (m,) bool, None for every feature.
     ``hist_engine`` (`histogram.resolve_hist_engine`) picks each level's
-    step: ``"direct"`` runs `ops.histogram_splits` on the rows in dataset
-    order (B4, then B2) and keeps no partition; ``"partition"`` and
-    ``"subtract"`` run `ops.histogram_splits_level` on the node-sorted
-    partition (B1, then B2), ``"subtract"`` building only the smaller child
-    of each parent and deriving its sibling from the previous level.
+    step: ``"direct"`` builds with `ops.histogram` on the rows in dataset
+    order (B4) and keeps no partition; ``"partition"`` and ``"subtract"``
+    build with `ops.build_level` on the node-sorted partition (B1),
+    ``"subtract"`` building only the smaller child of each parent and
+    deriving its sibling from the previous level (`ops.combine_scan`); the
+    split scan (B2) follows.
     ``hist_dtype="bfloat16"`` rounds the statistics to bf16 once and
     builds through B1-bf16 (partitioned engines); ``"direct"`` ignores it,
     as the reference's does (B4 has no bf16 variant).
+
+    ``reduce`` (`core.distributed.RowReduce`, None on one device) makes the
+    grower one rank's share of a distributed tree: the smaller children are
+    picked from the counts summed over the ranks, each level's built
+    histograms are all-reduced between the build and the scan, the winners
+    are gathered over the model axis under ``feature_shard`` (``codes_t``
+    is then this rank's features), and the leaf sums and covers are summed.
     Returns ``(Tree, leaf_pos)``.
     """
     n = codes.shape[0]
@@ -148,19 +156,34 @@ def grow_tree(codes: torch.Tensor, codes_t: torch.Tensor,
     prev_hist = None
     for lvl in range(depth):
         if engine == "direct":
-            best_gain, best_idx = ops.histogram_splits(
-                codes_t, node_pos, stats, lam, min_data_in_leaf,
-                feature_mask, n_nodes=2 ** lvl, n_bins=n_bins)
+            hist = ops.histogram(codes_t, node_pos, stats, n_nodes=2 ** lvl,
+                                 n_bins=n_bins)
+            if reduce is not None:
+                hist = reduce.hist(hist, lvl)
+            best_gain, best_idx = ops.split_scan(hist, lam, min_data_in_leaf,
+                                                 feature_mask)
         else:
-            subtract = engine == "subtract" and lvl > 0
-            best_gain, best_idx, hist = ops.histogram_splits_level(
-                codes_t, stats_h, state.order, state.counts, prev_hist, lam,
-                min_data_in_leaf, feature_mask, n_bins=n_bins,
-                subtract=subtract, hist_dtype=hist_dtype)
+            side = None
+            if engine == "subtract" and lvl > 0:
+                counts = (state.counts if reduce is None
+                          else reduce.counts(state.counts))
+                side = H.smaller_children(counts)[0]
+            stats_p = stats_h.index_select(0, state.order.long()).contiguous()
+            built = ops.build_level(codes_t, stats_p, state.order,
+                                    state.counts, side, n_bins=n_bins,
+                                    hist_dtype=hist_dtype)
+            del stats_p
+            if reduce is not None:
+                built = reduce.hist(built, lvl)
+            best_gain, best_idx, hist = ops.combine_scan(
+                built, side, prev_hist, lam, min_data_in_leaf, feature_mask)
+            del built
             prev_hist = hist if engine == "subtract" else None
-            del hist
+        del hist
         sp = S.splits_from_flat(best_gain, best_idx, n_bins=n_bins,
                                 min_gain=min_gain)
+        if reduce is not None:
+            sp = reduce.pick(sp)
         off = 2 ** lvl - 1
         feat[off:2 * off + 1] = sp.feat
         thr[off:2 * off + 1] = sp.thr
@@ -172,6 +195,8 @@ def grow_tree(codes: torch.Tensor, codes_t: torch.Tensor,
 
     g_sum, h_sum, cover = H.leaf_sums(node_pos, G, H_diag,
                                       n_leaves=2 ** depth, weights=weights)
+    if reduce is not None:
+        g_sum, h_sum, cover = (reduce.sums(x) for x in (g_sum, h_sum, cover))
     value = -g_sum / (h_sum + lam)
     tree = Tree(feat=feat, thr=thr, value=value, gain=gain, cover=cover)
     return tree, node_pos
@@ -184,7 +209,7 @@ def grow_tree_leafwise(codes: torch.Tensor, codes_t: torch.Tensor,
                        min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
                        feature_mask: Optional[torch.Tensor] = None,
                        hist_dtype: str = "float32",
-                       weights: Optional[torch.Tensor] = None):
+                       weights: Optional[torch.Tensor] = None, reduce=None):
     """Grow one multivariate tree leaf-wise (best-first).
 
     Each step expands the frontier leaf with the highest pending split gain
@@ -208,6 +233,14 @@ def grow_tree_leafwise(codes: torch.Tensor, codes_t: torch.Tensor,
     two growers give the same leaves, bit for bit.
     The partition's row counts (which child is built) are unweighted, as
     the reference's are; leaf sums and covers are weighted by ``weights``.
+
+    With ``reduce`` (`core.distributed.RowReduce`) the grower is one rank's
+    share of a distributed tree, as the reference's ``psum_axes``: the root
+    and every built child are all-reduced (collective step 0 the root, t +
+    1 expansion t), the built child is the smaller one by the counts
+    summed over the ranks (one small all-reduce an expansion), so a rank
+    may build up to all of its rows of the node, and the leaf sums and
+    covers are summed.
     Returns ``(NodeTree, leaf_pos)``, ``leaf_pos`` the (n,) int32 terminal
     node of each row.
     """
@@ -217,9 +250,10 @@ def grow_tree_leafwise(codes: torch.Tensor, codes_t: torch.Tensor,
     stats_h = ops.stats_for(stats, hist_dtype)
     gate = np.float32(min_gain)
 
-    def build(rows):
-        return ops.node_histogram(codes_t, rows, stats_h, n_bins=n_bins,
-                                  hist_dtype=hist_dtype)
+    def build(rows, step):
+        h = ops.node_histogram(codes_t, rows, stats_h, n_bins=n_bins,
+                               hist_dtype=hist_dtype)
+        return h if reduce is None else reduce.hist(h, step)
 
     def score(hists):
         """Best splits of (k, m, B, C) histograms, read to the host in one
@@ -243,14 +277,14 @@ def grow_tree_leafwise(codes: torch.Tensor, codes_t: torch.Tensor,
     pend_feat = np.zeros(N, np.int32)
     pend_thr = np.zeros(N, np.int32)
 
-    root_hist = build(part.order)
+    root_hist = build(part.order, 0)
     g0, f0, t0, leaf0 = score(root_hist[None])
     if not (leaf0[0] or depth < 1 or max_leaves < 2):
         pend_gain[0] = g0[0]
     pend_feat[0], pend_thr[0] = f0[0], t0[0]
     pool = {0: root_hist}
     node_count = 1
-    for _ in range(max_leaves - 1):
+    for t in range(max_leaves - 1):
         p = int(np.argmax(pend_gain))
         if not pend_gain[p] > gate:          # the frontier is empty
             break
@@ -261,8 +295,12 @@ def grow_tree_leafwise(codes: torch.Tensor, codes_t: torch.Tensor,
         left[p], right[p] = c1, c2
         d_child = node_depth[p] + 1
         node_depth[c1] = node_depth[c2] = d_child
-        built_left = bool(part.counts[c1] <= part.counts[c2])
-        built = build(H.gather_node_rows(part, c1 if built_left else c2))
+        pair = part.counts[[c1, c2]]
+        if reduce is not None:
+            pair = reduce.counts(pair)
+        built_left = bool(pair[0] <= pair[1])
+        built = build(H.gather_node_rows(part, c1 if built_left else c2),
+                      t + 1)
         sib = pool.pop(p) - built
         hists = (built, sib) if built_left else (sib, built)
         g, f, t, leaf = score(torch.stack(hists))
@@ -280,6 +318,9 @@ def grow_tree_leafwise(codes: torch.Tensor, codes_t: torch.Tensor,
     leaf_pos[part.order.long()] = part.node_perm
     g_sum, h_sum, cover_leaf = H.leaf_sums(leaf_pos, G, H_diag, n_leaves=N,
                                            weights=weights)
+    if reduce is not None:
+        g_sum, h_sum, cover_leaf = (reduce.sums(x)
+                                    for x in (g_sum, h_sum, cover_leaf))
     is_term = torch.from_numpy(left == np.arange(N)).to(device)
     value = torch.where(is_term[:, None], -g_sum / (h_sum + lam),
                         torch.zeros((), device=device))
@@ -409,7 +450,8 @@ def grow_trees_levelwise(codes_t: torch.Tensor, G: torch.Tensor,
                          feature_mask: Optional[torch.Tensor] = None,
                          subtract: bool = True,
                          hist_dtype: str = "float32",
-                         weights: Optional[torch.Tensor] = None):
+                         weights: Optional[torch.Tensor] = None,
+                         reduce=None):
     """Grow one univariate tree per column of ``G`` level by level, all in
     one partition (the ``"partition"`` engine, or ``"subtract"`` with
     ``subtract``).
@@ -424,6 +466,10 @@ def grow_trees_levelwise(codes_t: torch.Tensor, G: torch.Tensor,
     advances the partition from each entry's routing bit.  A tree's
     histograms, splits and leaf sums depend only on its own entries, in
     the same order, so the trees are those of one tree at a time.
+    With ``reduce`` (`core.distributed.RowReduce`) the group's smaller
+    children come from the counts summed over the ranks, its built
+    histograms are all-reduced between the B1 and the B2 launch, and its
+    leaf sums and covers are summed.
     Returns ``(Tree, leaf_pos)``: the tree's fields with a leading
     ``trees`` axis (value ``(trees, 2^D, 1)``) and ``leaf_pos`` (trees, n)
     int32, the leaf of each row in each tree.
@@ -446,12 +492,20 @@ def grow_trees_levelwise(codes_t: torch.Tensor, G: torch.Tensor,
         idx = _flat_index(state.node_perm >> lvl, state.order, n, entries)
         stats_p = _entry_stats(g_h, idx, w_h, state.order)
         del idx
-        best_gain, best_idx, hist = ops.histogram_splits_partitioned(
-            codes_t, stats_p, state.order, state.counts, prev_hist, lam, min_data_in_leaf,
-            feature_mask, n_bins=n_bins, subtract=subtract and lvl > 0,
-            hist_dtype=hist_dtype)
+        side = None
+        if subtract and lvl > 0:
+            counts = (state.counts if reduce is None
+                      else reduce.counts(state.counts))
+            side = H.smaller_children(counts)[0]
+        built = ops.build_level(codes_t, stats_p, state.order, state.counts,
+                                side, n_bins=n_bins, hist_dtype=hist_dtype)
+        del stats_p
+        if reduce is not None:
+            built = reduce.hist(built, lvl)
+        best_gain, best_idx, hist = ops.combine_scan(
+            built, side, prev_hist, lam, min_data_in_leaf, feature_mask)
         prev_hist = hist if subtract else None
-        del hist, stats_p
+        del hist, built
         sp = S.splits_from_flat(best_gain, best_idx, n_bins=n_bins,
                                 min_gain=min_gain)
         off = 2 ** lvl - 1
@@ -465,9 +519,13 @@ def grow_trees_levelwise(codes_t: torch.Tensor, G: torch.Tensor,
     idx = _flat_index(state.node_perm >> depth, state.order, n, entries)
     sums = _leaf_sums(g_flat, _flat_weighted(H_diag, weights), idx,
                       state.counts, weights, state.order)
+    if reduce is not None:
+        sums = reduce.sums(sums)
     value = -sums[:, 0] / (sums[:, 1] + lam)
     cover = (state.counts.to(torch.float32) if weights is None
              else sums[:, 2])
+    if reduce is not None and weights is None:
+        cover = reduce.sums(cover)
     leaf_pos = torch.empty(trees * n, dtype=torch.int32, device=device)
     leaf_pos[idx] = state.node_perm & (2 ** depth - 1)
     tree = Tree(feat=feat, thr=thr, value=value.reshape(trees, -1, 1),
@@ -694,22 +752,31 @@ def grow_trees(codes: torch.Tensor, codes_t: torch.Tensor, G: torch.Tensor,
                min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
                feature_mask: Optional[torch.Tensor] = None,
                hist_dtype: str = "float32",
-               weights: Optional[torch.Tensor] = None):
+               weights: Optional[torch.Tensor] = None, reduce=None):
     """The univariate trees of one group of one-vs-all outputs (``G``,
     ``H_diag`` (n, trees); ``weights`` (n,) the rows' sample weights, None
     for all ones): `grow_trees_leafwise` for ``growth=
     "leafwise"``, `grow_trees_levelwise` for the partitioned engines, and
     for ``"direct"`` `grow_tree` one tree at a time (B4 bins rows in
     dataset order from one node position a row, so it takes no shared
-    partition: ``trees`` B4 launches a level).  Returns ``(tree,
+    partition: ``trees`` B4 launches a level).  ``reduce`` makes the group
+    one rank's share of distributed trees (level-wise only: one-vs-all
+    leaf-wise under sharding comes with a later slice).  Returns ``(tree,
     leaf_pos)`` with a leading ``trees`` axis."""
     kw = dict(depth=depth, n_bins=n_bins, lam=lam,
               min_data_in_leaf=min_data_in_leaf, min_gain=min_gain,
               feature_mask=feature_mask, hist_dtype=hist_dtype,
               weights=weights)
     if growth == "leafwise":
+        if reduce is not None:
+            raise NotImplementedError(
+                "strategy='one_vs_all' with growth='leafwise' under "
+                "sharding is not ported yet: it comes with the one-vs-all "
+                "leaf-wise distributed slice of repro_torch; use "
+                "growth='levelwise' or strategy='single_tree'")
         return grow_trees_leafwise(codes_t, G, H_diag, max_leaves=max_leaves,
                                    **kw)
+    kw["reduce"] = reduce
     engine = H.resolve_hist_engine(hist_engine)
     if engine != "direct":
         return grow_trees_levelwise(codes_t, G, H_diag,

@@ -240,15 +240,19 @@ class CheckpointManager:
                 shardings: Any = None, *, device=None) -> Tuple[Any, int]:
         """Restore into the structure of ``like`` (nested dicts, lists and
         tuples; its leaves are replaced) as tensors on ``device`` (the
-        device rule: CUDA unless named).  ``shardings`` re-lays a restored
-        state onto a mesh, which comes with the distributed slice."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore(shardings=...) is not ported yet: "
-                "it comes with the distributed slice of repro_torch")
-        device = resolve_device(device)
+        device rule: CUDA unless named).  ``shardings`` (a
+        `runtime.elastic.Layout`, or a nest of them matching ``like``) lays
+        the restored arrays out on a mesh instead: each rank gets its block
+        on the mesh's device (`runtime.elastic.remesh`), so a step written
+        on one mesh restores onto another."""
         step = self._resolve(step)
         arrays = self.read(step, [k for k, _ in _flatten(like)])
+        if shardings is not None:
+            from repro_torch.runtime import elastic as E
+            tree = _unflatten(like, iter(arrays[k] for k, _ in
+                                         _flatten(like)))
+            return E.remesh(tree, shardings, device=device), step
+        device = resolve_device(device)
         leaves = iter(arrays[k].to(device) for k, _ in _flatten(like))
         return _unflatten(like, leaves), step
 

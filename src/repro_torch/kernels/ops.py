@@ -1,5 +1,9 @@
 """The grower's level steps: histograms -> (sibling combine ->) splits.
 
+Each fused step is two calls, a build (`build_level`, `histogram`) and a
+scan (`combine_scan`, `split_scan`), so that a distributed grower can
+all-reduce the built histograms in between.
+
 Port of `histogram`, `histogram_splits`, `histogram_splits_level`,
 `node_histogram` and `_tile_plan` of the JAX package's ``kernels/ops.py``,
 without the TPU's
@@ -109,46 +113,59 @@ def histogram_splits_level(codes_t: torch.Tensor, stats: torch.Tensor,
     smaller child of each parent is built (ties -> left) and its sibling is
     ``prev_hist - built``.  Under ``hist_dtype="bfloat16"`` the statistics
     are bf16 before the partition gather (so the gather moves half the
-    bytes) and the build runs B1-bf16; the histograms stay float32.  Returns ``(best_gain, best_idx, hist)``:
-    per-node results of the split scan and this level's ``(n_nodes, m,
-    n_bins, C)`` histograms, the next level's ``prev_hist``.
+    bytes) and the build runs B1-bf16; the histograms stay float32.  It is
+    `build_level` then `combine_scan`, the two steps the growers call in
+    turn (a distributed grower all-reduces between them).  Returns
+    ``(best_gain, best_idx, hist)``: per-node results of the split scan and
+    this level's ``(n_nodes, m, n_bins, C)`` histograms, the next level's
+    ``prev_hist``.
     """
     stats_p = stats.index_select(0, order.long()).contiguous()
-    return histogram_splits_partitioned(
-        codes_t, stats_p, order, counts, prev_hist, lam, min_data,
-        feature_mask, n_bins=n_bins, subtract=subtract,
-        hist_dtype=hist_dtype)
+    side = smaller_children(counts)[0] if subtract else None
+    built = build_level(codes_t, stats_p, order, counts, side,
+                        n_bins=n_bins, hist_dtype=hist_dtype)
+    return combine_scan(built, side, prev_hist, lam, min_data, feature_mask)
 
 
-def histogram_splits_partitioned(codes_t: torch.Tensor,
-                                 stats_p: torch.Tensor, order: torch.Tensor,
-                                 counts: torch.Tensor,
-                                 prev_hist: Optional[torch.Tensor],
-                                 lam: float, min_data: float,
-                                 feature_mask: Optional[torch.Tensor] = None,
-                                 *, n_bins: int, subtract: bool,
-                                 hist_dtype: str = "float32"):
-    """`histogram_splits_level` on statistics already in partition order:
-    ``stats_p`` (S, C) holds the statistics of entry ``e`` of ``order``
-    (S,), contiguous and in ``hist_dtype``'s storage type.  The partition
-    may hold several trees (S a multiple of n, node ids tree-major, as the
-    one-vs-all growers keep it): one B1 and one B2 launch then serve every
-    node of every tree, and a pair ``(2p, 2p + 1)`` is always the two
-    children of one parent."""
-    if subtract:
-        side, is_built = smaller_children(counts)
-        build_counts = torch.where(is_built, counts, 0).to(torch.int32)
-    else:
+def build_level(codes_t: torch.Tensor, stats_p: torch.Tensor,
+                order: torch.Tensor, counts: torch.Tensor,
+                side: Optional[torch.Tensor], *, n_bins: int,
+                hist_dtype: str = "float32") -> torch.Tensor:
+    """The build step of a partitioned level (B1, or B1-bf16): with
+    ``side`` None every node's histogram ``(n_nodes, m, n_bins, C)``;
+    otherwise only child ``2p + side[p]`` of each parent p, compacted to
+    ``(n_nodes / 2, m, n_bins, C)``.  A distributed grower takes ``side``
+    from the counts summed over the ranks, so a rank may build the larger
+    child of its own rows, up to all of them (B1's tile budget, ``S / R +
+    n_nodes`` tiles, covers that)."""
+    if side is None:
         build_counts = counts
+    else:
+        child = torch.arange(counts.shape[0], device=counts.device)
+        is_built = (child % 2) == side.to(child.dtype)[child // 2]
+        build_counts = torch.where(is_built, counts, 0).to(torch.int32)
     _require_cast(stats_p, hist_dtype)
     hist = hist_kernel.hist_nodes(codes_t, order, stats_p, counts,
                                   build_counts, n_bins=n_bins,
                                   hist_dtype=hist_dtype)
-    if subtract:
-        pairs = hist.reshape((-1, 2) + hist.shape[1:])
-        s = side.reshape(-1, 1, 1, 1)
-        built = torch.where(s == 0, pairs[:, 0], pairs[:, 1])
-        hist = interleave_children(side, built, prev_hist - built)
+    if side is None:
+        return hist
+    pairs = hist.reshape((-1, 2) + hist.shape[1:])
+    s = side.reshape(-1, 1, 1, 1)
+    return torch.where(s == 0, pairs[:, 0], pairs[:, 1])
+
+
+def combine_scan(built: torch.Tensor, side: Optional[torch.Tensor],
+                 prev_hist: Optional[torch.Tensor], lam: float,
+                 min_data: float,
+                 feature_mask: Optional[torch.Tensor] = None):
+    """The combine-and-scan step of a partitioned level: with ``side`` the
+    built children are interleaved with their siblings ``prev_hist -
+    built``; then the split scan (B2).  Returns ``(best_gain, best_idx,
+    hist)``, ``hist`` the level's ``(n_nodes, m, n_bins, C)``
+    histograms."""
+    hist = (built if side is None
+            else interleave_children(side, built, prev_hist - built))
     gain, idx = split_scan(hist, lam, min_data, feature_mask)
     return gain, idx, hist
 

@@ -89,6 +89,18 @@ class NaNAtRow:
             int(c) for c in outputs)
         self.applied = False
 
+    def localize(self, r0: int, n_loc: int, c0: int,
+                 d_loc: int) -> "NaNAtRow":
+        """The same corruption of one rank's block of the targets: rows
+        ``[r0, r0 + n_loc)`` and outputs ``[c0, c0 + d_loc)`` of the whole
+        array, renumbered from 0 (a distributed fit's view)."""
+        rows = [r - r0 for r in self.rows if r0 <= r < r0 + n_loc]
+        outs = (None if self.outputs is None else
+                [c - c0 for c in self.outputs if c0 <= c < c0 + d_loc])
+        local = NaNAtRow(self.round, rows, outs)
+        local.applied = self.applied
+        return local
+
     def mutate_targets(self, Y: torch.Tensor, round_idx: int) -> torch.Tensor:
         if self.applied or round_idx < self.round:
             return Y

@@ -4,9 +4,9 @@ Port of the JAX package's ``runtime/fault.py``.  `RestartableLoop` owns the
 checkpoint/restore cycle: on start it resumes from the latest valid
 checkpoint (atomic manifests make it valid), saves every ``save_every``
 steps, and reports per-step straggler flags.  Persistence is pluggable
-(``save_fn``/``restore_fn``).  Re-laying a restored state onto another
-mesh (the reference's ``shardings`` and ``elastic.remesh``) comes with the
-distributed slice.
+(``save_fn``/``restore_fn``).  ``shardings`` re-lays a restored state onto
+this rank's mesh (`elastic.remesh`): checkpoints are mesh-agnostic host
+arrays, so a loop resumes on a smaller mesh than the one that wrote it.
 
 `StragglerWatchdog` tracks step times and flags steps beyond ``threshold``
 x the trailing median; `chaos.DelayShard` drives it with virtual seconds.
@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 from repro_torch.io.checkpoint import CheckpointManager
 from repro_torch.runtime import chaos as CH
+from repro_torch.runtime import elastic as E
 
 Tree = Any
 
@@ -53,7 +54,10 @@ class RestartableLoop:
     delegate with ``save_fn(step, state)`` / ``restore_fn() -> (state,
     start_step) | None``.  ``chaos`` takes `runtime.chaos` injections:
     kill-style hooks fire at step boundaries, `DelayShard` adds virtual
-    time to the watchdog's observations.
+    time to the watchdog's observations.  ``shardings`` (an
+    `elastic.Layout` or a nest of them matching the state) lays a restored
+    state out on a mesh: the manager's restore takes it, and a
+    ``restore_fn``'s state goes through `elastic.remesh`.
     """
 
     def __init__(self, ckpt_dir: str, step_fn: Callable, *,
@@ -61,7 +65,7 @@ class RestartableLoop:
                  async_save: bool = True,
                  save_fn: Optional[Callable[[int, Tree], None]] = None,
                  restore_fn: Optional[Callable[[], Any]] = None,
-                 chaos: Any = None,
+                 shardings: Any = None, chaos: Any = None,
                  watchdog: Optional[StragglerWatchdog] = None,
                  device=None):
         self.mgr = (CheckpointManager(ckpt_dir, keep_n=keep_n,
@@ -71,6 +75,7 @@ class RestartableLoop:
         self.save_every = save_every
         self.save_fn = save_fn
         self.restore_fn = restore_fn
+        self.shardings = shardings
         self.chaos = CH.as_chaos_list(chaos)
         self.watchdog = watchdog or StragglerWatchdog()
         self.device = device
@@ -86,10 +91,14 @@ class RestartableLoop:
             restored = self.restore_fn()
             if restored is None:
                 return init_state, 0
-            return restored
+            state, start = restored
+            if self.shardings is not None:
+                state = E.remesh(state, self.shardings, device=self.device)
+            return state, start
         if self.mgr is None or self.mgr.latest_step() is None:
             return init_state, 0
-        state, step = self.mgr.restore(init_state, device=self.device)
+        state, step = self.mgr.restore(init_state, shardings=self.shardings,
+                                       device=self.device)
         return state, step + 1
 
     def run(self, init_state: Tree, batches: Optional[Iterator] = None,

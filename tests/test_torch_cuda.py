@@ -1381,3 +1381,93 @@ def test_sampled_fit_runs_under_deterministic_algorithms(dev, cfg):
     finally:
         torch.use_deterministic_algorithms(before)
     assert torch.equal(free.predict_raw(X[2400:]), det.predict_raw(X[2400:]))
+
+
+# -- the level step split for the distributed grower -----------------------------
+
+@pytest.mark.parametrize("n,m,B,C,levels", [(3000, 5, 256, 6, 4),
+                                            (3 * R + 17, 3, 64, 9, 3),
+                                            (2000, 4, 256, 513, 3)])
+def test_build_then_scan_is_the_fused_level_call(dev, n, m, B, C, levels):
+    """`ops.build_level` then `ops.combine_scan` (what a distributed grower
+    all-reduces between) on the card against the plain level step on the
+    CPU, with sibling subtraction at every level: B1's plain version, the
+    built halves interleaved with ``prev - built``, then B2's plain
+    version.  The histograms are bitwise; the split scan as B2's own
+    checks hold it (the index equal, the gain within rtol 1e-5)."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(n)
+    codes_t = torch.randint(0, B, (m, n), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    stats = torch.rand((n, C), generator=g, device=dev)
+    stats[:, -1] = 1.0
+    state = H.init_level_state(n, device=dev)
+    mask = torch.ones(m, dtype=torch.float32)
+    prev = prev_ref = None
+    for lvl in range(levels):
+        if lvl:
+            state = H.advance_level_state(
+                state, torch.rand(n, generator=g, device=dev) < 0.3)
+        stats_p = stats[state.order.long()].contiguous()
+        side = H.smaller_children(state.counts)[0] if lvl else None
+        built = ops.build_level(codes_t, stats_p, state.order, state.counts,
+                                side, n_bins=B)
+        gain, idx, prev = ops.combine_scan(built, side, prev, 1.0, 1.0)
+        counts = state.counts.cpu()
+        bc = counts
+        if side is not None:
+            bc = torch.where(H.smaller_children(counts)[1], counts, 0)
+        plain = ref.hist_nodes_ref(codes_t.cpu(), state.order.cpu(),
+                                   stats_p.cpu(), counts,
+                                   bc.to(torch.int32), n_bins=B)
+        if side is not None:
+            s_c = side.cpu()
+            pairs = plain.reshape((-1, 2) + plain.shape[1:])
+            half = torch.where(s_c.reshape(-1, 1, 1, 1) == 0, pairs[:, 0],
+                               pairs[:, 1])
+            plain = H.interleave_children(s_c, half, prev_ref - half)
+        prev_ref = plain
+        pg, pi = ref.split_scan_ref(plain, 1.0, 1.0, mask)
+        assert torch.equal(prev.cpu(), plain)
+        assert torch.equal(idx.cpu(), pi)
+        torch.testing.assert_close(gain.cpu(), pg, rtol=1e-5, atol=0)
+
+
+def test_build_level_of_a_shard_whose_built_child_is_all_its_rows(dev):
+    """Under sharding the built child is the globally smaller one, which on
+    a rank may hold every row of its parent: B1 (its tile budget ``S / R +
+    n_nodes``) builds it, bitwise its plain version, and the other child is
+    never read."""
+    from repro_torch.kernels import ops
+    n, m, B, C = 3 * R + 17, 3, 256, 6
+    g = torch.Generator(device=dev).manual_seed(7)
+    codes_t = torch.randint(0, B, (m, n), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    stats = torch.rand((n, C), generator=g, device=dev)
+    stats[:, -1] = 1.0
+    state = H.init_level_state(n, device=dev)
+    # Level 1: every row goes left and the left child is built; level 2:
+    # the left parent's rows split, its larger child built.
+    state = H.advance_level_state(state, torch.zeros(n, dtype=torch.bool,
+                                                     device=dev))
+    sides = [torch.zeros(1, dtype=torch.int32, device=dev)]
+    bits = torch.rand(n, generator=g, device=dev) < 0.8
+    for lvl, side in ((1, sides[0]), (2, None)):
+        if lvl == 2:
+            state = H.advance_level_state(state, bits)
+            c = state.counts.cpu()
+            side = torch.tensor([int(c[1] > c[0]), 0], dtype=torch.int32,
+                                device=dev)
+        stats_p = stats[state.order.long()].contiguous()
+        built = ops.build_level(codes_t, stats_p, state.order, state.counts,
+                                side, n_bins=B)
+        child = torch.arange(state.counts.shape[0], device=dev)
+        is_built = (child % 2) == side.long()[child // 2]
+        bc = torch.where(is_built, state.counts, 0).to(torch.int32)
+        plain = ref.hist_nodes_ref(codes_t.cpu(), state.order.cpu(),
+                                   stats_p.cpu(), state.counts.cpu(),
+                                   bc.cpu(), n_bins=B)
+        want = plain[is_built.cpu()]
+        assert torch.equal(built.cpu(), want)
+        assert float(built[0, 0, :, -1].sum()) == float(
+            bc[is_built].max())

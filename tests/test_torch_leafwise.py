@@ -308,12 +308,13 @@ def test_validate_matches_reference(kw, error):
 
 def test_slices_still_to_come_are_named():
     """Sampling, the guards and checkpoints are ported: beside any of them
-    only dist_hist_compression is refused, naming its slice."""
+    only dist_hist_compression is refused on one device, naming the
+    distributed fit."""
     for kw in (dict(strategy="one_vs_all", save_every=2, ckpt_dir="ck"),
                dict(subsample=0.5), dict(guard_policy="raise"),
                dict(save_every=2, ckpt_dir="ck"), dict()):
         TB.GBDTConfig(growth="leafwise", max_leaves=4, **kw).validate()
-        with pytest.raises(ValueError, match="distributed slice"):
+        with pytest.raises(ValueError, match="core.distributed"):
             TB.GBDTConfig(growth="leafwise", max_leaves=4,
                           dist_hist_compression="sketch", **kw).validate()
 
