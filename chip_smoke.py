@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port of SketchBoost, and its dense-LM prefill and
-decode, on one CUDA card, end to end.
+"""Run the PyTorch port of SketchBoost, and its LM prefill and decode of
+every family, on one CUDA card, end to end.
 
     python3 chip_smoke.py
 
@@ -50,9 +50,15 @@ Phases (any failure exits non-zero; nothing is caught):
      long_500k's batch-1 layer through the split path; B1 and B2 at the
      one-vs-all level 5 of one group, 128 trees x 32 nodes x 100 x 256 x 2
      over 2^28 partition entries, B1 bitwise its plain version on the
-     first and last tree's nodes, B2's indices equal), and time kernel,
-     plain version and, where one PyTorch call computes the same function,
-     that call;
+     first and last tree's nodes, B2's indices equal; B7 and B8 in bf16 at
+     phase 13's shapes (``FAMILY_FLASH``: the VLM's cross-attention over
+     1,600 image tokens, zamba2's MHA dh-64 shared block, GQA-4 dh-128
+     self-attention, all at 32,768 queries; ``FAMILY_DECODE``: zamba2's
+     524,288-slot site with 32 kv heads, the VLM's image cache, batch 128
+     and batch 8 self-attention), each within one bf16 ulp plus 1e-5 and
+     the same run to run, timed beside its bound and SDPA), and time
+     kernel, plain version and, where one PyTorch call computes the same
+     function, that call;
   4. fit the paper's configuration (``configs/sketchboost_tabular.py``) at
      full width, 2,097,152 rows x 100 features, d = 512, k = 5, depth 6,
      256 bins, all 100 rounds, with a 131,072-row eval set;
@@ -161,7 +167,22 @@ Phases (any failure exits non-zero; nothing is caught):
      compressed run at ``dist_hist_k=2`` with its drift; (d) 4 rounds on
      (2, 2) killed at round 2 and resumed in a two-rank world on (1, 2),
      bitwise;
- 13. print the kernel table as one JSON line, the card's line, and last
+ 13. the MoE, SSM, hybrid and VLM models at full width in bf16, each alone
+     on the card (`families_phase`, ``FAMILY_RUNS``): zamba2-1.2b (38
+     layers, 7 shared-attention sites), mamba2-370m (48 layers),
+     phi3.5-moe-42b-a6.6b (depth cut to 8 of 32 layers, printed: all 32
+     do not fit the card) and llama-3.2-vision-11b (40 layers, 8 cross
+     sites over 1,600 image embeddings); each 4 prefill requests of 1 x
+     32,768 tokens (the first untimed) and its decode mixes (zamba2 and
+     mamba2 long_500k, mamba2 decode_32k at batch 128, phi batch 128 at
+     length 4,095, the VLM batch 8 at 8,191 over a random image cache),
+     17 steps each (the first untimed): ms a request and a step,
+     tokens/s, peak memory, B7 and B8 launches asserted (once a
+     self-attention layer and site), finite logits; then a float32 copy
+     of 1 or 2 layers at full width over 256 tokens and 8 decode steps on
+     the card against the CPU, within 1e-4 of the largest logit (the MoE's
+     experts, slots and drops equal for the same input);
+ 14. print the kernel table as one JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
@@ -174,8 +195,9 @@ B4, Full's B2-wide), of phase 9b (B1-bf16 in the bf16 fits), of phase
 9c (B1 and B2 on the one-vs-all path) and of each fit of phase 9d (a),
 again
 around phase 10's prefill requests (B7), again around phase 11's
-decode steps (B8), and in each rank of phase 12 around each distributed
-fit and the prediction after it (B1, B2, B3, B4, B1-bf16).
+decode steps (B8), in each rank of phase 12 around each distributed
+fit and the prediction after it (B1, B2, B3, B4, B1-bf16), and around
+each of phase 13's prefill runs (B7) and decode mixes (B8).
 """
 from __future__ import annotations
 
@@ -1226,6 +1248,110 @@ def check_decode(torch, gen, dev, b=128, hq=32, hkv=8, s=4096, dh=120):
         long_500k=dict(max_abs_err=err_long,
                        share_of_bf16_ulp_limit=worst_long, ms=long_ms,
                        bound_ms=long_bound, splits=splits))
+
+
+# B7 at the shapes the MoE, hybrid and VLM families add (phase 13), each
+# (b, hq, hkv, sq, sk, dh, causal): the VLM's image cross-attention (1,600
+# image tokens, non-causal), zamba2's shared block (MHA, dh 64, no window)
+# and the MoE/VLM self-attention (GQA 4, dh 128, no window), at the 32k
+# prefill.
+FAMILY_FLASH = {"vlm_cross": (1, 32, 8, 32_768, 1_600, 128, False),
+                "zamba2_shared": (1, 32, 32, 32_768, 32_768, 64, True),
+                "self_gqa4_dh128": (1, 32, 8, 32_768, 32_768, 128, True)}
+# B8 at phase 13's decode shapes, each (b, hq, hkv, slots, dh, length):
+# zamba2's long_500k shared-attention site (no ring), the VLM's image
+# cache, phi-3.5-moe's batch 128 and the VLM's batch 8 self-attention.
+FAMILY_DECODE = {"zamba2_long_500k": (1, 32, 32, 524_288, 64, 524_288),
+                 "vlm_image": (8, 32, 8, 1_600, 128, 1_600),
+                 "moe_b128": (128, 32, 8, 4_113, 128, 4_096),
+                 "vlm_b8": (8, 32, 8, 8_209, 128, 8_192)}
+
+
+def check_family_attention(torch, gen, dev):
+    """B7 and B8 at the shapes of ``FAMILY_FLASH`` and ``FAMILY_DECODE``,
+    in bf16: each output within one bf16 ulp of its own plain value plus
+    1e-5 and the same from run to run; the kernel's time, its bound and
+    one SDPA call's time (GQA, ``is_causal`` or no mask; for B8 a length
+    mask on views of the cache where the cache is not full).  Returns the
+    two dicts of shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+
+    def held(out, again, plain, what):
+        assert torch.equal(out, again), f"{what} is not the same run to run"
+        diff = (out.float() - plain.float()).abs()
+        worst = float((diff / (bf16_ulps(plain) + 1e-5)).max())
+        assert worst <= 1.0, (
+            f"{what} differs from plain by up to {worst!r} of one bf16 ulp "
+            f"of each output plus 1e-5 (max abs err {float(diff.max())!r})")
+        return float(diff.max()), worst
+
+    flash = {}
+    for key, (b, hq, hkv, sq, sk, dh, causal) in FAMILY_FLASH.items():
+        q = torch.randn((b, hq, sq, dh), generator=gen, device=dev, dtype=bf)
+        k, v = (torch.randn((b, hkv, sk, dh), generator=gen, device=dev,
+                            dtype=bf) for _ in "kv")
+        out = FA.flash_attention(q, k, v, causal=causal)
+        again = FA.flash_attention(q, k, v, causal=causal)
+        plain = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err, worst = held(out, again, plain, f"B7 {key}")
+        del again, plain
+        pairs = attention_pairs(sq, sk, causal, None)
+        n_bytes = 2 * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh)
+        b_ms, b_by = bound_ms(n_bytes, 0, n_bf16_ops=8 * dh * hq * b * pairs)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+        lib_err = float((library().float() - out.float()).abs().max())
+        flash[key] = dict(
+            shape=[b, hq, hkv, sq, sk, dh], causal=causal,
+            max_abs_err=err, share_of_bf16_ulp_limit=worst,
+            ms=cuda_ms(lambda: FA.flash_attention(q, k, v, causal=causal),
+                       3),
+            bound_ms=b_ms, bound_by=b_by, pairs_per_head=pairs,
+            library_ms=cuda_ms(library, 3), library_max_abs_diff=lib_err)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+
+    decode = {}
+    for key, (b, hq, hkv, s, dh, n) in FAMILY_DECODE.items():
+        q = torch.randn((b, hq, dh), generator=gen, device=dev, dtype=bf)
+        k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev,
+                            dtype=bf) for _ in "kv")
+        lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
+        out = DA.decode_attention(q, k, v, n)
+        again = DA.decode_attention(q, k, v, n)
+        plain = ref.decode_attention_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err, worst = held(out, again, plain, f"B8 {key}")
+        del again, plain
+        n_bytes = 2 * 2 * b * n * hkv * dh + 2 * 2 * b * hq * dh
+        b_ms, b_by = bound_ms(n_bytes, 4 * dh * hq * b * n)
+        kv = (k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
+        mask = None if n == s else (
+            torch.arange(s, device=dev) < n)[None, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], *kv, attn_mask=mask, enable_gqa=True)
+        lib_err = float((library()[:, :, 0].float() - out.float()).abs()
+                        .max())
+        decode[key] = dict(
+            shape=[b, hq, hkv, s, dh], length=n, max_abs_err=err,
+            share_of_bf16_ulp_limit=worst,
+            splits=DA.splits_for(dev, b * hkv, s),
+            ms=cuda_ms(lambda: DA.decode_attention(q, k, v, n), 20),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library, 5),
+            library_max_abs_diff=lib_err)
+        del q, k, v, out, kv, mask
+        torch.cuda.empty_cache()
+    return flash, decode
 
 
 def check_small_fit(torch):
@@ -3039,6 +3165,277 @@ def decode_phase(torch, dev, b8, kernels, arch="h2o-danube-3-4b",
     return rec, launches
 
 
+# Phase 13's models, each (arch, layers on the card (None: all of them, and
+# why not), check layers, decode mixes (name, batch, length before the
+# first step)).  A mix's cache holds ``length + 18`` slots: 17 serve steps
+# and one more `decode_step` (zamba2: the 524,288 of long_500k).  phi-3.5-moe's 32 layers are about 84 GB in bf16 (16
+# experts of 3 x 4,096 x 6,400 a layer), more than the card's 80 GB: its
+# depth is cut to 8 (21 GB), the widths kept.
+FAMILY_RUNS = (
+    ("zamba2-1.2b", None, 2, (("long_500k", 1, 524_270),)),
+    ("mamba2-370m", None, 2, (("long_500k", 1, 524_287),
+                              ("decode_32k", 128, 32_767))),
+    ("phi3.5-moe-42b-a6.6b", (8, "all 32 layers are about 84 GB in bf16"),
+     1, (("decode_b128", 128, 4_095),)),
+    ("llama-3.2-vision-11b", None, 2, (("decode_b8", 8, 8_191),)),
+)
+
+
+def fill_cache(torch, cache, length, gen):
+    """Every tensor of an `lm.init_cache` cache drawn from a normal (the
+    SSM states and convolution buffers, attention k and v, a hybrid's
+    sites, the image cache), ``length`` tokens cached."""
+    for t in _cache_tensors(cache):
+        t.normal_(generator=gen)
+    cache["length"] = length
+
+
+def family_check(torch, dev, cfg, n_layers, n_tokens=256, n_steps=8):
+    """A float32 copy of ``cfg`` with ``n_layers`` layers at full width
+    (a VLM's gates drawn nonzero), on the card and then on the CPU: the
+    forward's logits over ``n_tokens`` tokens (and ``n_image_tokens`` image
+    embeddings) and ``n_steps`` decode steps from an empty cache (a VLM's
+    image cache drawn on the CPU, the same on both), each within 1e-4 of
+    the largest logit.  For an MoE model also the routing of the first MoE
+    layer's input (the CPU's, on both devices): experts, slots and drops
+    equal."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models import lm
+    from repro_torch.models import moe
+    small = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    model = lm.TransformerLM.random(small, gen)
+    for name, w in model.weights.items():
+        if name.endswith("/gate"):
+            w.data.normal_(generator=gen)
+    vlm = cfg.family == "vlm"
+    batch = next(lm_batches(cfg.vocab_size, 1, n_tokens, seed=2,
+                            image_tokens=cfg.n_image_tokens if vlm else 0,
+                            d_model=cfg.d_model))
+    image_kv = None
+    if vlm:
+        shape = (lm.n_sites(small), 1, cfg.n_image_tokens, cfg.n_kv_heads,
+                 cfg.head_dim_)
+        g = torch.Generator().manual_seed(3)
+        image_kv = [torch.randn(shape, generator=g) for _ in "kv"]
+    real, seen = moe.moe_apply, []
+
+    def recording(p, x, **kw):
+        if not seen:
+            seen.append(x.detach().to("cpu", copy=True))
+        return real(p, x, **kw)
+
+    def run():
+        seen.clear()
+        moe.moe_apply = recording
+        try:
+            logits = model.forward(batch)[0]
+        finally:
+            moe.moe_apply = real
+        cache = model.init_cache(1, n_steps, dtype=torch.float32)
+        if image_kv is not None:
+            cache["image_kv"]["k"].copy_(image_kv[0])
+            cache["image_kv"]["v"].copy_(image_kv[1])
+        toks = torch.as_tensor(batch["inputs"])
+        steps = [model.decode_step(cache, toks[:, i])[0][0].cpu()
+                 for i in range(n_steps)]
+        return logits.cpu(), torch.stack(steps), list(seen)
+
+    card, card_dec, card_seen = run()
+    model.to("cpu")
+    cpu, cpu_dec, cpu_seen = run()
+    scale = float(cpu.abs().max())
+    rec = dict(layers=n_layers, tokens=n_tokens, decode_steps=n_steps,
+               max_abs_logit=scale,
+               forward_max_abs_diff=float((card - cpu).abs().max()),
+               decode_max_abs_diff=float((card_dec - cpu_dec).abs().max()))
+    assert rec["forward_max_abs_diff"] <= 1e-4 * scale, rec
+    assert rec["decode_max_abs_diff"] <= 1e-4 * scale, rec
+    if cfg.n_experts:
+        router = model.params["blocks"][0]["moe"]["router"]
+        kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                  capacity_factor=cfg.capacity_factor,
+                  router_group=cfg.router_group)
+        plans = [moe.moe_plan(x, r, **kw) for x, r in (
+            (cpu_seen[0], router),
+            (cpu_seen[0].to(dev), router.to(dev)))]
+        for key in ("gidx", "slot", "in_cap"):
+            assert torch.equal(plans[0][key], plans[1][key].cpu()), key
+        own = moe.moe_plan(card_seen[0].to(dev), router.to(dev), **kw)
+        rec["moe"] = dict(
+            group=plans[0]["g"], capacity=plans[0]["cap"],
+            choices=int(plans[0]["in_cap"].numel()),
+            dropped=int((~plans[0]["in_cap"]).sum()),
+            same_experts_slots_drops=True,
+            own_input_choices_differing=int(
+                (own["gidx"].cpu() != plans[0]["gidx"]).sum()))
+    del model
+    return rec
+
+
+def family_run(torch, dev, b7, b8, kernels, arch, depth, check_layers,
+               mixes, prefill=(1, 32_768, 4), n_steps=16):
+    """One model of phase 13 at full width in bf16, alone on the card:
+    ``prefill`` requests (the first untimed) through `make_prefill_step`,
+    then each decode mix through `make_serve_step` over a cache drawn at
+    random (1 untimed and ``n_steps`` timed steps, then one `decode_step`
+    whose logits must be finite), B7 once a self-attention layer and site a
+    request, B8 once a step; then `family_check`.  Every count is set to 0
+    just before the requests and the steps, and read just after."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models import lm
+    from repro_torch.training.lm_serve import (ServeConfig, make_prefill_step,
+                                               make_serve_step)
+    t_model = time.perf_counter()
+    cfg = get_config(arch)
+    rec = {"arch": arch, "family": cfg.family}
+    if depth is not None:
+        rec["depth_cut"] = dict(layers=depth[0], of=cfg.n_layers,
+                                reason=depth[1])
+        print(f"[13] {arch}: depth cut {cfg.n_layers} -> {depth[0]} layers "
+              f"({depth[1]}); widths as published")
+        cfg = dataclasses.replace(cfg, n_layers=depth[0])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init(cfg, gen)
+    torch.cuda.synchronize()
+    n_attn = (0 if cfg.family in ("ssm", "hybrid") else cfg.n_layers) \
+        + lm.n_sites(cfg)
+    rec["n_params"] = sum(t.numel() for t in lm._flatten(params).values())
+    rec["attention_launches_per_call"] = n_attn
+    print(f"[13] {arch} ({cfg.family}): {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {rec['n_params']} parameters in {cfg.dtype} "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB resident); "
+          f"B7/B8 {n_attn} a request / a step")
+    vlm = cfg.family == "vlm"
+
+    b, s, n_req = prefill
+    stream = lm_batches(cfg.vocab_size, b, s, seed=0,
+                        image_tokens=cfg.n_image_tokens if vlm else 0,
+                        d_model=cfg.d_model)
+    step = make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    times, next_tok = [], []
+    for _ in range(n_req):
+        batch = next(stream)
+        before = b7.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        assert b7.launches - before == n_attn, (arch, b7.launches - before)
+        assert logits.shape == (b, cfg.padded_vocab), logits.shape
+        assert bool(logits.isfinite().all()), f"{arch} prefill not finite"
+        next_tok.append(logits.argmax(-1).tolist())
+    launches = {k.name: k.launches for k in kernels}
+    assert launches[b7.name] == n_attn * n_req, launches
+    assert sum(launches.values()) == launches[b7.name], launches
+    ms = 1e3 * statistics.median(times[1:])
+    rec["prefill"] = dict(batch=b, tokens=s, requests=n_req,
+                          image_tokens=cfg.n_image_tokens if vlm else 0,
+                          request_s=times, ms_per_request=ms,
+                          tokens_per_s=b * s / (ms / 1e3),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          greedy_next_token=next_tok, launches=launches)
+    print(f"[13] {arch} prefill {b} x {s}: seconds a request {times} "
+          f"(first untimed, median {ms:.2f} ms = "
+          f"{rec['prefill']['tokens_per_s']:.0f} tokens/s), peak "
+          f"{rec['prefill']['peak_gib']:.2f} GiB, launches {launches}")
+    del batch, logits
+    torch.cuda.empty_cache()
+
+    rec["decode"] = {}
+    for name, bd, length in mixes:
+        torch.cuda.reset_peak_memory_stats()
+        s_max = length + n_steps + 2
+        t0 = time.perf_counter()
+        cache = lm.init_cache(cfg, bd, s_max)
+        fill_cache(torch, cache, length, gen)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        cache_gib = sum(t.numel() * t.element_size()
+                        for t in _cache_tensors(cache)) / 2**30
+        serve = make_serve_step(cfg, ServeConfig(max_seq_len=s_max))
+        tok = torch.randint(0, cfg.vocab_size, (bd,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        for k in kernels:
+            k.launches = 0
+        times = []
+        for _ in range(n_steps + 1):
+            before = b8.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, cache = serve(params, cache, tok)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            assert b8.launches - before == n_attn, (arch, b8.launches)
+        logits, _ = lm.decode_step(params, cfg, cache, tok)
+        assert bool(logits.isfinite().all()), f"{arch} decode not finite"
+        launches = {k.name: k.launches for k in kernels}
+        assert launches[b8.name] == n_attn * (n_steps + 2), launches
+        assert sum(launches.values()) == launches[b8.name], launches
+        ms = 1e3 * statistics.median(times[1:])
+        rec["decode"][name] = dict(
+            batch=bd, length=length, slots=s_max, cache_gib=cache_gib,
+            fill_s=fill_s, step_s=times, ms_per_step=ms,
+            tokens_per_s=bd / (ms / 1e3),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            last_token=tok.tolist()[:8], logits_finite=True,
+            launches=launches)
+        print(f"[13] {arch} {name}: batch {bd} at length {length} "
+              f"({cache_gib:.2f} GiB of cache in {s_max} slots, filled in "
+              f"{fill_s:.2f} s); seconds a step {times} (first untimed, "
+              f"median {ms:.3f} ms = {bd / (ms / 1e3):.0f} tokens/s), peak "
+              f"{rec['decode'][name]['peak_gib']:.2f} GiB, launches "
+              f"{launches}")
+        del cache, logits
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["card_vs_cpu"] = family_check(torch, dev, cfg, check_layers)
+    rec["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    print(f"[13] {arch} card vs CPU: {json.dumps(rec['card_vs_cpu'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_model
+    print(f"[13] record {json.dumps(rec)}")
+    return rec
+
+
+def _cache_tensors(cache):
+    out = list(cache["layers"].values())
+    out += [t for site in cache.get("shared_attn", ()) for t in site.values()]
+    return out + list(cache.get("image_kv", {}).values())
+
+
+def families_phase(torch, dev, b7, b8, kernels):
+    """Phase 13: the MoE, SSM, hybrid and VLM models (`FAMILY_RUNS`), one
+    at a time (`family_run`).  Returns the records and each model's
+    launches of B7 and B8 (prefill and decode)."""
+    t_phase = time.perf_counter()
+    recs, launches = {}, {}
+    for arch, depth, check_layers, mixes in FAMILY_RUNS:
+        rec = family_run(torch, dev, b7, b8, kernels, arch, depth,
+                         check_layers, mixes)
+        recs[arch] = rec
+        launches[arch] = {
+            b7.name: rec["prefill"]["launches"][b7.name],
+            b8.name: sum(m["launches"][b8.name]
+                         for m in rec["decode"].values())}
+    recs["phase_s"] = time.perf_counter() - t_phase
+    print(f"[13] phase 13 took {recs['phase_s']:.2f} s; launches {launches}")
+    return recs, launches
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import sketchboost_tabular as paper
@@ -3101,6 +3498,9 @@ def main() -> int:
     rows.append(check_split_wide(torch, gen, dev, first_wide))
     rows.append(check_flash(torch, gen, dev))
     rows.append(check_decode(torch, gen, dev))
+    family_flash, family_decode = check_family_attention(torch, gen, dev)
+    rows[-2].setdefault("shapes", {}).update(family_flash)
+    rows[-1].setdefault("shapes", {}).update(family_decode)
     for r in rows:
         for key, sh in r.get("shapes", {}).items():
             if "leaf_bytes" not in sh:           # B2, B2-wide and B6
@@ -3222,6 +3622,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     distributed, dist_launches = distributed_phase(
         torch, dev, Xtr, ytr, Xte, yte, cfg, phase4_round_s=round_s)
+    # Phase 13 runs alone on the card: phase 12's worlds have ended.
+    gc.collect()
+    torch.cuda.empty_cache()
+    families, family_launches = families_phase(torch, dev, b7, b8, every)
     for key in ("a", "b_rank0", "predict_a", "predict_b"):
         for name in (hist_kernel.KERNEL.name, split_kernel.KERNEL.name,
                      predict_kernel.KERNEL.name):
@@ -3266,8 +3670,12 @@ def main() -> int:
                   if v.get(r["name"])}
         if by_run:
             r["distributed_launches"] = by_run
+    for r in rows:                           # B7, B8: phase 13's models
+        if r["name"] in (b7.name, b8.name):
+            r["family_launches"] = {arch: v[r["name"]] for arch, v in
+                                    family_launches.items()}
     script_s = time.perf_counter() - t_script
-    print(f"[13] the script took {script_s:.1f} s")
+    print(f"[14] the script took {script_s:.1f} s")
     print(json.dumps({"kernels": rows, "fit_s": fit_s, "script_s": script_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
@@ -3276,6 +3684,7 @@ def main() -> int:
                       "one_vs_all": one_vs_all, "sampling": sampling,
                       "prefill": prefill,
                       "decode": decode, "distributed": distributed,
+                      "families": families,
                       "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

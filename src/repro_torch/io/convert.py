@@ -20,7 +20,7 @@ from repro_torch.core.quantize import QuantizedForest, Quantizer
 from repro_torch.core.tree import NodeTree, Tree
 from repro_torch.explain.paths import PathPack
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import check_family, unstack
+from repro_torch.models import lm
 
 _INT_FIELDS = ("feat", "thr", "left", "right", "out_col", "node_count")
 _FLOAT_FIELDS = ("leaf", "base", "cover", "gain")
@@ -136,8 +136,7 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
     nested dicts of numpy arrays as ``lm.init`` lays them out, bfloat16
     leaves given as their ``uint16`` bit view (``np.asarray(a).view(
     np.uint16)``).  The stacked ``blocks`` subtree is unstacked into one
-    dict per layer."""
-    check_family(cfg)
+    dict per layer, and a VLM's stacked ``cross`` into one dict a site."""
     device = resolve_device(device)
 
     def convert(t):
@@ -145,48 +144,101 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
             return {k: convert(v) for k, v in t.items()}
         return _array_to_tensor(t, device)
 
-    params = convert(tree)
-    params["blocks"] = unstack(params["blocks"], cfg.n_layers)
-    return params
+    return lm.unstack_params(cfg, convert(tree))
+
+
+def _one_length(cfg: ModelConfig, tree: Mapping[str, Any]) -> int:
+    """The reference keeps a length a layer (and a site); the port one."""
+    lengths = np.asarray(tree["layers"]["length"]).reshape(-1)
+    if lengths.shape != (cfg.n_layers,):
+        raise ValueError(f"the cache must hold one length a layer for "
+                         f"{cfg.n_layers} layers; got {lengths.tolist()}")
+    lengths = lengths.tolist() + [int(np.asarray(site["length"]))
+                                  for site in tree.get("shared_attn", [])]
+    if any(n != lengths[0] for n in lengths):
+        raise ValueError(f"the cache's lengths (each layer's, then each "
+                         f"shared-attention site's) must be all equal; got "
+                         f"{lengths}")
+    return int(lengths[0])
+
+
+def _kv_pair(cfg: ModelConfig, arrays: Mapping[str, Any], lead: tuple,
+             device, what: str):
+    """k and v of one attention cache: ``lead + (b, slots, hkv, dh)``,
+    alike in shape and dtype."""
+    k = _array_to_tensor(arrays["k"], device)
+    v = _array_to_tensor(arrays["v"], device)
+    tail = (cfg.n_kv_heads, cfg.head_dim_)
+    if k.dim() != len(lead) + 4 or tuple(k.shape[:len(lead)]) != lead or \
+            tuple(k.shape[-2:]) != tail or v.shape != k.shape or \
+            v.dtype != k.dtype:
+        raise ValueError(f"{what} k and v must both be {lead} + (b, slots) "
+                         f"+ {tail}, alike; got {tuple(k.shape)} {k.dtype} "
+                         f"and {tuple(v.shape)} {v.dtype}")
+    return {"k": k, "v": v}
 
 
 def lm_cache_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
                          device=None):
-    """The port's KV cache (`models.lm.init_cache`) from the reference's:
-    ``{"layers": {"k", "v", "length"}}`` as numpy arrays, k and v (L, b,
-    s_alloc, hkv, dh) in float32 or as the ``uint16`` bits of bfloat16,
-    ``length`` (L,).  The reference's per-layer lengths must all be equal;
+    """The port's cache (`models.lm.init_cache`) from the reference's, as
+    numpy arrays, bfloat16 as its ``uint16`` bits:
+      attention layers  ``{"layers": {"k", "v", "length"}}``, k and v (L,
+                        b, s_alloc, hkv, dh), ``length`` (L,);
+      ssm / hybrid      ``{"layers": {"state", "conv_x", "conv_B",
+                        "conv_C", "length"}}`` (state float32), a hybrid's
+                        ``shared_attn`` list of ``{"k", "v", "length"}``;
+      vlm               also ``image_kv`` ``{"k", "v"}``.
+    The reference's lengths (a layer's and a site's) must all be equal;
     the port keeps one host int."""
-    check_family(cfg)
     device = resolve_device(device)
+    length = _one_length(cfg, tree)
     layers = tree["layers"]
-    lengths = np.asarray(layers["length"]).reshape(-1)
-    if lengths.shape != (cfg.n_layers,) or (lengths != lengths[0]).any():
-        raise ValueError(f"the cache must hold one length a layer, all "
-                         f"equal, for {cfg.n_layers} layers; got "
-                         f"{lengths.tolist()}")
-    k = _array_to_tensor(layers["k"], device)
-    v = _array_to_tensor(layers["v"], device)
-    want = (cfg.n_layers, k.shape[1], k.shape[2], cfg.n_kv_heads,
-            cfg.head_dim_)
-    if tuple(k.shape) != want or v.shape != k.shape or v.dtype != k.dtype:
-        raise ValueError(f"k and v must both be {want}, got "
-                         f"{tuple(k.shape)} {k.dtype} and {tuple(v.shape)} "
-                         f"{v.dtype}")
-    return {"layers": {"k": k, "v": v}, "length": int(lengths[0])}
+    L = cfg.n_layers
+    if "state" in layers:
+        out = {k: _array_to_tensor(layers[k], device)
+               for k in ("state", "conv_x", "conv_B", "conv_C")}
+        want = (L, out["state"].shape[1], cfg.ssm_nheads, cfg.ssm_headdim,
+                cfg.ssm_state)
+        if tuple(out["state"].shape) != want or \
+                out["state"].dtype != torch.float32:
+            raise ValueError(f"the SSM state must be float32 {want}, got "
+                             f"{out['state'].dtype} "
+                             f"{tuple(out['state'].shape)}")
+        cache: dict = {"layers": out, "length": length}
+    else:
+        cache = {"layers": _kv_pair(cfg, layers, (L,), device,
+                                    "the layers'"), "length": length}
+    if "shared_attn" in tree:
+        cache["shared_attn"] = [_kv_pair(cfg, site, (), device, "a site's")
+                                for site in tree["shared_attn"]]
+    if "image_kv" in tree:
+        cache["image_kv"] = _kv_pair(cfg, tree["image_kv"],
+                                     (lm.n_sites(cfg),), device,
+                                     "the image cache's")
+    return cache
 
 
 def lm_cache_to_arrays(cache) -> dict:
     """The reference's cache layout from the port's, as numpy arrays
-    (bfloat16 as its ``uint16`` bits, ``length`` repeated per layer as
-    int32): the inverse of `lm_cache_from_arrays`."""
+    (bfloat16 as its ``uint16`` bits, ``length`` repeated as int32 per
+    layer and per shared-attention site): the inverse of
+    `lm_cache_from_arrays`."""
     def arr(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
         return t.numpy()
 
-    k, v = cache["layers"]["k"], cache["layers"]["v"]
-    return {"layers": {
-        "k": arr(k), "v": arr(v),
-        "length": np.full((k.shape[0],), int(cache["length"]), np.int32)}}
+    length = int(cache["length"])
+    layers = cache["layers"]
+    n_layers = next(iter(layers.values())).shape[0]
+    out = {"layers": {k: arr(t) for k, t in layers.items()}}
+    out["layers"]["length"] = np.full((n_layers,), length, np.int32)
+    if "shared_attn" in cache:
+        out["shared_attn"] = [
+            {"k": arr(s["k"]), "v": arr(s["v"]),
+             "length": np.asarray(length, np.int32)}
+            for s in cache["shared_attn"]]
+    if "image_kv" in cache:
+        out["image_kv"] = {k: arr(t) for k, t in cache["image_kv"].items()}
+    return out

@@ -57,25 +57,41 @@ def attention_decls(d_model: int, n_heads: int, n_kv_heads: int,
     }
 
 
+def _project(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the promoted type of the two, as JAX's matmul."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
 def attention_apply(p, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
                     head_dim: int, rope_theta: float,
                     positions: Optional[torch.Tensor] = None,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence self-attention of x (b, s, d): projections, RoPE on q
-    and k, B7 in the ``(b, h, s, dh)`` layout, output projection."""
+                    causal: bool = True, window: Optional[int] = None,
+                    kv_inputs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention of x (b, s, d): projections, B7 in the
+    ``(b, h, s, dh)`` layout, output projection.  Self-attention ropes q
+    and k at ``positions``.  With ``kv_inputs`` (b, sk, d) it is
+    cross-attention: k and v are projected from ``kv_inputs``, nothing is
+    roped, and no mask applies (the reference's ``kv_inputs``).  Like the
+    reference, k and v are projected in the promoted type of
+    ``kv_inputs`` and the weights (float32 embeddings into a bf16 model:
+    float32); B7 takes one type, so they are then rounded to q's."""
     b, s, _ = x.shape
+    kv_src = x if kv_inputs is None else kv_inputs
+    sk = kv_src.shape[1]
     q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q = rope(q, positions, rope_theta)
-    k = rope(k, positions, rope_theta)
+    k = _project(kv_src, p["wk"]).reshape(b, sk, n_kv_heads, head_dim)
+    v = _project(kv_src, p["wv"]).reshape(b, sk, n_kv_heads, head_dim)
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    if kv_inputs is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
     out = flash_attention(q.transpose(1, 2).contiguous(),
                           k.transpose(1, 2).contiguous(),
                           v.transpose(1, 2).contiguous(),
-                          causal=causal, window=window)
+                          causal=causal and kv_inputs is None, window=window)
     return out.transpose(1, 2).reshape(b, s, n_heads * head_dim) @ p["wo"]
 
 

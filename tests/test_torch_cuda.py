@@ -927,6 +927,174 @@ def test_lm_decode_on_card_matches_cpu(dev, arch):
     assert decode_attention.KERNEL.launches == before + 40 * cfg.n_layers
 
 
+# B7 at the shapes the MoE, SSM-hybrid and VLM families add: (b, hq, hkv,
+# sq, sk, dh, causal).  The VLM's cross-attention: non-causal, sq != sk,
+# sk below and above sq, no multiple of the 64-key tile (1,600 = 25 x 64
+# is one); zamba2's shared block: 32 heads over 32 kv heads (group 1) at
+# dh 64, one wgmma atom; MoE/VLM self-attention: dh 128, GQA 4.
+FAMILY_FLASH_CASES = [
+    (2, 8, 2, 300, 1600, 128, False), (1, 32, 8, 777, 100, 128, False),
+    (2, 4, 1, 64, 1601, 128, False), (1, 8, 2, 50, 75, 64, False),
+    (1, 32, 32, 1000, 1000, 64, True), (2, 32, 32, 190, 190, 64, True),
+    (1, 32, 8, 513, 513, 128, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh,causal", FAMILY_FLASH_CASES)
+def test_flash_attention_family_shapes(dev, dtype, b, hq, hkv, sq, sk, dh,
+                                       causal):
+    """B7 at the new families' shapes against its plain version, held as
+    the other B7 cases, and the same run to run."""
+    g = torch.Generator(device=dev).manual_seed(sq * sk + dh)
+    q = torch.randn((b, hq, sq, dh), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, hkv, sk, dh), generator=g, device=dev).to(dtype)
+            for _ in "kv")
+    out = flash_attention.flash_attention(q, k, v, causal=causal)
+    again = flash_attention.flash_attention(q, k, v, causal=causal)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    limit = 1e-5 if dtype == torch.float32 else bf16_ulps(plain) + 1e-5
+    diff = (out.float() - plain.float()).abs()
+    assert bool((diff <= limit).all()), float((diff / limit).max())
+
+
+# B8 at the new families' shapes: (b, hkv, group, s, dh, length).
+# zamba2's shared-attention cache: no ring, 32 kv heads of 64, full and
+# part-filled; the VLM's image cache: every one of its 1,600 slots.
+FAMILY_DECODE_CASES = [(1, 32, 1, 32768, 64, 32768),
+                       (1, 32, 1, 32768, 64, 20001),
+                       (4, 32, 1, 4096, 64, 4095),
+                       (8, 8, 4, 1600, 128, 1600)]
+
+
+@pytest.mark.parametrize("qt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,group,s,dh,length", FAMILY_DECODE_CASES)
+def test_decode_attention_family_shapes(dev, qt, b, hkv, group, s, dh,
+                                        length):
+    """B8 over a bf16 cache at the new families' shapes, no window,
+    against its plain version, held as the other B8 cases, and the same
+    run to run."""
+    g = torch.Generator(device=dev).manual_seed(s + length)
+    q = torch.randn((b, hkv * group, dh), generator=g, device=dev).to(qt)
+    k, v = (torch.randn((b, s, hkv, dh), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in "kv")
+    out = decode_attention.decode_attention(q, k, v, length)
+    again = decode_attention.decode_attention(q, k, v, length)
+    plain = ref.decode_attention_ref(
+        q, k, v, torch.full((b,), length, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    limit = 1e-5 if qt == torch.float32 else bf16_ulps(plain) + 1e-5
+    diff = (out.float() - plain.float()).abs()
+    assert bool((diff <= limit).all()), float((diff / limit).max())
+
+
+@pytest.mark.parametrize("mode", ["einsum", "gather"])
+@pytest.mark.parametrize("b,s,cf", [(1, 2048, 2.0), (128, 1, 2.0),
+                                    (2, 512, 0.5)])
+def test_moe_layer_on_card_matches_cpu(dev, mode, b, s, cf):
+    """One MoE layer at phi-3.5-moe's widths (16 experts of d_ff 6,400
+    over d_model 4,096, top-2, router groups of 1,024) in float32: the same
+    experts, slots and drops on the card as on the CPU for the same input,
+    outputs within atol 1e-4 + rtol 1e-4 (prefill, decode's one group of
+    128 tokens, and a capacity that drops)."""
+    from repro_torch.models import moe
+    d, f, e = 4096, 6400, 16
+    g = torch.Generator().manual_seed(b + s)
+    p = {k: torch.randn(decl.shape, generator=g) / decl.shape[-2] ** 0.5
+         for k, decl in moe.moe_decls(d, f, e, "swiglu").items()}
+    x = torch.randn((b, s, d), generator=g)
+    kw = dict(n_experts=e, top_k=2, capacity_factor=cf, router_group=1024)
+    plans = [moe.moe_plan(x.to(dv), p["router"].to(dv), **kw)
+             for dv in ("cpu", dev)]
+    for key in ("gidx", "slot", "in_cap"):
+        assert torch.equal(plans[0][key], plans[1][key].cpu()), key
+    want = moe.moe_apply(p, x, act="swiglu", dispatch_mode=mode, **kw)
+    out = moe.moe_apply({k: t.to(dev) for k, t in p.items()}, x.to(dev),
+                        act="swiglu", dispatch_mode=mode, **kw)
+    torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_mamba2_block_on_card_matches_cpu(dev):
+    """One Mamba2 block at mamba2-370m's widths (d_model 1,024, 32 heads of
+    64, state 128, chunk 256) in float32 over 1,000 tokens (chunks halved
+    to 8), then 16 decode steps from the block's own zeroed cache: card
+    within atol 1e-4 + rtol 1e-4 of the CPU."""
+    from repro_torch.models import ssm
+    d, di, n, h, hd, k = 1024, 2048, 128, 32, 64, 4
+    g = torch.Generator().manual_seed(7)
+    p = {}
+    for name, decl in ssm.ssm_decls(d, di, n, h, k).items():
+        scale = 0.3 if decl.init == "small_normal" else \
+            1 / decl.shape[0] ** 0.5
+        p[name] = torch.randn(decl.shape, generator=g) * scale
+    p["A_log"] = p["A_log"].abs()
+    x = torch.randn((2, 1000, d), generator=g)
+    kw = dict(n_state=n, n_heads=h, head_dim=hd)
+    want = ssm.ssm_apply(p, x, d_conv=k, chunk=256, **kw)
+    pd = {key: t.to(dev) for key, t in p.items()}
+    out = ssm.ssm_apply(pd, x.to(dev), d_conv=k, chunk=256, **kw)
+    torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=1e-4)
+    caches = [ssm.ssm_cache(2, h, hd, n, k, di, torch.float32, device=dv)
+              for dv in ("cpu", dev)]
+    for t in range(16):
+        a, _ = ssm.ssm_decode(p, x[:, t], caches[0], **kw)
+        c, _ = ssm.ssm_decode(pd, x[:, t].to(dev), caches[1], **kw)
+        torch.testing.assert_close(c.cpu(), a, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(caches[1]["state"].cpu(), caches[0]["state"],
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "grok-1-314b",
+                                  "mamba2-370m", "zamba2-1.2b",
+                                  "llama-3.2-vision-11b"])
+def test_lm_families_on_card_match_cpu(dev, arch):
+    """A smoke-config model of each new family in float32 (a VLM's gates
+    and image cache nonzero) on the card against the same model on the
+    CPU: forward logits and 12 decode steps within atol 1e-4 + rtol 1e-4;
+    B7 once a self-attention layer and site a forward, B8 once a layer and
+    site a step (none for mamba2)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    g = torch.Generator().manual_seed(1)
+    params = lm.init(cfg, g, device="cpu")
+    for cp in params.get("cross", []):
+        cp["gate"].normal_(generator=g)
+    rng = np.random.default_rng(0)
+    batch = {"inputs": rng.integers(0, cfg.vocab_size, (2, 80)).astype(
+        np.int32)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.normal(
+            size=(2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    attn_layers = 0 if cfg.family in ("ssm", "hybrid") else cfg.n_layers
+    n_attn = attn_layers + lm.n_sites(cfg)
+    want = lm.forward(params, cfg, batch)
+    on_card = {k: t.to(dev) for k, t in lm._flatten(params).items()}
+    params_dev = lm._unflatten(on_card)
+    before = flash_attention.KERNEL.launches
+    out = lm.forward(params_dev, cfg, batch)
+    assert flash_attention.KERNEL.launches == before + n_attn
+    torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=1e-4)
+    caches = [lm.init_cache(cfg, 2, 32, dtype=torch.float32, device=dv)
+              for dv in ("cpu", dev)]
+    if "image_kv" in caches[0]:
+        for name in ("k", "v"):
+            caches[0]["image_kv"][name].normal_(generator=g)
+            caches[1]["image_kv"][name].copy_(caches[0]["image_kv"][name])
+    before = decode_attention.KERNEL.launches
+    for i in range(12):
+        a, _ = lm.decode_step(params, cfg, caches[0], batch["inputs"][:, i])
+        c, _ = lm.decode_step(params_dev, cfg, caches[1],
+                              batch["inputs"][:, i])
+        torch.testing.assert_close(c.cpu(), a, atol=1e-4, rtol=1e-4)
+    assert decode_attention.KERNEL.launches == before + 12 * n_attn
+
+
 # B1-bf16 at several node layouts (the cases of the B1 test above).
 @pytest.mark.parametrize("n,m,B,C,levels", [(3000, 5, 256, 6, 3),
                                             (2500, 3, 37, 11, 4),

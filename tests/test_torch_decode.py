@@ -1,12 +1,15 @@
-"""Port vs reference: the dense-LM decode path (B8's plain version, the
-decode attention layer, the KV cache and its converters, ``decode_step``
-and the serving step).
+"""Port vs reference: the LM decode path of every family (B8's plain
+version, the decode attention layer, the caches and their converters,
+``decode_step`` and the serving step).
 
 Inputs are made with a seeded numpy generator; the reference's random
 parameters and caches are carried over with `repro_torch.io.convert`, so
 both packages run the same model from the same state.  The reference's
 decode attention is its Pallas kernel B8 in interpret mode
-(``use_pallas=True``), whose semantics the port implements.
+(``use_pallas=True``), whose semantics the port implements; its VLM image
+cross-attention is ``decode_attention_jnp``, B8's function, which the port
+runs through B8.  A VLM's cross gates are drawn nonzero in both trees and
+its image cache filled with the same random values in both.
 
 Tolerances.  B8's plain version in float32 against the reference's oracle
 and its interpret kernel: atol 1e-5 + rtol 1e-5 (both compute in float32;
@@ -23,6 +26,7 @@ within 1e-4 and each cached value within one bf16 ulp.  A
 bf16 model: the reference's own bf16 envelope, atol 5e-2 + rtol 5e-2
 (tests/test_models.py).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -38,6 +42,7 @@ from repro.kernels import ops as JO
 from repro.kernels import ref as JR
 from repro.models import layers as JL
 from repro.models import lm as JLM
+from repro.models import moe as JM
 from repro.training import lm_serve as JS
 from repro_torch import configs as TC
 from repro_torch.io import convert
@@ -45,6 +50,7 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ref as TR
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as TLM
+from repro_torch.models import moe as TM
 from repro_torch.training import lm_serve
 
 F32 = dict(atol=1e-4, rtol=1e-4)
@@ -251,15 +257,24 @@ def test_attention_decode_matches_reference(window, length):
 MODELS = {
     "h2o-danube-3-4b": dict(n_kv_heads=2),   # GQA 2, window 16: a ring
     "musicgen-medium": {},                   # embed_inputs, no window
+    "grok-1-314b": {},                       # MoE, a group of b tokens
+    "phi3.5-moe-42b-a6.6b": {},              # MoE, GQA 4
+    "mamba2-370m": {},                       # SSM state only
+    "zamba2-1.2b": {},                       # SSM + 3 shared-attention sites
+    "llama-3.2-vision-11b": {},              # cross sites, image cache
 }
 
 
 def _pair(arch, dtype, **over):
-    """(reference config, port config, reference params, port params)."""
+    """(reference config, port config, reference params, port params); a
+    VLM's gates drawn nonzero in both trees."""
     kw = dict(MODELS[arch], dtype=dtype, use_pallas=True, **over)
     jcfg = dataclasses.replace(JC.smoke_config(arch), **kw)
     tcfg = dataclasses.replace(TC.smoke_config(arch), **kw)
     jp = JLM.init(jcfg, jax.random.key(0))
+    if "cross" in jp:
+        jp["cross"]["gate"] = jnp.asarray(np.random.default_rng(11).normal(
+            size=jp["cross"]["gate"].shape).astype(np.float32))
     return jcfg, tcfg, jp, convert.lm_params_from_arrays(tcfg, _np(jp),
                                                          device="cpu")
 
@@ -271,39 +286,159 @@ def _tokens(cfg, b=2, s=40, seed=0):
     return rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
+def _caches(jcfg, tcfg, b, s_max, dtype, seed=12):
+    """Both packages' empty caches; a VLM's image cache filled with the
+    same random values (rounded to the cache dtype) in both."""
+    jc = JLM.init_cache(jcfg, b, s_max, dtype=getattr(jnp, dtype))
+    tc = TLM.init_cache(tcfg, b, s_max, dtype=getattr(torch, dtype),
+                        device="cpu")
+    if "image_kv" in jc:
+        rng = np.random.default_rng(seed)
+        for name in ("k", "v"):
+            a = jnp.asarray(rng.normal(size=jc["image_kv"][name].shape)
+                            .astype(np.float32)).astype(getattr(jnp, dtype))
+            jc["image_kv"][name] = a
+            tc["image_kv"][name].copy_(torch.from_numpy(
+                np.array(a.astype(jnp.float32))))
+    return jc, tc
+
+
+def _cache_leaves(tc, jc):
+    """(name, port array, reference array) for every tensor of the two
+    caches, in the reference's layout (`lm_cache_to_arrays`)."""
+    port, ref = convert.lm_cache_to_arrays(tc), _np(jc)
+    flat_p = jax.tree_util.tree_flatten_with_path(port)[0]
+    flat_r = dict(jax.tree_util.tree_flatten_with_path(ref)[0])
+    assert [k for k, _ in flat_p] == list(flat_r)
+    return [(jax.tree_util.keystr(k), a, flat_r[k]) for k, a in flat_p]
+
+
+def _as_f32(a: np.ndarray) -> np.ndarray:
+    """A reference-layout array (bf16 as uint16 bits) as float32."""
+    if a.dtype == np.uint16:
+        return (a.astype(np.uint32) << 16).view(np.float32)
+    return a.astype(np.float32)
+
+
 def _ref_step(jcfg):
     return jax.jit(lambda p, c, t: JLM.decode_step(p, jcfg, c, t))
 
 
-@pytest.mark.parametrize("dtype,cache_dtype", [
-    ("float32", "float32"), ("float32", "bfloat16"),
-    ("bfloat16", "bfloat16")])
-@pytest.mark.parametrize("arch", list(MODELS))
+# (arch, model dtype, cache dtype): the dense models in each dtype pair,
+# the other families in float32 and bf16.
+DENSE = ("h2o-danube-3-4b", "musicgen-medium")
+DECODE_RUNS = [(a, d, c) for a in DENSE
+               for d, c in (("float32", "float32"), ("float32", "bfloat16"),
+                            ("bfloat16", "bfloat16"))] + \
+    [(a, d, d) for a in MODELS if a not in DENSE
+     for d in ("float32", "bfloat16")]
+
+
+@contextlib.contextmanager
+def _reference_routing():
+    """Within the block, the reference's ``moe._route`` records each
+    call's expert choices, and the port's ``moe._route`` takes them, call
+    by call, in place of its own top-k: the port's gate values are its own
+    probabilities at the reference's experts, renormalised.  Yields the
+    list of the port's own choices that differ from the reference's, each
+    as (call, row, gap between the port's k-th and (k+1)-th
+    probabilities)."""
+    real_j, real_t, calls, flips = JM._route, TM._route, [], []
+    n_calls = [0]
+
+    def record(tokens, router, top_k):
+        vals, idx = real_j(tokens, router, top_k)
+        calls.append(np.array(idx))
+        return vals, idx
+
+    def take(tokens, router, top_k):
+        want = torch.from_numpy(calls.pop(0)).long()
+        probs = torch.softmax(tokens.float() @ router.float(), dim=-1)
+        _, own = real_t(tokens, router, top_k)
+        top = probs.sort(-1, descending=True).values
+        gap = top[:, top_k - 1] - top[:, top_k]
+        for r in torch.nonzero((own != want).any(-1)).flatten().tolist():
+            flips.append((n_calls[0], r, float(gap[r])))
+        n_calls[0] += 1
+        vals = probs.gather(1, want)
+        return vals / vals.sum(-1, keepdim=True).clamp_min(1e-9), want
+
+    JM._route, TM._route = record, take
+    try:
+        yield flips
+    finally:
+        JM._route, TM._route = real_j, real_t
+
+
+@pytest.mark.parametrize("arch,dtype,cache_dtype", DECODE_RUNS)
 def test_decode_step_matches_reference(arch, dtype, cache_dtype):
-    """40 tokens one at a time from an empty cache of 64 positions (for
-    h2o-danube a 16-slot ring that wraps twice): logits at every step
-    against the reference's ``decode_step``, and the final caches."""
+    """Tokens one at a time from an empty cache of 64 positions (40 for the
+    dense models, whose 16-slot ring for h2o-danube wraps twice; 16 for the
+    others): logits at every step against the reference's ``decode_step``, and the
+    final caches (attention k and v, SSM states and convolution buffers,
+    hybrid sites, the VLM's image cache).
+
+    The MoE models' bf16 runs route the port's tokens to the reference's
+    experts (`_reference_routing`, the reference's step run eagerly with
+    its layers unrolled so that its choices can be recorded): init's 0.02 router leaves the
+    probabilities so close that a top-2 boundary can fall within the bf16
+    rounding of the layer input, where the packages pick different
+    experts, a discrete change and not a rounding one.  Each choice the
+    port's own top-k makes otherwise must be such a near-tie: its k-th and
+    (k+1)-th probabilities within 5e-3 (flips seen at gaps of 8e-5 to
+    1.2e-3).  Float32 runs route on their own."""
     jcfg, tcfg, jp, tp = _pair(arch, dtype)
-    x = _tokens(tcfg)
-    jc = JLM.init_cache(jcfg, 2, 64, dtype=getattr(jnp, cache_dtype))
-    tc = TLM.init_cache(tcfg, 2, 64, dtype=getattr(torch, cache_dtype),
-                        device="cpu")
+    steps = 40 if arch in DENSE else 16
+    x = _tokens(tcfg, s=steps)
+    jc, tc = _caches(jcfg, tcfg, 2, 64, cache_dtype)
     step = _ref_step(jcfg)
+    forced = bool(tcfg.n_experts) and dtype == "bfloat16"
+    if forced:                       # eager and unrolled: choices recorded
+        eager = dataclasses.replace(jcfg, scan_layers=False)
+        step = lambda p, c, t: JLM.decode_step(p, eager, c, t)  # noqa: E731
+    routing = _reference_routing() if forced else contextlib.nullcontext([])
     tol = (F32 if cache_dtype == "float32" else BF16_CACHE) \
         if dtype == "float32" else BF16_ENVELOPE
-    for i in range(x.shape[1]):
-        jl, jc = step(jp, jc, jnp.asarray(x[:, i]))
-        tl, tc2 = TLM.decode_step(tp, tcfg, tc, x[:, i])
-        assert tc2 is tc and tc["length"] == i + 1
-        assert tl.dtype == torch.float32
-        assert tl.shape == (2, tcfg.padded_vocab)
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl, np.float32),
-                                   **tol)
-    assert np.asarray(jc["layers"]["length"]).tolist() == [40] * 4
+    with routing as flips:
+        for i in range(steps):
+            jl, jc = step(jp, jc, jnp.asarray(x[:, i]))
+            tl, tc2 = TLM.decode_step(tp, tcfg, tc, x[:, i])
+            assert tc2 is tc and tc["length"] == i + 1
+            assert tl.dtype == torch.float32
+            assert tl.shape == (2, tcfg.padded_vocab)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl, np.float32),
+                                       **tol)
+    assert all(gap < 5e-3 for _, _, gap in flips), flips
+    assert np.asarray(jc["layers"]["length"]).tolist() == \
+        [steps] * tcfg.n_layers
     cache_tol = F32 if cache_dtype == "float32" else BF16_ENVELOPE
-    for name in ("k", "v"):
-        np.testing.assert_allclose(_f32(tc["layers"][name]),
-                                   _f32(jc["layers"][name]), **cache_tol)
+    for name, a, b in _cache_leaves(tc, jc):
+        assert a.dtype == b.dtype, name
+        np.testing.assert_allclose(_as_f32(a), _as_f32(b), **cache_tol,
+                                   err_msg=name)
+
+
+def test_moe_decode_drops_tokens_as_the_reference():
+    """In decode the MoE layer routes the batch as one group of b tokens,
+    so a small capacity drops tokens there too (capacity 1 a group of 8
+    tokens x 2 choices over 4 experts), as in the reference."""
+    jcfg, tcfg, jp, tp = _pair("phi3.5-moe-42b-a6.6b", "float32",
+                               capacity_factor=0.25)
+    x = _tokens(tcfg, b=8, s=6, seed=5)
+    jc, tc = _caches(jcfg, tcfg, 8, 16, "float32")
+    step = _ref_step(jcfg)
+    for i in range(6):
+        jl, jc = step(jp, jc, jnp.asarray(x[:, i]))
+        tl, tc = TLM.decode_step(tp, tcfg, tc, x[:, i])
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **F32)
+    h = torch.randn(8, 1, tcfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    plan = TM.moe_plan(h, tp["blocks"][0]["moe"]["router"],
+                        n_experts=tcfg.n_experts, top_k=tcfg.top_k,
+                        capacity_factor=tcfg.capacity_factor,
+                        router_group=tcfg.router_group)
+    assert plan["g"] == 8 and plan["cap"] == 1
+    assert not plan["in_cap"].all()
 
 
 def _ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -315,7 +450,7 @@ def _ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ordered(a) - ordered(b)).abs()
 
 
-@pytest.mark.parametrize("arch", list(MODELS))
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "musicgen-medium"])
 def test_decode_step_from_reference_bf16_cache(arch):
     """The witness for the bf16-cache tolerance above.  At each of 40 steps
     (the ring wraps twice for h2o-danube) the port starts from the
@@ -364,15 +499,33 @@ def test_decode_step_from_wrapped_reference_cache():
                                np.asarray(jc["layers"]["v"]), **F32)
 
 
+def _image_cache(tp, tcfg, cache, image):
+    """Fill a VLM cache's image k and v with each cross site's projections
+    of the image embeddings (the caller's job: neither package has a
+    prefill-to-cache path)."""
+    b, n = image.shape[:2]
+    for i, cp in enumerate(tp["cross"]):
+        for name, w in (("k", cp["attn"]["wk"]), ("v", cp["attn"]["wv"])):
+            cache["image_kv"][name][i] = (image @ w).reshape(
+                b, n, tcfg.n_kv_heads, tcfg.head_dim_)
+
+
 @pytest.mark.parametrize("arch", list(MODELS))
 def test_decode_matches_own_forward(arch):
     """The port's decode (float32, float32 cache; the ring wraps for
-    h2o-danube) against its own full-sequence forward at every position,
-    within 1e-5 of the largest logit."""
+    h2o-danube; the VLM's image cache holds the projections of the
+    forward's image embeddings) against its own full-sequence forward at
+    every position, within 1e-5 of the largest logit."""
     _, tcfg, _, tp = _pair(arch, "float32")
     x = _tokens(tcfg, seed=2)
-    full = TLM.forward(tp, tcfg, {"inputs": x})
+    batch = {"inputs": x}
     cache = TLM.init_cache(tcfg, 2, 64, dtype=torch.float32, device="cpu")
+    if tcfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            2, tcfg.n_image_tokens, tcfg.d_model,
+            generator=torch.Generator().manual_seed(3))
+        _image_cache(tp, tcfg, cache, batch["image_embeds"])
+    full = TLM.forward(tp, tcfg, batch)
     err = 0.0
     for i in range(x.shape[1]):
         logits, _ = TLM.decode_step(tp, tcfg, cache, x[:, i])
@@ -419,48 +572,60 @@ def test_reference_decode_past_max_seq_len_is_not_carried_over(arch, s_max,
 
 @pytest.mark.parametrize("arch,s_max", [("h2o-danube-3-4b", 64),
                                         ("h2o-danube-3-4b", 9),
-                                        ("gemma-7b", 33)])
+                                        ("gemma-7b", 33),
+                                        ("phi3.5-moe-42b-a6.6b", 33),
+                                        ("mamba2-370m", 64),
+                                        ("zamba2-1.2b", 40),
+                                        ("llama-3.2-vision-11b", 33)])
 @pytest.mark.parametrize("dtype", [None, "float32"])
 def test_init_cache_matches_reference(arch, s_max, dtype):
-    """Shapes and dtypes are the reference's, bf16 by default whatever the
-    model dtype; one host int where the reference keeps a length a layer."""
-    cfg = dataclasses.replace(TC.get_config(arch), n_layers=3, dtype="float32")
+    """Every tensor's shape and dtype is the reference's (bf16 by default
+    whatever the model dtype; SSM states float32), all zeros; one host int
+    where the reference keeps a length a layer and a site."""
+    cfg = dataclasses.replace(TC.get_config(arch), n_layers=7,
+                              dtype="float32")
     jkw = {} if dtype is None else dict(dtype=getattr(jnp, dtype))
     tkw = {} if dtype is None else dict(dtype=getattr(torch, dtype))
     j = JLM.init_cache(cfg, 2, s_max, **jkw)
     t = TLM.init_cache(cfg, 2, s_max, device="cpu", **tkw)
-    assert set(t) == {"layers", "length"} and t["length"] == 0
-    for name in ("k", "v"):
-        assert tuple(t["layers"][name].shape) == j["layers"][name].shape
-        assert str(t["layers"][name].dtype).split(".")[1] == \
-            str(j["layers"][name].dtype)
-        assert not t["layers"][name].any()
-    assert np.asarray(j["layers"]["length"]).tolist() == [0] * 3
+    assert set(t) == set(j) | {"length"} and t["length"] == 0
+    for name, a, b in _cache_leaves(t, j):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert not a.any() and not b.any(), name
+    assert np.asarray(j["layers"]["length"]).tolist() == [0] * 7
 
 
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
 def test_cache_converters_round_trip_bitwise(cache_dtype):
-    """Reference cache -> port -> reference arrays is bitwise, bf16
-    included; unequal per-layer lengths are refused."""
-    jcfg, tcfg, jp, _ = _pair("h2o-danube-3-4b", "float32")
-    jc = JLM.init_cache(jcfg, 2, 64, dtype=getattr(jnp, cache_dtype))
-    step = _ref_step(jcfg)
-    x = _tokens(tcfg, s=5, seed=4)
-    for i in range(5):
-        _, jc = step(jp, jc, jnp.asarray(x[:, i]))
-    arrays = _np(jc)
-    tc = convert.lm_cache_from_arrays(tcfg, arrays, device="cpu")
-    assert tc["length"] == 5
-    assert tc["layers"]["k"].dtype == getattr(torch, cache_dtype)
-    back = convert.lm_cache_to_arrays(tc)
-    for name in ("k", "v", "length"):
-        a, b = back["layers"][name], np.asarray(arrays["layers"][name])
-        assert a.dtype == b.dtype
-        np.testing.assert_array_equal(a, b)
-    bad = {"layers": dict(arrays["layers"],
-                          length=np.array([5, 5, 4, 5], np.int32))}
-    with pytest.raises(ValueError, match="all equal"):
-        convert.lm_cache_from_arrays(tcfg, bad, device="cpu")
+    """Reference cache after 5 steps -> port -> reference arrays is
+    bitwise, bf16 included, for attention (h2o-danube's ring), SSM,
+    hybrid and VLM caches; unequal lengths (a layer's, or a hybrid
+    site's) are refused."""
+    for arch in ("h2o-danube-3-4b", "mamba2-370m", "zamba2-1.2b",
+                 "llama-3.2-vision-11b"):
+        jcfg, tcfg, jp, _ = _pair(arch, "float32")
+        jc, _ = _caches(jcfg, tcfg, 2, 64, cache_dtype)
+        step = _ref_step(jcfg)
+        x = _tokens(tcfg, s=5, seed=4)
+        for i in range(5):
+            _, jc = step(jp, jc, jnp.asarray(x[:, i]))
+        arrays = _np(jc)
+        tc = convert.lm_cache_from_arrays(tcfg, arrays, device="cpu")
+        assert tc["length"] == 5
+        for name, a, b in _cache_leaves(tc, jc):
+            assert a.dtype == b.dtype, (arch, name)
+            np.testing.assert_array_equal(a, b, err_msg=f"{arch} {name}")
+        lengths = np.full(tcfg.n_layers, 5, np.int32)
+        lengths[2] = 4
+        bad = dict(arrays, layers=dict(arrays["layers"], length=lengths))
+        with pytest.raises(ValueError, match="all equal"):
+            convert.lm_cache_from_arrays(tcfg, bad, device="cpu")
+        if "shared_attn" in arrays:
+            sites = [dict(site) for site in arrays["shared_attn"]]
+            sites[-1]["length"] = np.asarray(6, np.int32)
+            with pytest.raises(ValueError, match="all equal"):
+                convert.lm_cache_from_arrays(
+                    tcfg, dict(arrays, shared_attn=sites), device="cpu")
 
 
 def test_cache_follows_the_device_rule():
@@ -491,18 +656,6 @@ def test_transformer_lm_decode_methods():
         lb, b = TLM.decode_step(tp, tcfg, b, x[:, i])
         assert torch.equal(la, lb)
     assert a["length"] == 3 and torch.equal(a["layers"]["k"], b["layers"]["k"])
-
-
-@pytest.mark.parametrize("arch", ["grok-1-314b", "mamba2-370m",
-                                  "llama-3.2-vision-11b"])
-def test_decode_of_other_families_is_refused(arch):
-    cfg = TC.smoke_config(arch)
-    for call in (lambda: TLM.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: lm_serve.make_serve_step(cfg, lm_serve.ServeConfig()),
-                 lambda: TLM.decode_step({}, cfg, {}, np.zeros(1)),
-                 lambda: convert.lm_cache_from_arrays(cfg, {}, device="cpu")):
-        with pytest.raises(ValueError, match="is not ported yet"):
-            call()
 
 
 # ---------------------------------------------------------------------------
@@ -583,19 +736,52 @@ def test_serve_step_generator_draws_are_reproducible():
 
 
 @pytest.mark.parametrize("arch,s_max", [("h2o-danube-3-4b", 8),
-                                        ("musicgen-medium", 32)])
+                                        ("musicgen-medium", 32),
+                                        ("zamba2-1.2b", 32),
+                                        ("llama-3.2-vision-11b", 32)])
 def test_serve_step_refuses_a_cache_of_another_size(arch, s_max):
     """The step holds the cache to ``max_seq_len``: a cache made for
-    another size (here 48: 16 ring slots for h2o-danube, 48 for musicgen)
+    another size (here 48: 16 ring slots for h2o-danube, 48 for musicgen
+    and the VLM's layers, 48 in each of zamba2's shared-attention sites)
     raises naming ``max_seq_len`` and is left as it was."""
-    _, tcfg, _, tp = _pair(arch, "float32", n_layers=1)
+    _, tcfg, _, tp = _pair(arch, "float32", n_layers=3)
     step = lm_serve.make_serve_step(tcfg, lm_serve.ServeConfig(
         max_seq_len=s_max))
     x = _tokens(tcfg, b=1, s=1)[:, 0]
     cache = TLM.init_cache(tcfg, 1, 48, device="cpu")
+    tensors = [t for t in jax.tree.leaves(cache)
+               if isinstance(t, torch.Tensor)]
     with pytest.raises(ValueError, match="max_seq_len"):
         step(tp, cache, x)
-    assert cache["length"] == 0 and not cache["layers"]["k"].any()
+    assert cache["length"] == 0 and not any(t.any() for t in tensors)
     ok = TLM.init_cache(tcfg, 1, s_max, device="cpu")
     tok, ok = step(tp, ok, x)
     assert ok["length"] == 1 and tok.shape == (1,)
+
+
+def test_serve_step_takes_an_ssm_cache_of_any_size():
+    """An SSM cache has no slots to hold to ``max_seq_len``: caches made
+    for any size serve the same tokens."""
+    _, tcfg, _, tp = _pair("mamba2-370m", "float32", n_layers=2)
+    step = lm_serve.make_serve_step(tcfg, lm_serve.ServeConfig(
+        max_seq_len=8))
+    x = _tokens(tcfg, b=2, s=12, seed=9)
+    toks = []
+    for s_max in (8, 1000):
+        cache = TLM.init_cache(tcfg, 2, s_max, device="cpu")
+        out = [step(tp, cache, x[:, i])[0] for i in range(12)]
+        assert cache["length"] == 12
+        toks.append(torch.stack(out))
+    assert torch.equal(toks[0], toks[1])
+
+
+def test_serve_step_refuses_an_image_cache_of_another_size():
+    """A VLM cache whose image k and v hold another number of image tokens
+    than the config's raises, naming the image cache."""
+    _, tcfg, _, tp = _pair("llama-3.2-vision-11b", "float32", n_layers=2)
+    step = lm_serve.make_serve_step(tcfg, lm_serve.ServeConfig(
+        max_seq_len=16))
+    other = dataclasses.replace(tcfg, n_image_tokens=tcfg.n_image_tokens + 1)
+    cache = TLM.init_cache(other, 1, 16, device="cpu")
+    with pytest.raises(ValueError, match="the image cache holds 17 slots"):
+        step(tp, cache, _tokens(tcfg, b=1, s=1)[:, 0])

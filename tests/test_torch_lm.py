@@ -1,12 +1,20 @@
-"""Port vs reference: the dense-LM prefill path (config registry, layers,
-B7's plain version, whole forward and prefill, the token stream).
+"""Port vs reference: the LM prefill path of every family (config
+registry, layers, B7's plain version, whole forward and prefill, the token
+stream).
 
 Inputs are made with a seeded numpy generator; the reference's random
 parameters (``repro.models.lm.init``) are carried over with
 `repro_torch.io.convert.lm_params_from_arrays`, so both packages run the
 same model.  The reference's attention is its Pallas kernel B7 in interpret
 mode (``use_pallas=True``), whose semantics the port implements (its
-``use_pallas=False`` path rounds the probabilities to the model dtype).
+``use_pallas=False`` path rounds the probabilities to the model dtype).  A
+VLM's cross gates are zero at init, which would hide its cross blocks, so
+`_pair` draws them nonzero in the reference's tree before carrying it over,
+and the VLM's image embeddings are given to both packages in float32, as
+the data pipeline makes them (`lm_batches`): in a bf16 model both project
+them to the cross k and v in float32, and the port then rounds k and v to
+bf16 for B7 where the reference's kernel reads them in float32, a
+difference held by the bf16 envelope below.
 
 Tolerances.  B7's plain version against ``ref.mha_ref`` and the interpret
 kernel: atol 2e-6 + rtol 1e-5 in float32 (both compute in float32; the
@@ -33,6 +41,7 @@ from repro.kernels import ref as JR
 from repro.models import config as JMC
 from repro.models import layers as JL
 from repro.models import lm as JLM
+from repro.models import params as JPA
 from repro_torch import configs as TC
 from repro_torch.data import pipeline as TP
 from repro_torch.io import convert
@@ -92,17 +101,23 @@ def test_shapes_and_gbdt_config_match_reference():
         (jcfg.n_outputs, jcfg.sketch_k, jcfg.n_trees, jcfg.depth)
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "gemma-7b",
-                                  "granite-34b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", JC.ARCH_NAMES)
 def test_param_decls_match_reference(arch):
-    """The port declares the reference's tree (shapes, axes, init), and
-    its count is the config's analytic one."""
+    """The port declares the reference's tree (shapes, axes, init), sites
+    included.  Its count is the reference tree's, and the config's analytic
+    one where that counts every declared tensor (dense, audio and MoE: the
+    analytic count leaves out the SSM's A_log, D, dt_bias and norm, the
+    shared block's norms, and counts an MLP a cross site has not)."""
     cfg = TC.get_config(arch)
     t = TPA.map_decls(dataclasses.astuple, TLM.param_decls(cfg))
-    j = jax.tree.map(dataclasses.astuple, JLM.param_decls(JC.get_config(arch)),
+    jdecls = JLM.param_decls(JC.get_config(arch))
+    j = jax.tree.map(dataclasses.astuple, jdecls,
                      is_leaf=lambda x: hasattr(x, "axes"))
     assert t == j
-    assert TPA.n_params(TLM.param_decls(cfg)) == cfg.n_params()
+    n = TPA.n_params(TLM.param_decls(cfg))
+    assert n == JPA.n_params(jdecls)
+    if cfg.family in ("dense", "audio", "moe"):
+        assert n == cfg.n_params()
 
 
 def test_init_params_dtypes_and_scales():
@@ -181,6 +196,41 @@ def test_attention_apply_matches_reference(n_kv, window):
     ref = JL.attention_apply({k: jnp.asarray(v) for k, v in p.items()},
                              jnp.asarray(x), use_pallas=True, **kw)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_apply_matches_reference(dtype):
+    """Cross-attention (``kv_inputs``: no RoPE, no mask, sk != sq) with
+    float32 image embeddings, in a float32 and a bf16 module, against the
+    reference's with ``use_pallas=True`` (32 keys: its wrapper pads none).
+    In bf16 both project k and v in float32; the port then rounds them to
+    bf16 for B7 (exactly that, checked bitwise), the reference's kernel
+    reads them in float32, and the two agree within the bf16 envelope."""
+    rng = np.random.default_rng(5)
+    decls = TL.attention_decls(64, 4, 2, 32)
+    p = {k: rng.normal(size=d.shape).astype(np.float32) / 8.0
+         for k, d in decls.items()}
+    x = rng.normal(size=(2, 20, 64)).astype(np.float32)
+    kv = rng.normal(size=(2, 32, 64)).astype(np.float32)
+    kw = dict(n_heads=4, n_kv_heads=2, head_dim=32, rope_theta=10_000.0)
+    tp = {k: torch.from_numpy(v).to(getattr(torch, dtype))
+          for k, v in p.items()}
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    out = TL.attention_apply(tp, xt, kv_inputs=torch.from_numpy(kv), **kw)
+    ref = JL.attention_apply(
+        {k: jnp.asarray(v).astype(getattr(jnp, dtype)) for k, v in p.items()},
+        jnp.asarray(x).astype(getattr(jnp, dtype)),
+        kv_inputs=jnp.asarray(kv), use_pallas=True, **kw)
+    assert out.dtype == getattr(torch, dtype) and str(ref.dtype) == dtype
+    tol = F32 if dtype == "float32" else BF16_ENVELOPE
+    np.testing.assert_allclose(_f32(out), _f32(ref), **tol)
+
+    def heads(t, h):
+        return t.reshape(2, -1, h, 32).transpose(1, 2).contiguous()
+    k, v = (heads((torch.from_numpy(kv) @ tp[w].float()).to(xt.dtype), 2)
+            for w in ("wk", "wv"))
+    o = FA.flash_attention(heads(xt @ tp["wq"], 4), k, v, causal=False)
+    assert torch.equal(out, o.transpose(1, 2).reshape(2, 20, 128) @ tp["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -296,15 +346,30 @@ MODELS = {
     "gemma-7b": {},                          # geglu, embed_scale
     "granite-34b": {},                       # kv=1, gelu, untied head
     "musicgen-medium": {},                   # embed_inputs
+    "grok-1-314b": {},                       # MoE 4 experts, moe_shard tp
+    "phi3.5-moe-42b-a6.6b": {},              # MoE 4 experts, ep, GQA 4
+    "mamba2-370m": {},                       # SSD, attention-free
+    "zamba2-1.2b": {},                       # SSD + shared attention, MHA
+    "llama-3.2-vision-11b": {},              # cross sites over 16 images
 }
 
 
+def _open_gates(jp, seed=11):
+    """The reference's VLM tree with its cross gates drawn nonzero."""
+    if "cross" in jp:
+        gate = jp["cross"]["gate"]
+        jp["cross"]["gate"] = jnp.asarray(np.random.default_rng(seed).normal(
+            size=gate.shape).astype(np.float32))
+    return jp
+
+
 def _pair(arch, dtype, **over):
-    """(reference config, port config, reference params, port params)."""
+    """(reference config, port config, reference params, port params); a
+    VLM's gates drawn nonzero in both trees."""
     kw = dict(MODELS[arch], dtype=dtype, use_pallas=True, **over)
     jcfg = dataclasses.replace(JC.smoke_config(arch), **kw)
     tcfg = dataclasses.replace(TC.smoke_config(arch), **kw)
-    jp = JLM.init(jcfg, jax.random.key(0))
+    jp = _open_gates(JLM.init(jcfg, jax.random.key(0)))
     return jcfg, tcfg, jp, convert.lm_params_from_arrays(tcfg, _np(jp),
                                                          device="cpu")
 
@@ -316,24 +381,52 @@ def _inputs(cfg, b=2, s=64, seed=0):
     return rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
+def _batches(cfg, b=2, s=64, seed=0):
+    """(reference batch, port batch): the same tokens, and for a VLM the
+    same float32 image embeddings, whatever the model dtype."""
+    x = _inputs(cfg, b, s, seed)
+    jb, tb = {"inputs": jnp.asarray(x)}, {"inputs": x}
+    if cfg.family == "vlm":
+        im = np.random.default_rng(seed + 1).normal(
+            size=(b, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+        jb["image_embeds"], tb["image_embeds"] = jnp.asarray(im), im
+    return jb, tb
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", list(MODELS))
 def test_forward_and_prefill_match_reference(arch, dtype):
     jcfg, tcfg, jp, tp = _pair(arch, dtype)
-    x = _inputs(tcfg)
-    want = np.asarray(JLM.forward(jp, jcfg, {"inputs": jnp.asarray(x)}),
-                      np.float32)
-    out = TLM.forward(tp, tcfg, {"inputs": x})
+    jb, tb = _batches(tcfg)
+    want = np.asarray(JLM.forward(jp, jcfg, jb), np.float32)
+    out = TLM.forward(tp, tcfg, tb)
     assert out.dtype == torch.float32
     assert out.shape == (2, 64, tcfg.padded_vocab)
     tol = F32 if dtype == "float32" else BF16_ENVELOPE
     np.testing.assert_allclose(out.numpy(), want, **tol)
-    want_last = np.asarray(JLM.prefill(jp, jcfg, {"inputs": jnp.asarray(x)}),
-                           np.float32)
+    want_last = np.asarray(JLM.prefill(jp, jcfg, jb), np.float32)
     step = lm_serve.make_prefill_step(tcfg)
-    last = step(tp, {"inputs": torch.from_numpy(x)})
+    last = step(tp, {k: torch.from_numpy(v) for k, v in tb.items()})
     np.testing.assert_allclose(last.numpy(), want_last, **tol)
     np.testing.assert_allclose(last.numpy(), out[:, -1].numpy(), **F32)
+
+
+def test_vlm_gates_open_the_cross_blocks():
+    """Zero gates (the init) close the cross blocks: the port's forward
+    ignores the image.  Open gates (`_pair`) let it through, in both
+    packages alike."""
+    _, tcfg, _, tp = _pair("llama-3.2-vision-11b", "float32")
+    closed = TLM.init(tcfg, torch.Generator().manual_seed(1), device="cpu")
+    assert all(not c["gate"].any() for c in closed["cross"])
+    assert all(c["gate"].abs().min() > 0 for c in tp["cross"])
+    _, tb = _batches(tcfg, s=12)
+    other = dict(tb, image_embeds=tb["image_embeds"] * 3.0 + 1.0)
+    assert torch.equal(TLM.forward(closed, tcfg, tb),
+                       TLM.forward(closed, tcfg, other))
+    assert not torch.allclose(TLM.forward(tp, tcfg, tb),
+                              TLM.forward(tp, tcfg, other), atol=1e-3)
+    with pytest.raises(ValueError, match="image_embeds"):
+        TLM.forward(tp, tcfg, {"inputs": tb["inputs"]})
 
 
 def test_use_pallas_does_not_change_the_port():
@@ -383,20 +476,21 @@ def test_init_follows_the_device_rule():
     assert p["embed"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["grok-1-314b", "phi3.5-moe-42b-a6.6b",
-                                  "mamba2-370m", "zamba2-1.2b",
-                                  "llama-3.2-vision-11b"])
-def test_other_families_are_refused(arch):
-    """MoE, SSM, hybrid and VLM raise, naming the slice that brings them."""
-    cfg = TC.smoke_config(arch)
-    for call in (lambda: TLM.param_decls(cfg),
-                 lambda: TLM.init(cfg, torch.Generator(), device="cpu"),
-                 lambda: lm_serve.make_prefill_step(cfg),
-                 lambda: TLM.forward({}, cfg, {"inputs": np.zeros((1, 2))}),
-                 lambda: convert.lm_params_from_arrays(cfg, {}, device="cpu")):
-        with pytest.raises(ValueError, match=r"is not ported yet: it comes "
-                                             r"with the (MoE|SSM|VLM) slice"):
-            call()
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "llama-3.2-vision-11b"])
+def test_transformer_lm_module_keeps_sites(arch):
+    """The hybrid's shared block and the VLM's cross sites go through the
+    module's flat names and back unchanged."""
+    _, tcfg, _, tp = _pair(arch, "float32")
+    model = TLM.TransformerLM(tcfg, tp)
+    names = model.state_dict()
+    key = ("weights.shared_attn/attn/wq" if tcfg.family == "hybrid"
+           else "weights.cross/1/gate")
+    assert key in names
+    back = model.params
+    assert all(torch.equal(a, b) for a, b in zip(
+        TLM._flatten(back).values(), TLM._flatten(tp).values()))
+    _, tb = _batches(tcfg, s=10)
+    assert torch.equal(model(tb), TLM.forward(tp, tcfg, tb))
 
 
 def test_vocab_mask_matches_reference():
