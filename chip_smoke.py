@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port of SketchBoost, and its LM prefill and decode of
-every family, on one CUDA card, end to end.
+"""Run the PyTorch port of SketchBoost, its LM prefill and decode of
+every family, and LM training, on one CUDA card, end to end.
 
     python3 chip_smoke.py
 
@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, in parallel; B1 and B1-bf16 share ``hist.cu``, B3 and both
      B5 entry points ``predict.cu``; B4 is ``hist_direct.cu``, built with
-     B1 on ``hist_common.cuh``; B6 ``shap.cu``, B7 ``flash_attention.cu``,
-     B8 ``decode_attention.cu``; and the first versions of B2, B2-wide
+     B1 on ``hist_common.cuh``; B6 ``shap.cu``, B7 ``flash_attention.cu``
+     and its backward ``flash_attention_bwd.cu``, B8
+     ``decode_attention.cu``; and the first versions of B2, B2-wide
      and B6 from ``tools/``) and time the build;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (B1 and B1-bf16 bitwise against the plain version
@@ -56,7 +57,13 @@ Phases (any failure exits non-zero; nothing is caught):
      self-attention, all at 32,768 queries; ``FAMILY_DECODE``: zamba2's
      524,288-slot site with 32 kv heads, the VLM's image cache, batch 128
      and batch 8 self-attention), each within one bf16 ulp plus 1e-5 and
-     the same run to run, timed beside its bound and SDPA), and time
+     the same run to run, timed beside its bound and SDPA); B7's backward
+     at ``FLASH_BWD_SHAPES`` (h2o-danube-3-4b's training layer, 2 x 32/8
+     heads x 4,096 x 120 in bf16; zamba2's MHA dh 64 and the VLM's cross
+     over 1,600 keys at 4,096 queries in bf16; float32 1,000 rows over a
+     256 window), from the forward kernel's output and lse, against its
+     plain version, the same run to run, timed beside its bound and SDPA's
+     backward), and time
      kernel, plain version and, where one PyTorch call computes the same
      function, that call;
   4. fit the paper's configuration (``configs/sketchboost_tabular.py``) at
@@ -182,7 +189,21 @@ Phases (any failure exits non-zero; nothing is caught):
      of 1 or 2 layers at full width over 256 tokens and 8 decode steps on
      the card against the CPU, within 1e-4 of the largest logit (the MoE's
      experts, slots and drops equal for the same input);
- 14. print the kernel table as one JSON line, the card's line, and last
+ 14. LM training (`training_phase`, phase 13's memory freed first): (a)
+     h2o-danube-3-4b at full width and depth in bf16, 2 x 4,096 tokens
+     (``train_4k`` with its batch cut from 256 to 2 for one card), AdamW,
+     remat on: one untimed step and 3 timed ones, ms a step, tokens/s,
+     peak memory, the losses (the first near ln 32,000) and grad norms,
+     B7's forward launched twice a layer a step and its backward
+     (``flash_attention_bwd.cu``) once, one profiled step (busy share, B7
+     forward and backward device time); (b) a float32 copy at full width
+     with 2 layers and a 256 window, 640 tokens, remat off: one AdamW step
+     on the card and on the CPU, loss within 1e-5 relative, each gradient leaf
+     within 1e-4 of its largest magnitude, parameters within 1e-4 of their
+     largest magnitude where the gradient's sign is resolved (and within
+     2 lr elsewhere); (c) ``launch.train.train_gbdt`` with its default
+     arguments and with ``--dist`` on a one-rank NCCL world;
+ 15. print the kernel table as one JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
@@ -197,7 +218,8 @@ again
 around phase 10's prefill requests (B7), again around phase 11's
 decode steps (B8), in each rank of phase 12 around each distributed
 fit and the prediction after it (B1, B2, B3, B4, B1-bf16), and around
-each of phase 13's prefill runs (B7) and decode mixes (B8).
+each of phase 13's prefill runs (B7) and decode mixes (B8), and around
+phase 14 (a)'s timed training steps (B7 and its backward).
 """
 from __future__ import annotations
 
@@ -1265,6 +1287,119 @@ FAMILY_DECODE = {"zamba2_long_500k": (1, 32, 32, 524_288, 64, 524_288),
                  "vlm_image": (8, 32, 8, 1_600, 128, 1_600),
                  "moe_b128": (128, 32, 8, 4_113, 128, 4_096),
                  "vlm_b8": (8, 32, 8, 8_209, 128, 8_192)}
+
+
+# B7's backward (`csrc/flash_attention_bwd.cu`) at the training path's
+# shapes, each (b, hq, hkv, sq, sk, dh, causal, window, dtype):
+# h2o-danube-3-4b's layer at phase 14's 2 x 4,096 tokens (the window of
+# 4,096 sees every earlier key there), zamba2's MHA dh-64 shared block and
+# the VLM's non-causal cross-attention over 1,600 image keys at 4,096
+# queries, and a float32 shape whose 1,000 rows outrun a 256 window.
+FLASH_BWD_SHAPES = {
+    "danube_train_4k": (2, 32, 8, 4096, 4096, 120, True, 4096, "bfloat16"),
+    "zamba2_mha_dh64": (1, 32, 32, 4096, 4096, 64, True, None, "bfloat16"),
+    "vlm_cross_1600": (1, 32, 8, 4096, 1600, 128, False, None, "bfloat16"),
+    "f32_sq_over_window": (1, 8, 2, 1000, 1000, 128, True, 256, "float32"),
+}
+
+
+def check_flash_bwd(torch, gen, dev):
+    """B7's backward at ``FLASH_BWD_SHAPES``: the forward kernel's output
+    and lse, then the backward kernel against `ref.flash_attention_bwd_ref`
+    on the card.  Limit: float32 gradients within 1e-5 of each one's
+    largest magnitude (the sums run in another order); bf16 each within
+    one bf16 ulp of its own plain value plus that.  The same bits run to
+    run.  Timed beside its plain version, its bound (the 5 products of 2 dh
+    operations a seen pair that the gradient needs, S, dP, dV, dK and dQ:
+    at the bf16 tensor-core rate for bf16 inputs, the fp32 rate otherwise;
+    ``cuda_core_bound_ms`` all at the fp32 rate of the CUDA cores it runs
+    on; ``design_ops`` adds the S and dP that the dQ kernel recomputes) and
+    SDPA's backward: ``is_causal`` or no mask where the window sees every
+    earlier key, else a boolean band mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    shapes = {}
+    for key, (b, hq, hkv, sq, sk, dh, causal, window, dt) in \
+            FLASH_BWD_SHAPES.items():
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn((b, hq, sq, dh), generator=gen, device=dev)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, hkv, sk, dh), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        o, lse = FA.flash_attention_lse(q, k, v, **kw)
+        assert torch.equal(o, FA.flash_attention(q, k, v, **kw)), key
+
+        def kernel():
+            return FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+        def plain():
+            return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        err, worst = 0.0, 0.0
+        for name, a, c, w in zip("qkv", got, again, want):
+            assert torch.equal(a, c), f"B7 bwd d{name} differs run to run"
+            diff = (a.float() - w.float()).abs()
+            atol = 1e-5 * float(w.float().abs().max())
+            limit = atol if dtype == torch.float32 else bf16_ulps(w) + atol
+            err = max(err, float(diff.max()))
+            worst = max(worst, float((diff / limit).max()))
+        assert worst <= 1.0, (
+            f"B7 bwd at {key} differs from plain by up to {worst!r} of its "
+            f"limit (max abs err {err!r})")
+        del again, want, diff
+        pairs = attention_pairs(sq, sk, causal, window)
+        ops = 5 * 2 * dh * pairs * b * hq
+        size = q.element_size()
+        n_bytes = (size * (4 * b * hq * sq * dh + 4 * b * hkv * sk * dh)
+                   + 4 * b * hq * sq)
+        if dtype == torch.bfloat16:
+            b_ms, b_by = bound_ms(n_bytes, 0, n_bf16_ops=ops)
+        else:
+            b_ms, b_by = bound_ms(n_bytes, ops)
+        # The library yardstick, used nowhere in the port.
+        if window is not None and window < sq:
+            qpos = torch.arange(sq, device=dev)[:, None]
+            kpos = torch.arange(sk, device=dev)[None, :]
+            mask = (kpos <= qpos) & (qpos - kpos < window) & (kpos < sk)
+            lib_kw = dict(attn_mask=mask)
+        else:
+            lib_kw = dict(is_causal=causal)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, **lib_kw,
+                                             enable_gqa=hq != hkv)
+        lib = torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+        lib_err = max(float((x.float() - y.float()).abs().max())
+                      for x, y in zip(lib, got))
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), 3)
+        del out, lib, qg, kg, vg, lib_kw
+        shapes[key] = dict(
+            b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, dh=dh, causal=causal,
+            window=window, dtype=dt, max_abs_err=err,
+            share_of_limit=worst, pairs_per_head=pairs, ops=ops,
+            design_ops=7 * ops // 5,
+            ms=cuda_ms(kernel, 3), plain_ms=cuda_ms(plain, 1),
+            bound_ms=b_ms, bound_by=b_by,
+            cuda_core_bound_ms=bound_ms(n_bytes, ops)[0],
+            library_ms=lib_ms, library_max_abs_err=lib_err)
+        del q, k, v, o, lse, do, got
+        torch.cuda.empty_cache()
+    top = shapes["danube_train_4k"]
+    return dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:76",
+        replaces_note=("the gradient of B7; the reference has no backward "
+                       "kernel and differentiates chunked_attention "
+                       "(src/repro/models/layers.py:89) with XLA"),
+        max_abs_err=max(sh["max_abs_err"] for sh in shapes.values()),
+        ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"],
+        cuda_core_bound_ms=top["cuda_core_bound_ms"],
+        library_ms=top["library_ms"], shapes=shapes)
 
 
 def check_family_attention(torch, gen, dev):
@@ -3436,6 +3571,192 @@ def families_phase(torch, dev, b7, b8, kernels):
     return recs, launches
 
 
+def _train_grads(torch, lm, opt, params, cfg, batch):
+    """lm_loss and its gradients of ``params``: (loss, grads tree)."""
+    leaves = opt.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = lm.lm_loss(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), opt.tree_unflatten(params, grads)
+
+
+def training_phase(torch, dev, b7, b7b, kernels, arch="h2o-danube-3-4b",
+                   batch=2, seq=4096, steps=3):
+    """Phase 14: LM training.  (a) ``arch`` at full width and depth in
+    bf16 on ``train_4k``'s 4,096 tokens, the batch cut from 256 to
+    ``batch`` for one card: random weights from a seeded
+    ``torch.Generator``, tokens from ``lm_batches(seed=0)`` through the
+    `ShardedPrefetcher`, AdamW (`default_opt_config`), remat on; one
+    untimed step, then ``steps`` timed ones with every kernel count set to
+    0 just before and read just after (B7's forward twice a layer, its
+    backward once), then one profiled step.  (b) a float32 copy at full
+    width with 2 layers and a 256 window over 640 tokens, remat off: one
+    AdamW step on the card and on the CPU from the same state.  (c) the GBDT
+    launcher, ``train_gbdt`` with its default arguments and with
+    ``--dist`` on a one-rank NCCL world."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardedPrefetcher, lm_batches
+    from repro_torch.launch import train as TTR
+    from repro_torch.models import lm
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_lib
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    assert cfg.remat, "phase 14 trains with remat on, as the reference"
+    n_params = cfg.n_params()
+    gb = 1e9
+    print(f"[14] {arch}: {n_params} parameters; reckoned before the run: "
+          f"{2 * n_params / gb:.2f} GB of bf16 weights, "
+          f"{8 * n_params / gb:.2f} GB of float32 m and v, "
+          f"{2 * n_params / gb:.2f} GB of bf16 gradients")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    tcfg = train_lib.TrainConfig(opt=train_lib.default_opt_config(cfg))
+    assert tcfg.opt.name == "adamw", tcfg.opt
+    state = opt.opt_init(params, tcfg.opt)
+    step_fn = train_lib.make_train_step(cfg, tcfg)
+    stream = ShardedPrefetcher(lm_batches(cfg.vocab_size, batch, seq,
+                                          seed=0), device=dev,
+                               process_index=0, process_count=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step_fn(params, state, next(stream), 0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses, gnorms, times, per_step = [float(m["loss"])], \
+        [float(m["grad_norm"])], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    for i in range(1, steps + 1):
+        fwd, bwd = b7.launches, b7b.launches
+        batch_i = next(stream)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch_i, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        per_step.append({b7.name: b7.launches - fwd,
+                         b7b.name: b7b.launches - bwd})
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for c in per_step:
+        assert c == {b7.name: 2 * cfg.n_layers, b7b.name: cfg.n_layers}, c
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    ln_v = math.log(cfg.vocab_size)
+    assert abs(losses[0] - ln_v) < 1.0, (losses[0], ln_v)
+    ms = 1e3 * statistics.median(times)
+    tokens_s = batch * seq / (ms / 1e3)
+    print(f"[14] (a) train {batch} x {seq} tokens: first step (untimed) "
+          f"{first_s:.2f} s; seconds a step {times}, median {ms:.1f} ms = "
+          f"{tokens_s:.0f} tokens/s; peak {peak:.2f} GiB; loss "
+          f"{losses[0]!r} (ln {cfg.vocab_size} = {ln_v:.4f}) -> "
+          f"{losses[-1]!r}; grad_norm {gnorms}; launches a step {per_step}")
+    prof = profile_step(torch, lambda: step_fn(params, state, next(stream),
+                                               steps + 1),
+                        "flash_attention",
+                        ("dkdv_kernel", "dq_kernel", "delta_kernel"))
+    bwd_s = sum(prof["by_key"].values())
+    print(f"[14] (a) profiled step (profiler on): wall {prof['wall_s']:.3f}"
+          f" s, device busy {prof['device_busy_s']:.3f} s = "
+          f"{prof['busy_share']:.3f} of wall; B7 forward "
+          f"{prof['kernel_s']:.3f} s, B7 backward {bwd_s:.3f} s "
+          f"({prof['by_key']}), matmuls {prof['matmul_s']:.3f} s")
+    for key, t, count in prof["top_ms"]:
+        print(f"[14]   {t:10.3f} ms x{count:<5d} {key}")
+    stream.close()
+    rec = {"a": dict(arch=arch, n_params=n_params, batch=batch, tokens=seq,
+                     first_step_s=first_s, step_s=times, ms_per_step=ms,
+                     tokens_per_s=tokens_s, peak_gib=peak, losses=losses,
+                     grad_norms=gnorms, launches_per_step=per_step,
+                     profile=dict(prof, b7_bwd_s=bwd_s))}
+    del params, state, m, step_fn, batch_i
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) card against CPU, float32; remat off (the CPU's time: (a) runs
+    # remat, and the CPU tests hold remat on and off bitwise).
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32", window=256,
+                                remat=False)
+    ocfg = train_lib.default_opt_config(small)
+    step = 50
+    host = next(lm_batches(small.vocab_size, 1, 640, seed=2))
+    p_cpu = lm.init(small, torch.Generator().manual_seed(3), device="cpu")
+    res = {}
+    for where in (dev, "cpu"):
+        params = (p_cpu if where == "cpu" else
+                  opt.tree_map(lambda t: t.to(where, copy=True), p_cpu))
+        b = {k: torch.as_tensor(v, device=where) for k, v in host.items()}
+        loss, grads = _train_grads(torch, lm, opt, params, small, b)
+        grads_cpu = opt.tree_map(lambda t: t.cpu(), grads)
+        st = opt.opt_init(params, ocfg)
+        opt.opt_update(grads, st, params, step, ocfg)
+        res[str(where)] = (float(loss), grads_cpu,
+                           opt.tree_map(lambda t: t.detach().cpu(), params))
+        del params, grads, st, b
+    l_cpu, g_cpu, p_cpu = res["cpu"]
+    l_dev, g_dev, p_dev = res[str(dev)]
+    lr = float(opt.lr_schedule(ocfg, step))
+    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    g_share, p_share, unresolved, flip_share = 0.0, 0.0, 0, 0.0
+    for gc_, gd, pc, pd in zip(*(opt.tree_leaves(t) for t in
+                                 (g_cpu, g_dev, p_cpu, p_dev))):
+        g_env = 1e-4 * float(gc_.abs().max())
+        g_share = max(g_share, float((gd - gc_).abs().max()) / g_env)
+        # Adam's first step moves each weight by about lr * sign(g): a
+        # gradient below the gradients' envelope has no resolved sign,
+        # and its weight may move the other way (by at most 2 lr).
+        resolved = gc_.abs() > g_env
+        dp = (pd - pc).abs()
+        p_env = 1e-4 * float(pc.abs().max())
+        if bool(resolved.any()):
+            p_share = max(p_share, float(dp[resolved].max()) / p_env)
+        if bool((~resolved).any()):
+            unresolved += int((~resolved).sum())
+            flip_share = max(flip_share, float(dp[~resolved].max())
+                             / (2 * lr + p_env))
+    print(f"[14] (b) 2 layers at full width, float32, window 256, 1 x 640 "
+          f"tokens, one AdamW step (step {step}, lr {lr!r}): loss card "
+          f"{l_dev!r} CPU {l_cpu!r} (rel diff {loss_rel!r}, limit 1e-5); "
+          f"gradients up to {g_share!r} of 1e-4 max|g|; parameters where "
+          f"the gradient's sign is resolved up to {p_share!r} of 1e-4 "
+          f"max|p|; {unresolved} unresolved, moved up to {flip_share!r} of "
+          f"2 lr")
+    assert loss_rel <= 1e-5, (l_dev, l_cpu)
+    assert g_share <= 1.0 and p_share <= 1.0 and flip_share <= 1.0, (
+        g_share, p_share, flip_share)
+    rec["b"] = dict(loss_card=l_dev, loss_cpu=l_cpu, loss_rel_diff=loss_rel,
+                    grad_share_of_limit=g_share,
+                    param_share_of_limit=p_share,
+                    unresolved_sign_weights=unresolved,
+                    unresolved_share_of_2lr=flip_share)
+    del res, g_cpu, g_dev, p_cpu, p_dev
+    gc.collect()
+
+    # (c) the GBDT launcher with its default arguments, then --dist.
+    rec["c"] = {}
+    for extra in ([], ["--dist"]):
+        args = TTR.parser().parse_args(["--arch", "sketchboost-gbdt"]
+                                       + extra)
+        t0 = time.perf_counter()
+        out = TTR.train_gbdt(args)
+        sec = time.perf_counter() - t0
+        key = "dist" if extra else "single"
+        rec["c"][key] = dict(acc=out["acc"], fit_s=out["time_s"],
+                             seconds=sec, mesh=out.get("mesh"))
+        print(f"[14] (c) train_gbdt{' --dist' if extra else ''}: accuracy "
+              f"{out['acc']!r}, fit {out['time_s']:.2f} s, call {sec:.2f} s")
+        assert out["acc"] > 1.0 / args.outputs, out["acc"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[14] phase 14 took {rec['phase_s']:.2f} s; launches {launches}")
+    return rec, launches
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import sketchboost_tabular as paper
@@ -3468,9 +3789,10 @@ def main() -> int:
     b4 = hist_kernel.DIRECT_KERNEL
     b2w = split_kernel.WIDE_KERNEL
     b7 = flash_attention.KERNEL
+    b7b = flash_attention.BWD_KERNEL
     b8 = decode_attention.KERNEL
     b1bf = hist_kernel.KERNEL_BF16
-    every = kernels + b5 + [b6, b4, b2w, b7, b8, b1bf]
+    every = kernels + b5 + [b6, b4, b2w, b7, b8, b1bf, b7b]
     first_split, first_wide, first_shap = first_kernels()
     t0 = time.perf_counter()
     reports = _build.build(every + [first_split, first_wide, first_shap])
@@ -3501,6 +3823,7 @@ def main() -> int:
     family_flash, family_decode = check_family_attention(torch, gen, dev)
     rows[-2].setdefault("shapes", {}).update(family_flash)
     rows[-1].setdefault("shapes", {}).update(family_decode)
+    rows.append(check_flash_bwd(torch, gen, dev))
     for r in rows:
         for key, sh in r.get("shapes", {}).items():
             if "leaf_bytes" not in sh:           # B2, B2-wide and B6
@@ -3626,6 +3949,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     families, family_launches = families_phase(torch, dev, b7, b8, every)
+    # Phase 14 runs alone on the card: free phase 13's memory.
+    gc.collect()
+    torch.cuda.empty_cache()
+    training, train_launches = training_phase(torch, dev, b7, b7b, every)
+    assert train_launches[b7.name] > 0 and train_launches[b7b.name] > 0, \
+        train_launches
     for key in ("a", "b_rank0", "predict_a", "predict_b"):
         for name in (hist_kernel.KERNEL.name, split_kernel.KERNEL.name,
                      predict_kernel.KERNEL.name):
@@ -3645,6 +3974,10 @@ def main() -> int:
             r["path"] = "fit (sketch_method='none', d=512)"
         elif r["name"] == b7.name:           # B7: the LM prefill
             r["launches"], r["path"] = prefill_launches[r["name"]], "lm prefill"
+            r["training_launches"] = train_launches[r["name"]]
+        elif r["name"] == b7b.name:          # B7's backward: LM training
+            r["launches"] = train_launches[r["name"]]
+            r["path"] = "lm training (phase 14 (a), 3 steps)"
         elif r["name"] == b8.name:           # B8: the LM decode
             r["launches"], r["path"] = decode_launches[r["name"]], "lm decode"
         elif r["name"] == b1bf.name:         # B1-bf16: the bf16 fits
@@ -3675,7 +4008,7 @@ def main() -> int:
             r["family_launches"] = {arch: v[r["name"]] for arch, v in
                                     family_launches.items()}
     script_s = time.perf_counter() - t_script
-    print(f"[14] the script took {script_s:.1f} s")
+    print(f"[15] the script took {script_s:.1f} s")
     print(json.dumps({"kernels": rows, "fit_s": fit_s, "script_s": script_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
@@ -3684,7 +4017,7 @@ def main() -> int:
                       "one_vs_all": one_vs_all, "sampling": sampling,
                       "prefill": prefill,
                       "decode": decode, "distributed": distributed,
-                      "families": families,
+                      "families": families, "training": training,
                       "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

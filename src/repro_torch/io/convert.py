@@ -2,8 +2,9 @@
 
 The JAX package's fitted objects are given as numpy arrays (``np.asarray``
 of each field), so this module needs nothing of JAX.  Both packages then
-compute on the same forest, quantizer, tree, path pack, LM parameters or
-LM KV cache.
+compute on the same forest, quantizer, tree, path pack, LM parameters,
+LM optimizer state or LM KV cache; `lm_tree_to_arrays` carries LM trees
+(parameters, gradients, optimizer state) back.
 Every helper places its tensors by the device rule: CUDA unless ``device``
 names another device.
 """
@@ -145,6 +146,49 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
         return _array_to_tensor(t, device)
 
     return lm.unstack_params(cfg, convert(tree))
+
+
+def opt_state_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
+                          device=None):
+    """The port's optimizer state (`training.optimizer.opt_init` on the
+    port's parameters) from the reference's ``opt_state`` as numpy arrays,
+    all float32: AdamW's ``{"m", "v"}``, each a parameter tree; Adafactor's
+    parameter tree of ``{"vr", "vc"}`` / ``{"v"}`` dicts; SGD's ``{}``.
+    Each parameter tree's ``blocks`` and ``cross`` are unstacked as in
+    `lm_params_from_arrays`."""
+    device = resolve_device(device)
+
+    def convert(t):
+        if isinstance(t, Mapping):
+            return {k: convert(v) for k, v in t.items()}
+        return _array_to_tensor(t, device)
+
+    tree = convert(tree)
+    if set(tree) == {"m", "v"}:
+        return {k: lm.unstack_params(cfg, tree[k]) for k in ("m", "v")}
+    return lm.unstack_params(cfg, tree) if tree else {}
+
+
+def lm_tree_to_arrays(tree) -> Any:
+    """The reference's layout of a port LM tree (parameters, their
+    gradients or an optimizer state): each list (``blocks``, ``cross``)
+    stacked along a new leading axis, every tensor a numpy array, bfloat16
+    as its ``uint16`` bits.  The inverse of `lm_params_from_arrays` and
+    `opt_state_from_arrays`."""
+    if isinstance(tree, Mapping):
+        return {k: lm_tree_to_arrays(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _stack([lm_tree_to_arrays(t) for t in tree])
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _stack(parts):
+    if isinstance(parts[0], Mapping):
+        return {k: _stack([p[k] for p in parts]) for k in parts[0]}
+    return np.stack(parts)
 
 
 def _one_length(cfg: ModelConfig, tree: Mapping[str, Any]) -> int:

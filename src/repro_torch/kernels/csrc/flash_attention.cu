@@ -131,9 +131,9 @@ __device__ __forceinline__ float group8_sum(float x) {
 template <typename T, int NC4>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int hq,
-                       int hkv, int sq, int sk, int dh, int causal,
-                       int window, float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int hq, int hkv, int sq,
+                       int sk, int dh, int causal, int window, float scale) {
   constexpr int VST = 32 * NC4;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -261,6 +261,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = 4 * rg + i;
     if (r >= q_rows) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cg == 0) lse[head * sq + q0 + r] = m[i] + logf(l[i]);
     T* row = og + static_cast<long long>(r) * dh;
 #pragma unroll
     for (int j = 0; j < NC4; ++j) {
@@ -274,9 +275,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NC4>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int hq, int hkv, int sq, int sk, int dh, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int b, int hq, int hkv, int sq, int sk, int dh, int causal,
+           int window, float scale, cudaStream_t stream) {
   const int qst = qk_stride(dh);
   const size_t bytes =
       sizeof(float) * (static_cast<size_t>(BQ + BK) * qst + BK * 32 * NC4 +
@@ -289,24 +290,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
   kern<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, sq, sk, dh,
-      causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, hq, hkv, sq, sk,
+      dh, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_type(const void* q, const void* k, const void* v, void* out, int b,
-                int hq, int hkv, int sq, int sk, int dh, int causal,
-                int window, float scale, cudaStream_t s) {
+int launch_type(const void* q, const void* k, const void* v, void* out,
+                float* lse, int b, int hq, int hkv, int sq, int sk, int dh,
+                int causal, int window, float scale, cudaStream_t s) {
   switch ((dh + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
-    case 2: return launch<T, 2>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
-    case 3: return launch<T, 3>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
-    case 4: return launch<T, 4>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
-    case 5: return launch<T, 5>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
-    case 6: return launch<T, 6>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
-    case 7: return launch<T, 7>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
-    case 8: return launch<T, 8>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 1: return launch<T, 1>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 2: return launch<T, 2>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 3: return launch<T, 3>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 4: return launch<T, 4>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 5: return launch<T, 5>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 6: return launch<T, 6>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 7: return launch<T, 7>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 8: return launch<T, 8>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -321,6 +322,7 @@ constexpr int THREADS = 256;
 constexpr int STAGES = 2;      // K/V tiles in the ring
 constexpr int ATOM = 1024;     // one swizzle atom: 8 rows x 128 bytes
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // A `wgmma` shared-memory descriptor of a 128-byte-swizzled operand:
 // start address, leading and stride byte offsets (16-byte units), layout 1
@@ -456,9 +458,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out, int hq, int hkv,
-                          int sq, int sk, int dh, int causal, int window,
-                          float scale, int async) {
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int hq, int hkv, int sq,
+                          int sk, int dh, int causal, int window, float scale,
+                          int async) {
   constexpr uint32_t Q_ATOM = BQ * 128;        // bytes of one Q column atom
   constexpr uint32_t T_ATOM = BK * 128;        // ... of one K or V atom
   constexpr uint32_t TILE = NA * T_ATOM;       // one K or V tile
@@ -647,6 +650,9 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = rbase + 8 * r;
     if (row >= w_rows) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    // m is in the exp2 domain: ln(sum e^s) = m ln 2 + ln l.
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[head * sq + wq0 + row] = m[r] * LN2 + logf(l[r]);
     __nv_bfloat16* orow = out + (head * sq + wq0 + row) * dh;
 #pragma unroll
     for (int a = 0; a < NA; ++a)
@@ -667,9 +673,9 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int NA>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int hq, int hkv, int sq, int sk, int dh, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int b, int hq, int hkv, int sq, int sk, int dh, int causal,
+           int window, float scale, cudaStream_t stream) {
   const size_t bytes = ATOM + static_cast<size_t>(NA) * 128 *
                                   (BQ + 2 * STAGES * BK);
   auto kern = flash_attention_tc_kernel<NA>;
@@ -686,18 +692,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      hq, hkv, sq, sk, dh, causal, window, scale, async);
+      lse, hq, hkv, sq, sk, dh, causal, window, scale, async);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
-                int hq, int hkv, int sq, int sk, int dh, int causal,
-                int window, float scale, cudaStream_t s) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                float* lse, int b, int hq, int hkv, int sq, int sk, int dh,
+                int causal, int window, float scale, cudaStream_t s) {
   switch ((dh + 63) / 64) {
-    case 1: return launch<1>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
-    case 2: return launch<2>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
-    case 3: return launch<3>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
-    case 4: return launch<4>(q, k, v, out, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 1: return launch<1>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 2: return launch<2>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 3: return launch<3>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
+    case 4: return launch<4>(q, k, v, out, lse, b, hq, hkv, sq, sk, dh, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -706,18 +712,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
 
 }  // namespace
 
-// window <= 0 means no window; is_bf16 selects bfloat16 over float32.
+// window <= 0 means no window; is_bf16 selects bfloat16 over float32.  lse,
+// when not null, receives each query row's float32 log-sum-exp of its
+// scaled scores, ln sum_k exp(s_k), (b, hq, sq): what the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int b, int hq,
-                                      int hkv, int sq, int sk, int dh,
-                                      int causal, int window, int is_bf16,
-                                      float scale, void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int b, int hq, int hkv, int sq, int sk,
+                                      int dh, int causal, int window,
+                                      int is_bf16, float scale, void* stream) {
   if (b < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1 || dh < 1 ||
       dh > 256 || hq > 65535 || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? tc::launch_bf16(q, k, v, out, b, hq, hkv, sq, sk, dh,
+  float* l = static_cast<float*>(lse);
+  return is_bf16 ? tc::launch_bf16(q, k, v, out, l, b, hq, hkv, sq, sk, dh,
                                    causal, window, scale, s)
-                 : launch_type<float>(q, k, v, out, b, hq, hkv, sq, sk, dh,
-                                      causal, window, scale, s);
+                 : launch_type<float>(q, k, v, out, l, b, hq, hkv, sq, sk,
+                                      dh, causal, window, scale, s);
 }

@@ -377,7 +377,7 @@ NEG_INF = -1e30         # B7's and B8's masked score
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window=None,
-                        chunk: int = 512) -> torch.Tensor:
+                        chunk: int = 512, return_lse: bool = False):
     """Plain B7: GQA attention of q (b, hq, sq, dh) over k, v (b, hkv, sk,
     dh), in float32, returned in q's dtype.
 
@@ -389,13 +389,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (flash_attention.py:28-70) does tile by tile.  Query rows go in chunks
     of ``chunk``, each against the band of keys its rows can see (every
     other key's probability is exactly 0), so a 32k prefill fits on the
-    card.  Every query row must see a key."""
+    card.  Every query row must see a key.  With ``return_lse`` it returns
+    ``(out, lse)``, lse the float32 (b, hq, sq) ``m + log(l)`` of each
+    row: the log-sum-exp of its scaled scores, which B7 writes for its
+    backward."""
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
     scale = 1.0 / math.sqrt(dh)
     qg = q.reshape(b, hkv, group, sq, dh)
     out = torch.empty((b, hkv, group, sq, dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hkv, group, sq), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     for q0 in range(0, sq, chunk):
         q1 = min(q0 + chunk, sq)
         lo = 0 if window is None else max(0, q0 - window + 1)
@@ -411,11 +416,67 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if window is not None:
             mask &= qpos - kpos < window
         s = torch.where(mask, s, NEG_INF)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
         o = torch.einsum("bhgqk,bhkd->bhgqd", p, v[:, :, lo:hi].float())
-        out[:, :, :, q0:q1] = (o / p.sum(-1, keepdim=True).clamp_min(1e-30)
-                               ).to(q.dtype)
-    return out.reshape(b, hq, sq, dh)
+        l = p.sum(-1, keepdim=True)
+        out[:, :, :, q0:q1] = (o / l.clamp_min(1e-30)).to(q.dtype)
+        if lse is not None:
+            lse[..., q0:q1] = (m + torch.log(l))[..., 0]
+    out = out.reshape(b, hq, sq, dh)
+    return (out, lse.reshape(b, hq, sq)) if return_lse else out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window=None, chunk: int = 512):
+    """Plain B7 backward: (dq, dk, dv) of `flash_attention_ref` at q, k, v,
+    given its output ``o``, its float32 ``lse`` (b, hq, sq) and the
+    output's gradient ``do``, by the FlashAttention-2 equations
+    (`csrc/flash_attention_bwd.cu`), in float32:
+    ``P = exp(s - lse)`` (0 where a key is not seen), ``D = rowsum(do o)``,
+    ``dV = P^T do``, ``dS = P (do V^T - D)``, ``dQ = scale dS K``, ``dK =
+    scale dS^T Q``, dK and dV summed over each kv head's query heads; each
+    rounded once to its input's dtype.  Query rows go in chunks of
+    ``chunk`` against the band of keys they can see, as the forward."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, hkv, group, sq, dh).float()
+    dog = do.reshape(b, hkv, group, sq, dh).float()
+    lseg = lse.reshape(b, hkv, group, sq)
+    delta = (o.reshape(b, hkv, group, sq, dh).float() * dog).sum(-1)
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros((b, hkv, sk, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, sq, chunk):
+        q1 = min(q0 + chunk, sq)
+        lo = 0 if window is None else max(0, q0 - window + 1)
+        hi = min(sk, q1) if causal else sk
+        if hi <= lo:
+            continue
+        qc, doc = qg[:, :, :, q0:q1], dog[:, :, :, q0:q1]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf[:, :, lo:hi]) * scale
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(lo, hi, device=q.device)[None, :]
+        mask = torch.ones((q1 - q0, hi - lo), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= qpos - kpos < window
+        p = torch.where(mask, torch.exp(s - lseg[..., q0:q1, None]), 0.0)
+        dv[:, :, lo:hi] += torch.einsum("bhgqk,bhgqd->bhkd", p, doc)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", doc, vf[:, :, lo:hi])
+        ds = p * (dp - delta[..., q0:q1, None])
+        dq[:, :, :, q0:q1] = torch.einsum("bhgqk,bhkd->bhgqd", ds,
+                                          kf[:, :, lo:hi]) * scale
+        dk[:, :, lo:hi] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qc) * scale
+    return (dq.reshape(b, hq, sq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def split_bf16x3(p: torch.Tensor):

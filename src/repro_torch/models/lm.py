@@ -22,9 +22,12 @@ compare equal, but nothing branches on it: every attention (self, shared
 and cross) runs B7 (`kernels.flash_attention`) in forward and prefill and
 B8 (`kernels.decode_attention`) in decode, the VLM's image
 cross-attention included, whose device picks the kernel or its plain
-version.  ``attn_chunk``, ``causal_skip``, ``remat`` and ``scan_layers``
-shape the reference's compiled graph and have no counterpart here.
-Forward, prefill and decode run under ``torch.inference_mode()``.  A
+version.  ``attn_chunk``, ``causal_skip`` and ``scan_layers`` shape the
+reference's compiled graph and have no counterpart here.  Forward,
+prefill and decode run under ``torch.inference_mode()``; `lm_loss` records
+gradients, and with ``cfg.remat`` runs each plain layer under
+``torch.utils.checkpoint`` (`_remat`), so that B7's forward runs twice a
+layer in a training step.  A
 VLM's ``image_embeds`` keep their type: float32 embeddings into a bf16
 model are projected to the cross k and v in float32, as in the reference,
 and rounded to bf16 for B7 (`layers.attention_apply`).
@@ -42,10 +45,12 @@ the image cache (the reference's neither).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from repro_torch.core.device import resolve_device
@@ -282,10 +287,41 @@ def _image_embeds(params, cfg: ModelConfig, batch: Dict[str, Any]):
     return image.float() if image.dtype == torch.float64 else image
 
 
-def _hidden(params, cfg: ModelConfig, batch: Dict[str, Any]) -> torch.Tensor:
+# Matrix products, which ``remat_policy="dots"`` keeps (the reference's
+# ``dots_saveable``); everything else is recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(block, policy: str):
+    """``block`` under activation checkpointing: the reference's
+    ``jax.checkpoint`` of each plain layer (lm.py:210-215).  "nothing"
+    keeps only the layer's input and recomputes the layer in the backward;
+    "dots" also keeps the outputs of its matrix products."""
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    extra = ({} if policy == "nothing" else dict(
+        context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)))
+
+    def run(bp, x, cfg):
+        return ckpt.checkpoint(block, bp, x, cfg, use_reentrant=False,
+                               **extra)
+    return run
+
+
+def _hidden(params, cfg: ModelConfig, batch: Dict[str, Any],
+            remat: bool = False) -> torch.Tensor:
     x = embed_tokens(params, cfg, batch["inputs"])
     image_embeds = _image_embeds(params, cfg, batch)
     block = _ssm_block if _is_ssm(cfg) else _dense_block
+    if remat:
+        block = _remat(block, cfg.remat_policy)
     for site, s0, s1 in segments(cfg):
         if site is not None and cfg.family == "hybrid":
             x = _shared_attn_block(params["shared_attn"], x, cfg)
@@ -320,6 +356,30 @@ def vocab_mask(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
         return None
     ids = torch.arange(cfg.padded_vocab, device=device)
     return torch.where(ids < cfg.vocab_size, 0.0, -1e30)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Mean next-token cross-entropy, recording gradients: the forward
+    (each plain layer under `_remat` when ``cfg.remat``), the vocab mask
+    added to the float32 logits, a float32 log-softmax, the labels'
+    log-probabilities weighted by ``batch["loss_mask"]`` (ones when
+    absent) and divided by the weights' sum (at least 1).  Returns
+    ``(loss, {"ce": loss})``; as in the reference, no MoE load-balance
+    term is added (`moe.moe_aux_loss` is not called)."""
+    logits = logits_from_hidden(params, cfg, _hidden(params, cfg, batch,
+                                                     remat=cfg.remat))
+    mask = vocab_mask(cfg, device=logits.device)
+    if mask is not None:
+        logits = logits + mask
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = logp.gather(-1, labels[..., None])[..., 0]
+    weights = batch.get("loss_mask")
+    weights = (torch.ones_like(picked) if weights is None else
+               torch.as_tensor(weights, device=logits.device).to(picked.dtype))
+    loss = -(picked * weights).sum() / weights.sum().clamp_min(1.0)
+    return loss, {"ce": loss}
 
 
 # ---------------------------------------------------------------------------

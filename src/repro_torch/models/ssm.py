@@ -102,6 +102,9 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CB = Cr.float() @ Br.float().transpose(-1, -2)        # (b, c, i, j)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b, c, i, j, h)
     causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    # exp of the masked (upper) entries is taken at -inf, not at their
+    # positive seg, so that neither it nor its gradient overflows.
+    seg = seg.masked_fill(~causal[:, :, None], float("-inf"))
     L = torch.where(causal[:, :, None], torch.exp(seg) * CB[..., None],
                     0.0).to(lowp)
     del seg

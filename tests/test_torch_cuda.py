@@ -1639,3 +1639,165 @@ def test_build_level_of_a_shard_whose_built_child_is_all_its_rows(dev):
         assert torch.equal(built.cpu(), want)
         assert float(built[0, 0, :, -1].sum()) == float(
             bc[is_built].max())
+
+
+# B7's backward at phase 3's shapes of `chip_smoke.py` (b, hq, hkv, sq, sk,
+# dh, causal, window, dtype), and ragged ones: sq and sk not multiples of
+# the 64-row tile, sq != sk, dh above 128 (32-row tiles).
+FLASH_BWD_CASES = {
+    "danube_layer": (2, 32, 8, 4096, 4096, 120, True, 4096, "bfloat16"),
+    "zamba2_mha_dh64": (1, 32, 32, 4096, 4096, 64, True, None, "bfloat16"),
+    "vlm_cross_1600": (1, 32, 8, 4096, 1600, 128, False, None, "bfloat16"),
+    "f32_sq_over_window": (1, 8, 2, 1000, 1000, 128, True, 256, "float32"),
+    "ragged_causal": (2, 4, 1, 70, 70, 120, True, 30, "float32"),
+    "ragged_cross": (1, 6, 3, 65, 100, 24, False, None, "bfloat16"),
+    "sq_over_sk": (1, 4, 2, 77, 50, 64, True, 40, "float32"),
+    "dh200": (1, 2, 1, 97, 97, 200, True, None, "float32"),
+    "dh256_bf16": (1, 4, 2, 130, 130, 256, True, 64, "bfloat16"),
+}
+
+
+def flash_bwd_limit(plain: torch.Tensor, dtype: torch.dtype):
+    """float32: 1e-5 of the largest magnitude (the sums run in another
+    order); bfloat16: one bf16 ulp of each element's own plain value plus
+    that (the float32 sums differ before the one rounding)."""
+    atol = 1e-5 * float(plain.float().abs().max())
+    return atol if dtype == torch.float32 else bf16_ulps(plain) + atol
+
+
+@pytest.mark.parametrize("case", list(FLASH_BWD_CASES))
+def test_flash_attention_bwd_kernel_matches_plain(dev, case):
+    """The backward kernel against `ref.flash_attention_bwd_ref` on the
+    card, from the forward kernel's own output and lse; the same bits from
+    run to run (no atomics); one launch a call."""
+    b, hq, hkv, sq, sk, dh, causal, window, dt = FLASH_BWD_CASES[case]
+    dtype = getattr(torch, dt)
+    g = torch.Generator(device=dev).manual_seed(sq + dh)
+    q, do = (torch.randn((b, hq, sq, dh), generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, hkv, sk, dh), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(o, flash_attention.flash_attention(q, k, v, **kw))
+    _, plain_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, plain_lse, atol=1e-5, rtol=1e-6)
+    before = flash_attention.BWD_KERNEL.launches
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert flash_attention.BWD_KERNEL.launches == before + 2
+    plain = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, c, p in zip("qkv", got, again, plain):
+        assert a.dtype == dtype and a.shape == p.shape
+        assert torch.equal(a, c), f"d{name} differs run to run"
+        diff = (a.float() - p.float()).abs()
+        limit = flash_bwd_limit(p, dtype)
+        assert bool((diff <= limit).all()), (name, float(diff.max()))
+
+
+def test_flash_attention_bwd_wrapper_checks_inputs(dev):
+    q = torch.randn((1, 4, 16, 32), device=dev)
+    k = torch.randn((1, 2, 16, 32), device=dev)
+    o, lse = flash_attention.flash_attention_lse(q, k, k)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        flash_attention.flash_attention_bwd(q, k, k, o, lse, q.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention_bwd(
+            q, k, k, o, lse, q.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradients_reach_the_projections_on_the_card(dev, dtype):
+    """`layers.attention_apply` under autograd on the card: B7 runs as
+    `FlashAttention` (one forward and one backward launch), and wq, wk and
+    wv get the CPU's gradients (float32 within 1e-4 of each leaf's largest
+    magnitude; bf16 within 2e-2 of it)."""
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(0)
+    p = {n: torch.tensor(rng.normal(size=s).astype(np.float32) / 8)
+         for n, s in (("wq", (64, 128)), ("wk", (64, 64)), ("wv", (64, 64)),
+                      ("wo", (128, 64)))}
+    x = torch.tensor(rng.normal(size=(2, 90, 64)).astype(np.float32))
+    kw = dict(n_heads=4, n_kv_heads=2, head_dim=32, rope_theta=1e4,
+              window=40)
+
+    def grads(device):
+        pd = {n: t.to(device, dtype).detach().requires_grad_()
+              for n, t in p.items()}
+        y = L.attention_apply(pd, x.to(device, dtype), **kw)
+        (y.float().square().sum()).backward()
+        return {n: t.grad.float().cpu() for n, t in pd.items()}
+
+    want = grads("cpu")
+    fwd, bwd = (flash_attention.KERNEL.launches,
+                flash_attention.BWD_KERNEL.launches)
+    got = grads(dev)
+    assert flash_attention.KERNEL.launches == fwd + 1
+    assert flash_attention.BWD_KERNEL.launches == bwd + 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for n in ("wq", "wk", "wv", "wo"):
+        assert float(got[n].abs().max()) > 0, n
+        err = float((got[n] - want[n]).abs().max())
+        assert err <= tol * float(want[n].abs().max()), (n, err)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "zamba2-1.2b",
+                                  "llama-3.2-vision-11b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_train_step_on_card_matches_cpu(dev, arch):
+    """A float32 smoke model on the card against the CPU: `lm.lm_loss`
+    within 1e-5 relative and each gradient leaf within 1e-4 of its largest
+    magnitude; then one AdamW train step, its loss and grad norm within
+    1e-5 relative, with remat running B7's forward twice a plain layer's
+    attention (once a site's) and its backward once each.  (The
+    parameters after an AdamW step are held in phase 14 (b) of
+    ``chip_smoke.py``: the first step moves a weight by about lr *
+    sign(g), unresolved where g is near 0.)"""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_lib
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    tc = train_lib.TrainConfig(opt=opt.OptConfig(warmup_steps=1))
+    rng = np.random.default_rng(0)
+    batch = {"inputs": rng.integers(0, cfg.vocab_size, (2, 80)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 80))}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.normal(
+            size=(2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    p0 = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def run(device):
+        params = opt.tree_map(lambda t: t.to(device, copy=True), p0)
+        b = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        leaves = opt.tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = lm.lm_loss(params, cfg, b)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        fwd, bwd = (flash_attention.KERNEL.launches,
+                    flash_attention.BWD_KERNEL.launches)
+        state = opt.opt_init(params, tc.opt)
+        _, _, m = train_lib.make_train_step(cfg, tc)(params, state, b, 3)
+        launches = (flash_attention.KERNEL.launches - fwd,
+                    flash_attention.BWD_KERNEL.launches - bwd)
+        return (float(loss.detach()), grads,
+                {k: float(v) for k, v in m.items()}, launches)
+
+    want_l, want_g, want_m, _ = run("cpu")
+    got_l, got_g, got_m, (fwd, bwd) = run(dev)
+    n_attn = (lm.n_sites(cfg) if cfg.family in ("hybrid",)
+              else 0 if cfg.family == "ssm" else cfg.n_layers)
+    n_cross = lm.n_sites(cfg) if cfg.family == "vlm" else 0
+    # remat recomputes the plain layers' attention, not the sites'
+    recomputed = n_attn if cfg.family != "hybrid" else 0
+    assert (fwd, bwd) == (n_attn + n_cross + recomputed, n_attn + n_cross)
+    assert abs(got_l - want_l) <= 1e-5 * abs(want_l)
+    for a, c in zip(want_g, got_g):
+        err = float((c - a).abs().max())
+        assert err <= 1e-4 * float(a.abs().max()), err
+    for k in ("loss", "grad_norm"):
+        assert abs(got_m[k] - want_m[k]) <= 1e-5 * abs(want_m[k]), k

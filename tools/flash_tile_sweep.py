@@ -187,7 +187,7 @@ def build():
                 regs.append(line.split(":", 1)[1].strip())
         print(json.dumps({"variant": name, "ptxas_tc": regs}))
         fn = ctypes.CDLL(so).flash_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -261,7 +261,7 @@ def main() -> int:
                 continue
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), b, hq, hkv, s, s, dh, 1, window, 1,
+                         out.data_ptr(), None, b, hq, hkv, s, s, dh, 1, window, 1,
                          1.0 / math.sqrt(dh),
                          torch.cuda.current_stream().cuda_stream)
                 assert err == 0, err
@@ -274,7 +274,8 @@ def main() -> int:
             print(json.dumps(row))
     fn = fns["trace"]
     show_trace(fn, lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), b, hq, hkv, s, s, dh, 1, window,
+                              out.data_ptr(), None, b, hq, hkv, s, s, dh, 1,
+                              window,
                               1, 1.0 / math.sqrt(dh),
                               torch.cuda.current_stream().cuda_stream))
     return 0
