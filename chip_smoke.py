@@ -10,9 +10,9 @@ Phases (any failure exits non-zero; nothing is caught):
      per source, in parallel; B1 and B1-bf16 share ``hist.cu``, B3 and both
      B5 entry points ``predict.cu``; B4 is ``hist_direct.cu``, built with
      B1 on ``hist_common.cuh``; B6 ``shap.cu``, B7 ``flash_attention.cu``
-     and its backward ``flash_attention_bwd.cu``, B8
-     ``decode_attention.cu``; and the first versions of B2, B2-wide
-     and B6 from ``tools/``) and time the build;
+     and its backward ``flash_attention_bwd.cu`` (both on
+     ``wgmma.cuh``), B8 ``decode_attention.cu``; and the first versions of
+     B2, B2-wide, B6 and B7's backward from ``tools/``) and time the build;
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (B1 and B1-bf16 bitwise against the plain version
      run on the CPU from host copies, where ``index_add_`` keeps their
@@ -62,8 +62,12 @@ Phases (any failure exits non-zero; nothing is caught):
      heads x 4,096 x 120 in bf16; zamba2's MHA dh 64 and the VLM's cross
      over 1,600 keys at 4,096 queries in bf16; float32 1,000 rows over a
      256 window), from the forward kernel's output and lse, against its
-     plain version, the same run to run, timed beside its bound and SDPA's
-     backward), and time
+     plain version, the same run to run, timed beside its bound, its first
+     design (``tools/flash_attention_bwd_first.cu``) and SDPA's backward,
+     with the bf16 body's build, then B7's forward bits at the prefill's
+     layer against the ones it gave before ``wgmma.cuh`` (``FWD_BITS``));
+     B1 at the one-vs-all level 5 also beside ``index_add_`` in chunks; and
+     time
      kernel, plain version and, where one PyTorch call computes the same
      function, that call;
   4. fit the paper's configuration (``configs/sketchboost_tabular.py``) at
@@ -422,6 +426,56 @@ def ova_level_case(torch, gen, dev):
     return codes_t, state, stats_p, state.counts, build
 
 
+# Built entries a chunk of the one-vs-all level's ``index_add_`` yardstick:
+# m = 100 cells an entry, 1.7 GB of int64 indices a chunk.
+OVA_LIBRARY_CHUNK = 2 ** 21
+
+
+def ova_index_add_ms(torch, out, codes_t, order, stats_p, counts, build, *,
+                     n_bins):
+    """The library yardstick of B1 at the one-vs-all level: ``index_add_``
+    of each built entry's statistics into its flat (node, feature, bin)
+    cell, in chunks of `OVA_LIBRARY_CHUNK` built entries in partition
+    order, each chunk's indices and values made outside the timing; the
+    chunks' times (CUDA events) summed.  It adds atomically in no fixed
+    order; its sums are held to B1's ``out`` within 1e-4 of the largest
+    magnitude.  Returns ``(ms, max_abs_err, chunks)``."""
+    m = codes_t.shape[0]
+    nodes = counts.shape[0]
+    seg_start = torch.cumsum(counts.long(), 0) - counts.long()
+    built = torch.repeat_interleave(
+        torch.arange(nodes, device=out.device), build.long())
+    # Entry positions of the built rows: the first build[v] of v's segment.
+    first = torch.cumsum(build.long(), 0) - build.long()
+    pos = (seg_start[built] + torch.arange(built.numel(), device=out.device)
+           - first[built])
+    cells = torch.zeros((nodes * m * n_bins, stats_p.shape[1]),
+                        device=out.device)
+    feat = torch.arange(m, device=out.device)[:, None]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total, chunks = 0.0, 0
+    for c0 in range(0, pos.numel(), OVA_LIBRARY_CHUNK):
+        p = pos[c0:c0 + OVA_LIBRARY_CHUNK]
+        node = built[c0:c0 + OVA_LIBRARY_CHUNK]
+        flat = ((node[None, :] * m + feat) * n_bins
+                + codes_t[:, order[p].long()].long()).reshape(-1)
+        src = stats_p[p].repeat(m, 1)
+        torch.cuda.synchronize()
+        start.record()
+        cells.index_add_(0, flat, src)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+        chunks += 1
+        del flat, src
+    err = float((cells.reshape(out.shape) - out).abs().max())
+    assert err <= 1e-4 * float(out.abs().max()), (
+        f"index_add_ at the one-vs-all level differs from B1 by {err!r}")
+    del cells, pos, built
+    return total, err, chunks
+
+
 def check_ova_level(torch, gen, dev):
     """B1 and B2 at the one-vs-all level 5 of one group (`OVA_TREES` trees
     x 32 nodes, m=100, B=256, C=2): the partition made by five advances of
@@ -457,15 +511,23 @@ def check_ova_level(torch, gen, dev):
             f"up to {err!r}")
         del plain
     s_b = int(build.sum())
+    library_ms, library_err, chunks = ova_index_add_ms(torch, out, *args,
+                                                       n_bins=B)
     b_ms, b_by = bound_ms(s_b * (m + 4 + 4 * 2) + nodes * m * B * 2 * 4,
                           s_b * m * 2)
     b1 = dict(nodes=nodes, entries=trees * n, built_entries=s_b,
               max_abs_err=err, ms=cuda_ms(
                   lambda: hist_kernel.hist_nodes(*args, n_bins=B), 5),
               plain_ms=None, bound_ms=b_ms, bound_by=b_by,
-              library_ms=None,
-              note="plain version and index_add_ not timed at this shape: "
-                   "each gathers the m * S codes (200 GB)")
+              library_ms=library_ms, library_max_abs_err=library_err,
+              library_chunks=chunks,
+              note="plain version not timed at this shape: it gathers the "
+                   "m * S codes (200 GB); library_ms is index_add_ over "
+                   "the flat (node, feature, bin) cells in chunks of "
+                   f"{OVA_LIBRARY_CHUNK} built entries (one call would "
+                   f"index m * S cells, {s_b * m * 8 / 1e9:.0f} GB of "
+                   "int64), the chunks' "
+                   "indices made outside the timing, their times summed")
     del args, stats_p, state, build, codes_t
     # B2 on the level's histograms as B1 built them (nodes not built are
     # empty and have no legal split, as the subtract engine derives them).
@@ -544,11 +606,12 @@ def check_hist_direct(torch, gen, dev):
 
 
 def first_kernels():
-    """``(split, split_wide, shap)``: the first versions of B2, B2-wide and
-    B6 (``tools/split_first.cu``, ``tools/split_wide_first.cu``,
-    ``tools/shap_first.cu``) as ``CudaKernel``s, built beside the repo's
-    kernels and timed in phase 3 on the same inputs; their launches count
-    on themselves, never on the repo's kernels."""
+    """``(split, split_wide, shap, flash_bwd)``: the first versions of B2,
+    B2-wide, B6 and B7's backward (``tools/split_first.cu``,
+    ``tools/split_wide_first.cu``, ``tools/shap_first.cu``,
+    ``tools/flash_attention_bwd_first.cu``) as ``CudaKernel``s, built beside
+    the repo's kernels and timed in phase 3 on the same inputs; their
+    launches count on themselves, never on the repo's kernels."""
     import ctypes
     from repro_torch.kernels._build import CSRC, CudaKernel
     V, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -565,7 +628,12 @@ def first_kernels():
     shap = CudaKernel("tree_shap_first", os.path.join(tools, "shap_first.cu"),
                       "tree_shap_launch", [V] * 9 + [Fl] + [I] * 7,
                       extra_flags=("-fmad=false", "-I", str(CSRC)))
-    return split, split_wide, shap
+    flash_bwd = CudaKernel("flash_attention_bwd_first",
+                           os.path.join(tools, "flash_attention_bwd_first.cu"),
+                           "flash_attention_bwd_launch",
+                           [V] * 10 + [I] * 9 + [Fl],
+                           extra_flags=("-I", str(CSRC)))
+    return split, split_wide, shap, flash_bwd
 
 
 # B2's device kernels, as the profiler names them: up to 32 channels, and
@@ -1070,6 +1138,23 @@ def bf16_ulps(x):
                        torch.ldexp(torch.ones_like(m), e - 8))
 
 
+def forward_bits(torch, dev) -> dict:
+    """sha256 of B7's bf16 output and lse bits at the prefill's layer (1 x
+    32/8 heads x 32,768 x 120, causal, window 4,096) on inputs drawn on the
+    CPU from a seeded generator, so that two builds of the forward compare
+    bit for bit across runs (``tools/flash_fwd_bits.py``)."""
+    import hashlib
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((1, h, 32_768, 120), generator=g)
+               .to(torch.bfloat16).to(dev) for h in (32, 8, 8))
+    out, lse = FA.flash_attention_lse(q, k, v, causal=True, window=4096)
+    torch.cuda.synchronize()
+    return {"out": hashlib.sha256(out.view(torch.int16).cpu().numpy()
+                                  .tobytes()).hexdigest(),
+            "lse": hashlib.sha256(lse.cpu().numpy().tobytes()).hexdigest()}
+
+
 def check_flash(torch, gen, dev):
     """B7 at the prefill's layer shape: b=1, hq=32, hkv=8, sq=sk=32,768,
     dh=120, causal, window 4,096.  In bf16 (the tensor-core body) each
@@ -1303,19 +1388,55 @@ FLASH_BWD_SHAPES = {
 }
 
 
-def check_flash_bwd(torch, gen, dev):
+# B7's forward output and lse bits at the prefill's layer (`forward_bits`)
+# as the forward gave them before its tensor-core helpers moved into
+# wgmma.cuh, shared with the backward (NVIDIA H100 80GB HBM3,
+# ``tools/flash_fwd_bits.py`` on both checkouts): the forward keeps them.
+FWD_BITS = {
+    "out": "c654b1de74dec8e360346da1a65073eccacde7196dc3bc14466a600795f6cdac",
+    "lse": "17b61c0768db1086b0ae2abc9fc115e28ddc34dd4a13262bec122c640b063655",
+}
+
+
+def first_flash_bwd_ms(torch, first, q, k, v, o, lse, do, causal, window,
+                       reps):
+    """``tools/flash_attention_bwd_first.cu`` (B7's backward before its bf16
+    body was redesigned, on the CUDA cores at every dh) on the same inputs:
+    ``(ms, (dq, dk, dv))``."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+
+    def run():
+        first.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                     *(t.data_ptr() for t in grads), b, hq, hkv, sq, sk, dh,
+                     int(causal), 0 if window is None else int(window),
+                     int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dh))
+    return cuda_ms(run, reps), grads
+
+
+def check_flash_bwd(torch, gen, dev, first):
     """B7's backward at ``FLASH_BWD_SHAPES``: the forward kernel's output
     and lse, then the backward kernel against `ref.flash_attention_bwd_ref`
     on the card.  Limit: float32 gradients within 1e-5 of each one's
     largest magnitude (the sums run in another order); bf16 each within
     one bf16 ulp of its own plain value plus that.  The same bits run to
-    run.  Timed beside its plain version, its bound (the 5 products of 2 dh
-    operations a seen pair that the gradient needs, S, dP, dV, dK and dQ:
-    at the bf16 tensor-core rate for bf16 inputs, the fp32 rate otherwise;
-    ``cuda_core_bound_ms`` all at the fp32 rate of the CUDA cores it runs
-    on; ``design_ops`` adds the S and dP that the dQ kernel recomputes) and
-    SDPA's backward: ``is_causal`` or no mask where the window sees every
-    earlier key, else a boolean band mask."""
+    run.  Timed beside its plain version, its first design
+    (``tools/flash_attention_bwd_first.cu``, the kernel ``first``, on the
+    same inputs; at float32 the same design as the kernel's), its bound
+    (the 5 products of 2 dh operations a seen pair that the gradient needs,
+    S, dP, dV, dK and dQ: at the bf16 tensor-core rate for bf16 inputs, the
+    fp32 rate otherwise; ``cuda_core_bound_ms`` all at the fp32 rate of the
+    CUDA cores), ``design_ops`` (the bf16 body's 13 products a pair on the
+    tensor cores, P and dS each in three bf16 parts and S and dP recomputed
+    for dQ; the CUDA-core body's 7) with ``design_bound_ms`` at the same
+    rate, and SDPA's backward: ``is_causal`` or no mask where the window
+    sees every earlier key, else a boolean band mask.  The bf16 body's
+    build (registers, shared bytes, blocks an SM of its two kernels) at
+    each bf16 shape.  Last, B7's forward at the prefill's layer gives the
+    bits it gave before its helpers moved into wgmma.cuh (``FWD_BITS``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
@@ -1323,6 +1444,7 @@ def check_flash_bwd(torch, gen, dev):
     for key, (b, hq, hkv, sq, sk, dh, causal, window, dt) in \
             FLASH_BWD_SHAPES.items():
         dtype = getattr(torch, dt)
+        tensor_cores = dtype == torch.bfloat16 and dh <= 128
         q, do = (torch.randn((b, hq, sq, dh), generator=gen, device=dev)
                  .to(dtype) for _ in range(2))
         k, v = (torch.randn((b, hkv, sk, dh), generator=gen, device=dev)
@@ -1337,21 +1459,27 @@ def check_flash_bwd(torch, gen, dev):
         def plain():
             return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
         got, again, want = kernel(), kernel(), plain()
+        first_ms, first_got = first_flash_bwd_ms(
+            torch, first, q, k, v, o, lse, do, causal, window,
+            1 if tensor_cores else 3)
         torch.cuda.synchronize()
-        err, worst = 0.0, 0.0
-        for name, a, c, w in zip("qkv", got, again, want):
+        err, worst, first_worst = 0.0, 0.0, 0.0
+        for name, a, c, w, f in zip("qkv", got, again, want, first_got):
             assert torch.equal(a, c), f"B7 bwd d{name} differs run to run"
             diff = (a.float() - w.float()).abs()
             atol = 1e-5 * float(w.float().abs().max())
             limit = atol if dtype == torch.float32 else bf16_ulps(w) + atol
             err = max(err, float(diff.max()))
             worst = max(worst, float((diff / limit).max()))
+            first_worst = max(first_worst, float(
+                ((f.float() - w.float()).abs() / limit).max()))
         assert worst <= 1.0, (
             f"B7 bwd at {key} differs from plain by up to {worst!r} of its "
             f"limit (max abs err {err!r})")
-        del again, want, diff
+        del again, want, diff, first_got
         pairs = attention_pairs(sq, sk, causal, window)
         ops = 5 * 2 * dh * pairs * b * hq
+        design_ops = (13 if tensor_cores else 7) * ops // 5
         size = q.element_size()
         n_bytes = (size * (4 * b * hq * sq * dh + 4 * b * hkv * sk * dh)
                    + 4 * b * hq * sq)
@@ -1359,6 +1487,8 @@ def check_flash_bwd(torch, gen, dev):
             b_ms, b_by = bound_ms(n_bytes, 0, n_bf16_ops=ops)
         else:
             b_ms, b_by = bound_ms(n_bytes, ops)
+        design_ms = (bound_ms(n_bytes, 0, n_bf16_ops=design_ops)[0]
+                     if tensor_cores else bound_ms(n_bytes, design_ops)[0])
         # The library yardstick, used nowhere in the port.
         if window is not None and window < sq:
             qpos = torch.arange(sq, device=dev)[:, None]
@@ -1380,13 +1510,19 @@ def check_flash_bwd(torch, gen, dev):
             b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, dh=dh, causal=causal,
             window=window, dtype=dt, max_abs_err=err,
             share_of_limit=worst, pairs_per_head=pairs, ops=ops,
-            design_ops=7 * ops // 5,
-            ms=cuda_ms(kernel, 3), plain_ms=cuda_ms(plain, 1),
+            body="tensor cores" if tensor_cores else "CUDA cores",
+            design_ops=design_ops, design_bound_ms=design_ms,
+            ms=cuda_ms(kernel, 3), first_ms=first_ms,
+            first_share_of_limit=first_worst, plain_ms=cuda_ms(plain, 1),
             bound_ms=b_ms, bound_by=b_by,
             cuda_core_bound_ms=bound_ms(n_bytes, ops)[0],
             library_ms=lib_ms, library_max_abs_err=lib_err)
+        if tensor_cores:
+            shapes[key]["build"] = FA.bwd_launch_info(dh)
         del q, k, v, o, lse, do, got
         torch.cuda.empty_cache()
+    bits = forward_bits(torch, dev)
+    assert bits == FWD_BITS, f"B7's forward bits changed: {bits}"
     top = shapes["danube_train_4k"]
     return dict(
         name="flash_attention_bwd", route="cuda",
@@ -1396,10 +1532,12 @@ def check_flash_bwd(torch, gen, dev):
                        "kernel and differentiates chunked_attention "
                        "(src/repro/models/layers.py:89) with XLA"),
         max_abs_err=max(sh["max_abs_err"] for sh in shapes.values()),
-        ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-        bound_by=top["bound_by"],
+        ms=top["ms"], first_ms=top["first_ms"], plain_ms=top["plain_ms"],
+        bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+        design_bound_ms=top["design_bound_ms"],
         cuda_core_bound_ms=top["cuda_core_bound_ms"],
-        library_ms=top["library_ms"], shapes=shapes)
+        library_ms=top["library_ms"], forward_bits_unchanged=True,
+        build=top["build"], shapes=shapes)
 
 
 def check_family_attention(torch, gen, dev):
@@ -3660,13 +3798,16 @@ def training_phase(torch, dev, b7, b7b, kernels, arch="h2o-danube-3-4b",
     prof = profile_step(torch, lambda: step_fn(params, state, next(stream),
                                                steps + 1),
                         "flash_attention",
-                        ("dkdv_kernel", "dq_kernel", "delta_kernel"))
+                        ("dkdv_tc_kernel", "dq_tc_kernel", "delta_kernel"))
     bwd_s = sum(prof["by_key"].values())
+    assert all(v > 0 for v in prof["by_key"].values()), prof["by_key"]
+    bwd_share = bwd_s / prof["device_busy_s"]
     print(f"[14] (a) profiled step (profiler on): wall {prof['wall_s']:.3f}"
           f" s, device busy {prof['device_busy_s']:.3f} s = "
           f"{prof['busy_share']:.3f} of wall; B7 forward "
-          f"{prof['kernel_s']:.3f} s, B7 backward {bwd_s:.3f} s "
-          f"({prof['by_key']}), matmuls {prof['matmul_s']:.3f} s")
+          f"{prof['kernel_s']:.3f} s, B7 backward {bwd_s:.3f} s = "
+          f"{bwd_share:.3f} of device busy ({prof['by_key']}), matmuls "
+          f"{prof['matmul_s']:.3f} s")
     for key, t, count in prof["top_ms"]:
         print(f"[14]   {t:10.3f} ms x{count:<5d} {key}")
     stream.close()
@@ -3674,7 +3815,8 @@ def training_phase(torch, dev, b7, b7b, kernels, arch="h2o-danube-3-4b",
                      first_step_s=first_s, step_s=times, ms_per_step=ms,
                      tokens_per_s=tokens_s, peak_gib=peak, losses=losses,
                      grad_norms=gnorms, launches_per_step=per_step,
-                     profile=dict(prof, b7_bwd_s=bwd_s))}
+                     profile=dict(prof, b7_bwd_s=bwd_s,
+                                  b7_bwd_share=bwd_share))}
     del params, state, m, step_fn, batch_i
     gc.collect()
     torch.cuda.empty_cache()
@@ -3771,6 +3913,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_script = time.perf_counter()
+    laps = {}
+
+    def lap(name):
+        """Seconds since the start at the end of a step, for the time
+        limit's sake."""
+        laps[name] = round(time.perf_counter() - t_script, 1)
+        print(f"[t] {name} done at {laps[name]} s", flush=True)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3793,37 +3942,47 @@ def main() -> int:
     b8 = decode_attention.KERNEL
     b1bf = hist_kernel.KERNEL_BF16
     every = kernels + b5 + [b6, b4, b2w, b7, b8, b1bf, b7b]
-    first_split, first_wide, first_shap = first_kernels()
+    first_split, first_wide, first_shap, first_bwd = first_kernels()
     t0 = time.perf_counter()
-    reports = _build.build(every + [first_split, first_wide, first_shap])
+    reports = _build.build(every + [first_split, first_wide, first_shap,
+                                    first_bwd])
     print(f"[2] built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[2] {name}: {line.strip()}")
 
+    lap("2 build")
     gen = torch.Generator(device=dev).manual_seed(0)
     hcase = hist_case(torch, gen, dev)
     rows = [check_hist(torch, hcase), check_hist_bf16(torch, hcase)]
     del hcase
     rows.append(check_split(torch, gen, dev, first_split))
     b1_row, b2_row = rows[0], rows[-1]
+    lap("3 hist, split")
     ova_level = check_ova_level(torch, gen, dev)
     for name, sh in zip(("hist_nodes", "split_scan"), ova_level):
         print(f"[3] {name} ova_level5: {json.dumps(sh)}")
+    lap("3 one-vs-all level")
     cases = traverse_cases(torch, gen, dev)
     rows += [check_traverse(torch, cases, dt)
              for dt in ("float32", "int8", "bfloat16")]
     del cases
+    lap("3 traverse")
     rows.append(check_shap(torch, gen, dev, first_shap))
     rows.append(check_hist_direct(torch, gen, dev))
     rows.append(check_split_wide(torch, gen, dev, first_wide))
+    lap("3 shap, direct, wide")
     rows.append(check_flash(torch, gen, dev))
+    lap("3 flash")
     rows.append(check_decode(torch, gen, dev))
+    lap("3 decode")
     family_flash, family_decode = check_family_attention(torch, gen, dev)
     rows[-2].setdefault("shapes", {}).update(family_flash)
     rows[-1].setdefault("shapes", {}).update(family_decode)
-    rows.append(check_flash_bwd(torch, gen, dev))
+    lap("3 families")
+    rows.append(check_flash_bwd(torch, gen, dev, first_bwd))
+    lap("3 flash bwd")
     for r in rows:
         for key, sh in r.get("shapes", {}).items():
             if "leaf_bytes" not in sh:           # B2, B2-wide and B6
@@ -3906,27 +4065,35 @@ def main() -> int:
           f"loss {base_loss!r}")
     assert math.isfinite(train_loss) and train_loss < base_loss
 
+    lap("4-5 fit, predict")
     profile_rounds(torch, model, dev, Xtr, ytr, Xev, yev)
+    lap("6 profile")
     serve, serve_launches, servers = serve_phase(
         torch, model, dev, Xte, raw, [predict_kernel.KERNEL] + b5)
     assert all(v > 0 for v in serve_launches.values()), serve_launches
+    lap("7 serve")
     explain, explain_launches = explain_phase(
         torch, model, dev, Xte, raw, pf_cpu, servers,
         [predict_kernel.KERNEL, b6])
     assert explain_launches[b6.name] > 0, explain_launches
     del servers
+    lap("8 explain")
     engines, direct_launches, full_launches = engines_phase(
         torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b4, b2w])
+    lap("9 engines")
     leafwise, bf16_launches = leafwise_phase(
         torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b1bf])
+    lap("9b leafwise")
     # Phase 9c: free phases 4-9b's memory first.
     del model, raw, pf_cpu, codes_te, Ytr
     gc.collect()
     torch.cuda.empty_cache()
     one_vs_all, ova_launches = ova_phase(torch, dev, Xtr, ytr, Xev, yev,
                                          cfg, kernels, engines)
+    lap("9c one-vs-all")
     sampling, sampling_launches = sampling_phase(
         torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b4, b2w, b1bf])
+    lap("9d sampling")
     # Phase 10 runs alone on the card: free the tabular phases' memory.
     # The host copies of the training and test rows stay for phase 12.
     yte = y[N_TRAIN + N_EVAL:]
@@ -3936,23 +4103,28 @@ def main() -> int:
     prefill, prefill_launches = prefill_phase(torch, dev, b7, every)
     assert prefill_launches[b7.name] == 24 * 6, prefill_launches
     assert sum(prefill_launches.values()) == 24 * 6, prefill_launches
+    lap("10 prefill")
     # Phase 11 runs alone on the card too: free phase 10's memory.
     gc.collect()
     torch.cuda.empty_cache()
     decode, decode_launches = decode_phase(torch, dev, b8, every)
+    lap("11 decode")
     # Phase 12 spawns its worlds of ranks on the card: free phase 11's memory.
     gc.collect()
     torch.cuda.empty_cache()
     distributed, dist_launches = distributed_phase(
         torch, dev, Xtr, ytr, Xte, yte, cfg, phase4_round_s=round_s)
+    lap("12 distributed")
     # Phase 13 runs alone on the card: phase 12's worlds have ended.
     gc.collect()
     torch.cuda.empty_cache()
     families, family_launches = families_phase(torch, dev, b7, b8, every)
+    lap("13 families")
     # Phase 14 runs alone on the card: free phase 13's memory.
     gc.collect()
     torch.cuda.empty_cache()
     training, train_launches = training_phase(torch, dev, b7, b7b, every)
+    lap("14 training")
     assert train_launches[b7.name] > 0 and train_launches[b7b.name] > 0, \
         train_launches
     for key in ("a", "b_rank0", "predict_a", "predict_b"):
@@ -4018,7 +4190,7 @@ def main() -> int:
                       "prefill": prefill,
                       "decode": decode, "distributed": distributed,
                       "families": families, "training": training,
-                      "card": smi}))
+                      "laps_s": laps, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

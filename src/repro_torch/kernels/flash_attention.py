@@ -132,14 +132,31 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch(q, k, v, causal, window, with_lse=True)
 
 
+def bwd_launch_info(dh: int) -> dict:
+    """What the build gives the backward's bf16 body at head width ``dh``
+    (<= 128): for its dK/dV and dQ kernels, registers a thread, shared
+    bytes a block and blocks resident an SM (``cudaFuncGetAttributes`` and
+    the occupancy calculator).  A query, not a launch."""
+    info = (ctypes.c_int * 6)()
+    err = BWD_KERNEL.call("flash_attention_bwd_info",
+                          [ctypes.c_int, ctypes.c_void_p], dh, info)
+    if err != 0:
+        raise RuntimeError(f"{BWD_KERNEL.name}: CUDA error {err} in "
+                           f"bwd_launch_info")
+    return {name: dict(registers=info[3 * i], smem_bytes=info[3 * i + 1],
+                       blocks_per_sm=info[3 * i + 2])
+            for i, name in enumerate(("dkdv", "dq"))}
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
                         window: Optional[int] = None):
     """The gradients (dq, dk, dv) of `flash_attention` at (q, k, v), given
     its output ``out``, its float32 ``lse`` (b, hq, sq) and the output's
-    gradient ``dout``, each in q's dtype and shape; float32 inside,
-    rounded once to the input type.  A CPU tensor goes to the plain
+    gradient ``dout``, each in q's dtype and shape; float32 sums, rounded
+    once to the input type (bf16 with dh <= 128 on the tensor cores, P and
+    dS each through three exact bf16 parts).  A CPU tensor goes to the plain
     version (`ref.flash_attention_bwd_ref`), a CUDA tensor to the kernel."""
     _check(q, k, v, window)
     b, hq, sq, dh = q.shape

@@ -1643,7 +1643,12 @@ def test_build_level_of_a_shard_whose_built_child_is_all_its_rows(dev):
 
 # B7's backward at phase 3's shapes of `chip_smoke.py` (b, hq, hkv, sq, sk,
 # dh, causal, window, dtype), and ragged ones: sq and sk not multiples of
-# the 64-row tile, sq != sk, dh above 128 (32-row tiles).
+# the 64-row tile, sq != sk, dh above 128 (32-row tiles).  The bf16 cases
+# after them are the tensor-core body's edges (dh <= 128): sq and sk of 77,
+# 1,000 and 1,600, dh 36 (rows not 16-byte aligned), 64, 120 and 128, GQA
+# groups 1 and 4, a causal window under one 64-row tile, no mask, the
+# cross-attention's sq != sk and sq > sk; and bf16 above dh 128 (the CUDA
+# cores' body, chosen by shape).
 FLASH_BWD_CASES = {
     "danube_layer": (2, 32, 8, 4096, 4096, 120, True, 4096, "bfloat16"),
     "zamba2_mha_dh64": (1, 32, 32, 4096, 4096, 64, True, None, "bfloat16"),
@@ -1654,6 +1659,17 @@ FLASH_BWD_CASES = {
     "sq_over_sk": (1, 4, 2, 77, 50, 64, True, 40, "float32"),
     "dh200": (1, 2, 1, 97, 97, 200, True, None, "float32"),
     "dh256_bf16": (1, 4, 2, 130, 130, 256, True, 64, "bfloat16"),
+    "tc_mha_no_mask_77": (2, 4, 4, 77, 77, 64, False, None, "bfloat16"),
+    "tc_gqa4_window_under_tile": (1, 8, 2, 1000, 1000, 120, True, 40,
+                                  "bfloat16"),
+    "tc_gqa4_causal_1600": (1, 8, 2, 1600, 1600, 128, True, None,
+                            "bfloat16"),
+    "tc_cross_1000_over_1600": (1, 4, 1, 1000, 1600, 128, False, None,
+                                "bfloat16"),
+    "tc_causal_sq_over_sk": (1, 4, 2, 77, 50, 64, True, 40, "bfloat16"),
+    "tc_dh36_unaligned": (1, 4, 2, 130, 130, 36, True, None, "bfloat16"),
+    "tc_dh120_gqa1": (1, 2, 2, 1000, 1000, 120, True, None, "bfloat16"),
+    "bf16_dh200_gqa4": (1, 4, 1, 77, 77, 200, True, 30, "bfloat16"),
 }
 
 
@@ -1694,6 +1710,38 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, case):
         diff = (a.float() - p.float()).abs()
         limit = flash_bwd_limit(p, dtype)
         assert bool((diff <= limit).all()), (name, float(diff.max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+def test_flash_attention_autograd_matches_plain_autograd(dev, dtype, tol):
+    """`FlashAttention` under autograd on the card (one forward and one
+    backward launch) against autograd of the plain forward on the card
+    (GQA 4, causal, a window of 40, 200 rows, dh 120), each gradient within
+    ``tol`` of its largest magnitude.  The two take D = rowsum(dO O) from
+    different O: the kernel from the bf16 output the forward returned,
+    autograd from the float32 softmax before its rounding; hence 1e-2 in
+    bf16 (a few bf16 roundings) and 1e-4 in float32."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn((1, h, 200, 120), generator=g, device=dev)
+               .to(dtype) for h in (8, 2, 2))
+    do = torch.randn((1, 8, 200, 120), generator=g, device=dev).to(dtype)
+    kw = dict(causal=True, window=40)
+
+    def grads(fn):
+        xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fn(*xs, **kw), xs, do)
+    fwd, bwd = (flash_attention.KERNEL.launches,
+                flash_attention.BWD_KERNEL.launches)
+    got = grads(flash_attention.flash_attention)
+    assert (flash_attention.KERNEL.launches - fwd,
+            flash_attention.BWD_KERNEL.launches - bwd) == (1, 1)
+    want = grads(ref.flash_attention_ref)
+    torch.cuda.synchronize()
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (name, err)
 
 
 def test_flash_attention_bwd_wrapper_checks_inputs(dev):

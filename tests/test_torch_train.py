@@ -144,6 +144,66 @@ def test_flash_bwd_wrapper_checks_inputs():
         FA.flash_attention_bwd(q, k, v, o, lse, do.to(torch.bfloat16))
 
 
+def _bf16_ulps(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element's own magnitude (0 where it is 0)."""
+    m, e = torch.frexp(x.float())
+    return torch.where(m == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def _exact_split(x: torch.Tensor) -> tuple:
+    """`ref.split_bf16x3` of x, asserting hi + mid + lo == x bit for bit
+    (a zero's sign aside: -0 comes back as +0, which adds the same); the
+    parts as float32."""
+    parts = tuple(t.float() for t in TR.split_bf16x3(x))
+    hi, mid, lo = parts
+    total, nz = (hi + mid) + lo, x != 0
+    assert torch.equal(total[nz].view(torch.int32), x[nz].view(torch.int32))
+    assert bool((total[~nz] == 0).all())
+    return parts
+
+
+def test_flash_bwd_split_arithmetic_is_within_the_plain_limit():
+    """The arithmetic of B7's backward bf16 body (`csrc/flash_attention_bwd.cu`)
+    on the CPU: P and dS split into three bf16 parts (`ref.split_bf16x3`),
+    each part's product with the bf16 dO, Q or K summed in float32, dV =
+    sum P_i^T dO, dK = scale sum dS_i^T Q, dQ = scale sum dS_i K.  The parts
+    add up to P and dS bit for bit, dS's signed, small and near-zero values
+    and edge values included, and the gradients, rounded once to bf16, are
+    within the card's limit of `flash_attention_bwd_ref`: one bf16 ulp of
+    each plain value plus 1e-5 of the largest magnitude."""
+    b, hq, hkv, sq, sk, dh, causal, window = 1, 4, 2, 70, 70, 24, True, 30
+    group, scale = hq // hkv, 1.0 / math.sqrt(dh)
+    q, k, v, do = (torch.tensor(x).to(torch.bfloat16)
+                   for x in _qkv(b, hq, hkv, sq, sk, dh, seed=5))
+    kw = dict(causal=causal, window=window)
+    o, lse = FA.flash_attention_lse(q, k, v, **kw)
+    qf, dof, of = q.float(), do.float(), o.float()
+    kf, vf = (t.float().repeat_interleave(group, 1) for t in (k, v))
+    i, j = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    seen = (j <= i) & (i - j < window)
+    p = torch.where(seen, torch.exp(qf @ kf.transpose(-1, -2) * scale
+                                    - lse[..., None]), 0.0)
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    assert bool((ds < 0).any()) and bool((ds.abs() < 1e-6).any())
+    edges = torch.tensor([0.0, -0.0, 2.0 ** -100, -2.0 ** -100, 1e-30,
+                          -3e-20, 7.3e-5, -1.5, 1e4, -1e4], dtype=torch.float32)
+    _exact_split(edges)
+    p_parts, ds_parts = _exact_split(p), _exact_split(ds)
+    dv = sum(t.transpose(-1, -2) @ dof for t in reversed(p_parts))
+    dk = scale * sum(t.transpose(-1, -2) @ qf for t in reversed(ds_parts))
+    dq = scale * sum(t @ kf for t in reversed(ds_parts))
+    got = (dq, dk.reshape(b, hkv, group, sk, dh).sum(2),
+           dv.reshape(b, hkv, group, sk, dh).sum(2))
+    want = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        w = w.float()
+        diff = (g.to(torch.bfloat16).float() - w).abs()
+        limit = _bf16_ulps(w) + 1e-5 * float(w.abs().max())
+        assert bool((diff <= limit).all()), (name, float((diff / limit).max()))
+
+
 # ---------------------------------------------------------------------------
 # lm_loss and its gradients, every family
 # ---------------------------------------------------------------------------

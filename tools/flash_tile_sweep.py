@@ -53,8 +53,19 @@ PV = ["        wgmma_rs(o[a], pl[kk], dv);\n",
       "        wgmma_rs(o[a], ph[kk], dv);\n"]
 NO_EXP = [("          s[i] = exp2_ftz(s[i] - m[r]);",
            "          s[i] = s[i] - m[r];")]
-NO_SPLIT = [("        pm[kk][x] = bits(mb);", "        pm[kk][x] = 0u;"),
-            ("        pl[kk][x] = bits(lb);", "        pl[kk][x] = 0u;")]
+SPLIT_CALL = """\
+        split_bf16x3(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1], ph[kk][x],
+                     pm[kk][x], pl[kk][x]);
+"""
+NO_SPLIT = [(SPLIT_CALL, """\
+      {
+        uint32_t mid, lo;
+        split_bf16x3(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1], ph[kk][x],
+                     mid, lo);
+        pm[kk][x] = 0u;
+        pl[kk][x] = 0u;
+      }
+""")]
 # The traced copy: SM clock stamps by each warpgroup's first thread at five
 # points of the tile loop, for 16 blocks (query tiles 100-103 of heads 0-3)
 # and their first 80 iterations.
@@ -92,20 +103,12 @@ PHASES = ["wait + barrier + copies issued", "QK^T issued and waited",
           "to the next tile's top"]
 
 
-SPLIT_RN = """\
-        const __nv_bfloat162 hb = __floats2bfloat162_rn(p0, p1);
-        const float2 hf = __bfloat1622float2(hb);
-        const float r0 = p0 - hf.x, r1 = p1 - hf.y;
-        const __nv_bfloat162 mb = __floats2bfloat162_rn(r0, r1);
-        const float2 mf = __bfloat1622float2(mb);
-        const __nv_bfloat162 lb = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
-        ph[kk][x] = bits(hb);
-        pm[kk][x] = bits(mb);
-        pl[kk][x] = bits(lb);
-"""
-# The same exact split by truncation: bit masks and byte permutes on the
+# The same exact split by truncation, in place of wgmma.cuh's
+# `split_bf16x3` (rounding to nearest): bit masks and byte permutes on the
 # ALU pipes, no conversions.
 SPLIT_TRUNC = """\
+      {
+        const float p0 = s[8 * kk + 2 * x], p1 = s[8 * kk + 2 * x + 1];
         const uint32_t h0 = __float_as_uint(p0) & 0xffff0000u;
         const uint32_t h1 = __float_as_uint(p1) & 0xffff0000u;
         const float r0 = p0 - __uint_as_float(h0);
@@ -117,6 +120,7 @@ SPLIT_TRUNC = """\
         ph[kk][x] = __byte_perm(h0, h1, 0x7632);
         pm[kk][x] = __byte_perm(m0, m1, 0x7632);
         pl[kk][x] = __byte_perm(l0, l1, 0x7632);
+      }
 """
 RING = "constexpr int STAGES = 2;      // K/V tiles in the ring"
 NO_LOADS = [("    if (t + STAGES - 1 < n_tiles) stage_tile(t + STAGES - 1);\n",
@@ -147,7 +151,7 @@ VARIANTS = {
                         "    __syncthreads();")],
     "turns": TURNS,
     "trace": TRACE,
-    "split_trunc": [(SPLIT_RN, SPLIT_TRUNC)],
+    "split_trunc": [(SPLIT_CALL, SPLIT_TRUNC)],
 }
 
 
