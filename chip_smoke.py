@@ -54,9 +54,11 @@ Phases (any failure exits non-zero; nothing is caught):
      first and last tree's nodes, B2's indices equal; B7 and B8 in bf16 at
      phase 13's shapes (``FAMILY_FLASH``: the VLM's cross-attention over
      1,600 image tokens, zamba2's MHA dh-64 shared block, GQA-4 dh-128
-     self-attention, all at 32,768 queries; ``FAMILY_DECODE``: zamba2's
-     524,288-slot site with 32 kv heads, the VLM's image cache, batch 128
-     and batch 8 self-attention), each within one bf16 ulp plus 1e-5 and
+     self-attention, all at 32,768 queries, and phase 14's training layer,
+     2 x 32/8 heads x 4,096 x 120 with its 4,096 window;
+     ``FAMILY_DECODE``: zamba2's 524,288-slot site with 32 kv heads, the
+     VLM's image cache, batch 128 and batch 8 self-attention), each
+     within one bf16 ulp plus 1e-5 and
      the same run to run, timed beside its bound and SDPA); B7's backward
      at ``FLASH_BWD_SHAPES`` (h2o-danube-3-4b's training layer, 2 x 32/8
      heads x 4,096 x 120 in bf16; zamba2's MHA dh 64 and the VLM's cross
@@ -207,7 +209,14 @@ Phases (any failure exits non-zero; nothing is caught):
      largest magnitude where the gradient's sign is resolved (and within
      2 lr elsewhere); (c) ``launch.train.train_gbdt`` with its default
      arguments and with ``--dist`` on a one-rank NCCL world;
- 15. print the kernel table as one JSON line, the card's line, and last
+ 15. the roofline on the card (`roofline_phase`): phase 4's median round
+     (counted on the card after phase 5 under the roofline counter, its
+     eval included), phase 10's 1 x 32,768 prefill, phase 11's decode_32k
+     step and phase 14's training step, each with its counted FLOPs and
+     bytes, compute, memory and bound times on one rank at the H100's
+     constants, the measured time and its ratio to the bound (a path
+     measured faster than its bound fails the phase), model FLOPs and MFU;
+ 16. print the kernel table as one JSON line, the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
@@ -302,7 +311,7 @@ def hist_case(torch, gen, dev):
 
 def check_hist(torch, case):
     """B1 at the main path's level 1 (`hist_case`)."""
-    from repro_torch.kernels import hist_kernel, ref
+    from repro_torch.kernels import hist_kernel, ref, work
     m, B, C = case["m"], case["B"], case["C"]
     state, build_counts = case["state"], case["build_counts"]
     stats_p = case["stats_p"]
@@ -332,8 +341,8 @@ def check_hist(torch, case):
     torch.testing.assert_close(cells.reshape(out.shape), out, rtol=1e-5,
                                atol=0)
     del src, cells
-    b_ms, b_by = bound_ms(s_b * (m + 4 + 4 * C) + 2 * m * B * C * 4,
-                          s_b * m * C)
+    w = work.hist_nodes(s_b, m, out.shape[0], B, C, 4)
+    b_ms, b_by = bound_ms(w["bytes"], w["flops"])
     return dict(
         name="hist_nodes", route="cuda",
         source="src/repro_torch/kernels/csrc/hist.cu",
@@ -351,7 +360,7 @@ def check_hist_bf16(torch, case):
     fp32 B1 fed the bf16-rounded statistics, the same run to run, and held
     bitwise to its plain version on the CPU as B1 is; timed beside fp32 B1
     at the same shape."""
-    from repro_torch.kernels import hist_kernel, ref
+    from repro_torch.kernels import hist_kernel, ref, work
     m, B, C = case["m"], case["B"], case["C"]
     state, build_counts = case["state"], case["build_counts"]
     stats_bf = case["stats_p"].to(torch.bfloat16)
@@ -380,8 +389,8 @@ def check_hist_bf16(torch, case):
     torch.testing.assert_close(cells.reshape(out.shape), out, rtol=1e-5,
                                atol=0)
     del src, cells
-    b_ms, b_by = bound_ms(s_b * (m + 4 + 2 * C) + 2 * m * B * C * 4,
-                          s_b * m * C)
+    w = work.hist_nodes(s_b, m, out.shape[0], B, C, 2)
+    b_ms, b_by = bound_ms(w["bytes"], w["flops"])
     return dict(
         name="hist_nodes_bf16", route="cuda",
         source="src/repro_torch/kernels/csrc/hist.cu",
@@ -487,7 +496,7 @@ def check_ova_level(torch, gen, dev):
     equal its plain version's on the card, gains within rtol 1e-5.  Times
     both beside their bounds.  Returns the two shape records."""
     from repro_torch.core import tree as TR
-    from repro_torch.kernels import hist_kernel, ref, split_kernel
+    from repro_torch.kernels import hist_kernel, ref, split_kernel, work
     n, m, B, trees, lvl = N_TRAIN, 100, 256, OVA_TREES, 5
     assert TR.ova_groups(512, n)[0] == (0, trees)
     codes_t, state, stats_p, counts, build = ova_level_case(torch, gen, dev)
@@ -513,8 +522,8 @@ def check_ova_level(torch, gen, dev):
     s_b = int(build.sum())
     library_ms, library_err, chunks = ova_index_add_ms(torch, out, *args,
                                                        n_bins=B)
-    b_ms, b_by = bound_ms(s_b * (m + 4 + 4 * 2) + nodes * m * B * 2 * 4,
-                          s_b * m * 2)
+    w = work.hist_nodes(s_b, m, nodes, B, 2, 4)
+    b_ms, b_by = bound_ms(w["bytes"], w["flops"])
     b1 = dict(nodes=nodes, entries=trees * n, built_entries=s_b,
               max_abs_err=err, ms=cuda_ms(
                   lambda: hist_kernel.hist_nodes(*args, n_bins=B), 5),
@@ -540,8 +549,8 @@ def check_ova_level(torch, gen, dev):
     assert torch.equal(idx, pi), "B2 over trees: split indices differ"
     torch.testing.assert_close(gain, pg, rtol=1e-5, atol=0)
     assert torch.equal(gain, gain2) and torch.equal(idx, idx2)
-    b_ms, b_by = bound_ms(nodes * m * B * 2 * 4 + m * 4 + nodes * 8,
-                          nodes * m * B * (4 * 2 + 12))
+    w = work.split_scan(nodes, m, m, B, 2)
+    b_ms, b_by = bound_ms(w["bytes"], w["flops"])
     legal = pg.isfinite()            # the empty nodes have none: -inf
     assert torch.equal(legal, gain.isfinite())
     b2 = dict(nodes=nodes, legal_nodes=int(legal.sum()),
@@ -667,7 +676,7 @@ def check_split(torch, gen, dev, first):
     gains within rtol 1e-5, two runs equal; timed beside the plain version and the first version
     (``tools/split_first.cu``, the kernel ``first``) on the same inputs.
     The row's top-level numbers are 32 nodes'."""
-    from repro_torch.kernels import ref, split_kernel
+    from repro_torch.kernels import ref, split_kernel, work
     m, B, C = 100, 256, 6
     shapes, errs = {}, []
     for key, nodes in SPLIT_NODES.items():
@@ -691,9 +700,8 @@ def check_split(torch, gen, dev, first):
         assert torch.equal(fi, pi), f"B2's first version {key} differs"
         errs.append(float((gain - pg).abs().max()))
         # Masked features are skipped: only the others' histograms count.
-        used = int((mask > 0).sum())
-        b_ms, b_by = bound_ms(nodes * used * B * C * 4 + m * 4 + nodes * 8,
-                              nodes * used * B * (4 * C + 12))
+        w = work.split_scan(nodes, int((mask > 0).sum()), m, B, C)
+        b_ms, b_by = bound_ms(w["bytes"], w["flops"])
         shapes[key] = dict(
             nodes=nodes, ms=cuda_ms(
                 lambda: split_kernel.split_scan(hist, 1.0, 1.0, mask), 50),
@@ -745,7 +753,7 @@ def check_split_wide(torch, gen, dev, first):
     beside the plain version and the first design
     (``tools/split_wide_first.cu``, the kernel ``first``) on the same
     inputs.  The row's top-level numbers are 32 nodes'."""
-    from repro_torch.kernels import ref, split_kernel
+    from repro_torch.kernels import ref, split_kernel, work
     m, B, C = 100, 256, 513
     run = B // 32
     shapes, errs = {}, []
@@ -777,9 +785,8 @@ def check_split_wide(torch, gen, dev, first):
         errs.append(float((gain - pg).abs().max()))
         del pg, pi
         # Masked features are skipped: only the others' histograms count.
-        used = int((mask > 0).sum())
-        b_ms, b_by = bound_ms(nodes * used * B * C * 4 + m * 4 + nodes * 8,
-                              nodes * used * B * (4 * C + 12))
+        w = work.split_scan(nodes, int((mask > 0).sum()), m, B, C)
+        b_ms, b_by = bound_ms(w["bytes"], w["flops"])
         shapes[f"n{nodes}"] = dict(
             nodes=nodes, ms=cuda_ms(
                 lambda: split_kernel.split_scan(hist, 1.0, 1.0, mask), 20),
@@ -832,38 +839,6 @@ def traverse_cases(torch, gen, dev):
             for k, (n, T) in TRAVERSE_SHAPES.items()}
 
 
-def traverse_touched(torch, codes, pf):
-    """``(nodes, leaves)``: the (tree, node) pairs at which this run's rows
-    take a step of the walk, whose node arrays are read, and the (tree,
-    node) pairs they end at, whose leaf rows are added; each counted once.
-    B5's trees (`quantize_forest` of the same) take the same branches."""
-    T, N = pf.feat.shape
-    read = torch.zeros((T, N), dtype=torch.bool, device=codes.device)
-    reached = torch.zeros_like(read)
-    for t in range(T):
-        feat, thr = pf.feat[t].long(), pf.thr[t].long()
-        left, right = pf.left[t].long(), pf.right[t].long()
-        pos = torch.zeros(codes.shape[0], dtype=torch.long,
-                          device=codes.device)
-        for _ in range(pf.depth):
-            read[t, pos] = True
-            code = codes.gather(1, feat[pos][:, None])[:, 0].long()
-            pos = torch.where(code > thr[pos], right[pos], left[pos])
-        reached[t, pos] = True
-    return int(read.sum()), int(reached.sum())
-
-
-def traverse_bytes(n, M, T, D, W, s, nodes, leaves):
-    """Bytes each input read once and F written once, counting only what
-    this run's walks touch (`traverse_touched`): F twice, the codes, the
-    node arrays of ``nodes`` nodes (int32, or B5's uint8 thresholds), the
-    leaf rows of ``leaves`` nodes, the columns (and B5's float32 scale a
-    tree)."""
-    node_bytes = 16 if s == 4 else 13
-    return (8 * n * D + n * M + nodes * node_bytes + leaves * W * s
-            + 4 * T * (1 if s == 4 else 2))
-
-
 def traverse_reps(n, T) -> int:
     """Timed launches: more for the small shapes, whose times are µs."""
     return 5 if n * T >= 1 << 20 else 50
@@ -883,14 +858,17 @@ def check_traverse(torch, cases, dtype="float32"):
     from repro_torch.core import quantize as Q
     from repro_torch.kernels import predict_kernel as PK
     from repro_torch.kernels import predict_quant_kernel as PQ
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     quant = dtype != "float32"
     kind = {"float32": 0, "int8": 1, "bfloat16": 2}[dtype]
     shapes, errs = {}, []
     for key, (codes, pf, F0) in cases.items():
         n, M = codes.shape
         lr = 0.05
-        touched = traverse_touched(torch, codes, pf)
+        # The nodes this run's walks read and the leaves they reach (B5's
+        # trees take the same branches).
+        touched = work.traverse_touched(codes, pf.feat, pf.thr, pf.left,
+                                        pf.right, pf.depth)
         if quant:
             qf = Q.quantize_forest(pf, dtype)
             twin = Q.dequantize_forest(qf)
@@ -941,8 +919,8 @@ def check_traverse(torch, cases, dtype="float32"):
                 f"{kernel.name} {key}: narrow blocks differ from plain"
         del out, want, again
         s = leaf.element_size()
-        b_ms, b_by = bound_ms(traverse_bytes(n, M, T, W, W, s, *touched),
-                              (3 if quant else 2) * n * T * W)
+        w = work.traverse(n, M, T, W, W, s, *touched)
+        b_ms, b_by = bound_ms(w["bytes"], w["flops"])
         info = PK.launch_info(kernel, kind, n, W, M)
         plan = {k: info.pop(k) for k in ("rows", "cols", "group", "vec",
                                          "grid", "stage_codes")}
@@ -1121,15 +1099,6 @@ def check_shap(torch, gen, dev, first):
         bound_by=top["bound_by"], library_ms=None, shapes=shapes)
 
 
-def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """Unmasked (query, key) pairs of one head: what B7 must compute."""
-    import numpy as np
-    qpos = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def bf16_ulps(x):
     """One bf16 ulp of each element's own magnitude (0 where it is 0)."""
     import torch
@@ -1164,7 +1133,7 @@ def check_flash(torch, gen, dev):
     float32 at (1, 8, 2, 1,000, 120) without the causal mask (keys past sk
     masked) within atol 1e-5."""
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     b, hq, hkv, s, dh, window = 1, 32, 8, 32_768, 120, 4096
     kw = dict(causal=True, window=window)
     q32, k32, v32 = (torch.randn((b, h, s, dh), generator=gen, device=dev)
@@ -1200,15 +1169,17 @@ def check_flash(torch, gen, dev):
     torch.cuda.synchronize()
     err32 = float((of - pf).abs().max())
     assert err32 <= 1e-5, f"B7 float32 differs from plain by {err32!r}"
-    pairs = attention_pairs(s, s, True, window)
+    pairs = work.attention_pairs(s, s, True, window)
     # QK^T takes bf16 inputs (exact on the tensor cores).  PV takes the
     # float32 probabilities: the kernel's bf16 body splits them into three
-    # bf16 parts, three products at the tensor-core rate (the bound held);
-    # beside it PV at the fp32 rate of the CUDA cores (the first design's
-    # bound) and one bf16 PV product (the all-bf16 bound).
+    # bf16 parts, three products at the tensor-core rate (the bound held,
+    # `work.flash_fwd`); beside it PV at the fp32 rate of the CUDA cores
+    # (the first design's bound) and one bf16 PV product (the all-bf16
+    # bound).
+    w = work.flash_fwd(b, hq, hkv, s, s, dh, True, window, 2)
     half_ops = 2 * dh * hq * b * pairs
-    n_bytes = 2 * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)
-    b_ms, b_by = bound_ms(n_bytes, 0, n_bf16_ops=4 * half_ops)
+    n_bytes = w["bytes"]
+    b_ms, b_by = bound_ms(n_bytes, 0, n_bf16_ops=w["flops"])
     fp32_pv_ms, _ = bound_ms(n_bytes, half_ops, n_bf16_ops=half_ops)
     # The library yardstick, used nowhere in the port: one SDPA call with
     # GQA and a boolean band mask, on a fused kernel (the math one would
@@ -1237,7 +1208,7 @@ def check_flash(torch, gen, dev):
         f32_tail_mask_max_abs_err=err32,
         ms=cuda_ms(lambda: FA.flash_attention(q, k, v, **kw)),
         plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 2),
-        bound_ms=b_ms, bound_by=b_by, pairs_per_head=pairs, ops=4 * half_ops,
+        bound_ms=b_ms, bound_by=b_by, pairs_per_head=pairs, ops=w["flops"],
         fp32_pv_bound_ms=fp32_pv_ms,
         all_bf16_bound_ms=1e3 * 2 * half_ops / BF16_OPS_PER_S,
         f32_ms=f32_ms, library_ms=lib_ms, library_max_abs_err=lib_err)
@@ -1257,7 +1228,7 @@ def check_decode(torch, gen, dev, b=128, hq=32, hkv=8, s=4096, dh=120):
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     window, bf = s, torch.bfloat16
 
     def cache(b, s):
@@ -1272,9 +1243,11 @@ def check_decode(torch, gen, dev, b=128, hq=32, hkv=8, s=4096, dh=120):
             f"each output plus 1e-5 (max abs err {float(diff.max())!r})")
         return float(diff.max()), worst
 
-    def n_bytes(b, lengths, win):
+    def bound(b, lengths, win):
+        """`work.decode` for bf16 q and cache, the rows' lengths cut to
+        the window."""
         seen = int(torch.clamp(lengths, max=win).sum())
-        return 2 * 2 * seen * hkv * dh + 2 * 2 * b * hq * dh, seen
+        return work.decode(b, hq, hkv, dh, seen, 2, 2)
 
     q32 = torch.randn((b, hq, dh), generator=gen, device=dev)
     q = q32.to(bf)
@@ -1307,8 +1280,9 @@ def check_decode(torch, gen, dev, b=128, hq=32, hkv=8, s=4096, dh=120):
             attn_mask=mask, enable_gqa=True)
     lib_err = float((library()[:, :, 0].float() - plain.float()).abs().max())
     lib_ms = cuda_ms(library, 5)
-    nb, seen = n_bytes(b, full, window)
-    b_ms, b_by = bound_ms(nb, 4 * dh * (hq // hkv) * hkv * seen)
+    w = bound(b, full, window)
+    nb = w["bytes"]
+    b_ms, b_by = bound_ms(nb, w["flops"])
     del k, v, out, again, plain, o32, p32, mask
 
     # Ragged, no ring: 8,192 slots, window 4,096.
@@ -1323,7 +1297,7 @@ def check_decode(torch, gen, dev, b=128, hq=32, hkv=8, s=4096, dh=120):
     err_ragged, worst_ragged = held(out, plain)
     ragged_ms = cuda_ms(
         lambda: DA.decode_attention(q, k, v, lengths, window=window), 20)
-    ragged_bound, _ = bound_ms(n_bytes(b, lengths, window)[0], 0)
+    ragged_bound, _ = bound_ms(bound(b, lengths, window)["bytes"], 0)
     del k, v, out, again, plain
 
     # long_500k's layer: batch 1, the same full ring.
@@ -1337,7 +1311,7 @@ def check_decode(torch, gen, dev, b=128, hq=32, hkv=8, s=4096, dh=120):
     err_long, worst_long = held(out, plain)
     long_ms = cuda_ms(lambda: DA.decode_attention(q1, k, v, s, window=window),
                       50)
-    long_bound, _ = bound_ms(n_bytes(1, full[:1], window)[0], 0)
+    long_bound, _ = bound_ms(bound(1, full[:1], window)["bytes"], 0)
     splits = DA.splits_for(dev, hkv, s)
     del k, v, out, again, plain
     torch.cuda.empty_cache()
@@ -1357,14 +1331,18 @@ def check_decode(torch, gen, dev, b=128, hq=32, hkv=8, s=4096, dh=120):
                        bound_ms=long_bound, splits=splits))
 
 
-# B7 at the shapes the MoE, hybrid and VLM families add (phase 13), each
-# (b, hq, hkv, sq, sk, dh, causal): the VLM's image cross-attention (1,600
-# image tokens, non-causal), zamba2's shared block (MHA, dh 64, no window)
-# and the MoE/VLM self-attention (GQA 4, dh 128, no window), at the 32k
-# prefill.
-FAMILY_FLASH = {"vlm_cross": (1, 32, 8, 32_768, 1_600, 128, False),
-                "zamba2_shared": (1, 32, 32, 32_768, 32_768, 64, True),
-                "self_gqa4_dh128": (1, 32, 8, 32_768, 32_768, 128, True)}
+# B7 at the shapes the MoE, hybrid and VLM families add (phase 13) and at
+# the training layer (phase 14), each (b, hq, hkv, sq, sk, dh, causal,
+# window): the VLM's image cross-attention (1,600 image tokens,
+# non-causal), zamba2's shared block (MHA, dh 64, no window) and the
+# MoE/VLM self-attention (GQA 4, dh 128, no window), at the 32k prefill;
+# h2o-danube-3-4b's layer at phase 14's 2 x 4,096 tokens, whose window of
+# 4,096 sees every earlier key (the forward runs twice a layer a step).
+FAMILY_FLASH = {"vlm_cross": (1, 32, 8, 32_768, 1_600, 128, False, None),
+                "zamba2_shared": (1, 32, 32, 32_768, 32_768, 64, True, None),
+                "self_gqa4_dh128": (1, 32, 8, 32_768, 32_768, 128, True,
+                                    None),
+                "danube_train_4k": (2, 32, 8, 4096, 4096, 120, True, 4096)}
 # B8 at phase 13's decode shapes, each (b, hq, hkv, slots, dh, length):
 # zamba2's long_500k shared-attention site (no ring), the VLM's image
 # cache, phi-3.5-moe's batch 128 and the VLM's batch 8 self-attention.
@@ -1439,7 +1417,7 @@ def check_flash_bwd(torch, gen, dev, first):
     bits it gave before its helpers moved into wgmma.cuh (``FWD_BITS``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     shapes = {}
     for key, (b, hq, hkv, sq, sk, dh, causal, window, dt) in \
             FLASH_BWD_SHAPES.items():
@@ -1477,12 +1455,10 @@ def check_flash_bwd(torch, gen, dev, first):
             f"B7 bwd at {key} differs from plain by up to {worst!r} of its "
             f"limit (max abs err {err!r})")
         del again, want, diff, first_got
-        pairs = attention_pairs(sq, sk, causal, window)
-        ops = 5 * 2 * dh * pairs * b * hq
-        design_ops = (13 if tensor_cores else 7) * ops // 5
-        size = q.element_size()
-        n_bytes = (size * (4 * b * hq * sq * dh + 4 * b * hkv * sk * dh)
-                   + 4 * b * hq * sq)
+        w = work.flash_bwd(b, hq, hkv, sq, sk, dh, causal, window,
+                           q.element_size())
+        pairs = w["pairs"] // (b * hq)
+        ops, design_ops, n_bytes = w["useful_flops"], w["flops"], w["bytes"]
         if dtype == torch.bfloat16:
             b_ms, b_by = bound_ms(n_bytes, 0, n_bf16_ops=ops)
         else:
@@ -1544,14 +1520,15 @@ def check_family_attention(torch, gen, dev):
     """B7 and B8 at the shapes of ``FAMILY_FLASH`` and ``FAMILY_DECODE``,
     in bf16: each output within one bf16 ulp of its own plain value plus
     1e-5 and the same from run to run; the kernel's time, its bound and
-    one SDPA call's time (GQA, ``is_causal`` or no mask; for B8 a length
-    mask on views of the cache where the cache is not full).  Returns the
-    two dicts of shapes."""
+    one SDPA call's time (GQA, ``is_causal`` or no mask, which a window as
+    long as the queries leaves exact; for B8 a length mask on views of the
+    cache where the cache is not full).  Returns the two dicts of
+    shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     bf = torch.bfloat16
 
     def held(out, again, plain, what):
@@ -1564,30 +1541,32 @@ def check_family_attention(torch, gen, dev):
         return float(diff.max()), worst
 
     flash = {}
-    for key, (b, hq, hkv, sq, sk, dh, causal) in FAMILY_FLASH.items():
+    for key, (b, hq, hkv, sq, sk, dh, causal, window) in \
+            FAMILY_FLASH.items():
+        assert window is None or (causal and window >= sq), key
+        kw = dict(causal=causal, window=window)
         q = torch.randn((b, hq, sq, dh), generator=gen, device=dev, dtype=bf)
         k, v = (torch.randn((b, hkv, sk, dh), generator=gen, device=dev,
                             dtype=bf) for _ in "kv")
-        out = FA.flash_attention(q, k, v, causal=causal)
-        again = FA.flash_attention(q, k, v, causal=causal)
-        plain = ref.flash_attention_ref(q, k, v, causal=causal)
+        out = FA.flash_attention(q, k, v, **kw)
+        again = FA.flash_attention(q, k, v, **kw)
+        plain = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         err, worst = held(out, again, plain, f"B7 {key}")
         del again, plain
-        pairs = attention_pairs(sq, sk, causal, None)
-        n_bytes = 2 * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh)
-        b_ms, b_by = bound_ms(n_bytes, 0, n_bf16_ops=8 * dh * hq * b * pairs)
+        w = work.flash_fwd(b, hq, hkv, sq, sk, dh, causal, window, 2)
+        b_ms, b_by = bound_ms(w["bytes"], 0, n_bf16_ops=w["flops"])
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True)
         lib_err = float((library().float() - out.float()).abs().max())
         flash[key] = dict(
-            shape=[b, hq, hkv, sq, sk, dh], causal=causal,
+            shape=[b, hq, hkv, sq, sk, dh], causal=causal, window=window,
             max_abs_err=err, share_of_bf16_ulp_limit=worst,
-            ms=cuda_ms(lambda: FA.flash_attention(q, k, v, causal=causal),
-                       3),
-            bound_ms=b_ms, bound_by=b_by, pairs_per_head=pairs,
+            ms=cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 3),
+            bound_ms=b_ms, bound_by=b_by,
+            pairs_per_head=w["pairs"] // (b * hq),
             library_ms=cuda_ms(library, 3), library_max_abs_diff=lib_err)
         del q, k, v, out
         torch.cuda.empty_cache()
@@ -1604,8 +1583,8 @@ def check_family_attention(torch, gen, dev):
         torch.cuda.synchronize()
         err, worst = held(out, again, plain, f"B8 {key}")
         del again, plain
-        n_bytes = 2 * 2 * b * n * hkv * dh + 2 * 2 * b * hq * dh
-        b_ms, b_by = bound_ms(n_bytes, 4 * dh * hq * b * n)
+        w = work.decode(b, hq, hkv, dh, b * n, 2, 2)
+        b_ms, b_by = bound_ms(w["bytes"], w["flops"])
         kv = (k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
         mask = None if n == s else (
             torch.arange(s, device=dev) < n)[None, None, None, :]
@@ -3899,6 +3878,88 @@ def training_phase(torch, dev, b7, b7b, kernels, arch="h2o-danube-3-4b",
     return rec, launches
 
 
+def count_round(torch, model, Xtr, ytr, Xev, yev):
+    """Phase 4's round counted on the card under the roofline counter
+    (`roofline.analysis.Counter`): one `boosting.boost_round` from the
+    base score over the training rows, then the eval of its tree (B3 over
+    the eval rows, and the loss), as `SketchBoost.fit` times a round.
+    B1, B2 and B3 are counted by their formulas (`kernels.work`)."""
+    from repro_torch.launch import dryrun as DR
+    cfg = model.cfg.strip_io()
+    codes, codes_t = model._codes(Xtr)
+    codes_v, _ = model._codes(Xev)
+    d = cfg.n_outputs
+    F = model.base_score.expand(codes.shape[0], d).contiguous()
+    Fv = model.base_score.expand(codes_v.shape[0], d).contiguous()
+    gen = torch.Generator(device=F.device).manual_seed(cfg.seed)
+    t0 = time.perf_counter()
+    counter = DR.count_gbdt_round(F, codes, codes_t, model._targets(ytr),
+                                  cfg, gen, eval_set=(codes_v, Fv,
+                                                      model._targets(yev)))
+    torch.cuda.synchronize()
+    print(f"[4] one round counted on the card in "
+          f"{time.perf_counter() - t0:.2f} s: {counter.flops:.6e} FLOPs, "
+          f"{counter.hbm_bytes:.6e} bytes; kernels {counter.kernels}")
+    return counter
+
+
+def roofline_phase(torch, round_counter, round_s, prefill, decode,
+                   training):
+    """Phase 15: each one-card path's measured time beside its roofline
+    bound on a one-rank mesh (chips 1, no collective) at the H100's
+    constants (`roofline.analysis`), from times the earlier phases
+    measured: phase 4's median round (counted on the card,
+    `count_round`), phase 10's 1 x 32,768 prefill, phase 11's decode_32k
+    step and phase 14's 2 x 4,096 training step (each counted by
+    `launch.dryrun` on fake tensors at its shapes).  ``model_flops`` is
+    `dryrun.useful_model_flops` (the GBDT round: its counted FLOPs) and
+    MFU ``model_flops / (measured x PEAK_FLOPS)``.  A path measured
+    faster than its bound is a miscount: the phase fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.roofline import analysis as RA
+    cfg = get_config("h2o-danube-3-4b")
+    paths = {"gbdt_round": (None, round_s["median"])}
+    paths["prefill_1x32768"] = (ShapeCell("prefill_32k", 32_768, 1,
+                                          "prefill"),
+                                prefill["1x32768"]["ms_per_request"] / 1e3)
+    paths["decode_32k"] = (ShapeCell("decode_32k", 32_768, 128, "decode"),
+                           decode["decode_32k"]["ms_per_step"] / 1e3)
+    paths["train_2x4096"] = (ShapeCell("train_4k", 4096, 2, "train"),
+                             training["a"]["ms_per_step"] / 1e3)
+    rows = {}
+    for name, (cell, measured) in paths.items():
+        t0 = time.perf_counter()
+        if cell is None:
+            counter, mf = round_counter, round_counter.flops
+        else:
+            counter = DR.count_cell(cfg, cell)
+            mf = DR.useful_model_flops(cfg, cell)
+        terms = counter.terms(chips=1, model_flops=mf)
+        row = dict(flops=terms.flops, hbm_bytes=terms.hbm_bytes,
+                   t_compute_s=terms.t_compute, t_memory_s=terms.t_memory,
+                   t_bound_s=terms.t_bound, bottleneck=terms.bottleneck,
+                   measured_s=measured,
+                   measured_over_bound=measured / terms.t_bound,
+                   model_flops=mf, mfu=mf / (measured * RA.PEAK_FLOPS),
+                   count_s=time.perf_counter() - t0,
+                   kernels=counter.kernels)
+        rows[name] = row
+        print(f"[15] {name}: flops {row['flops']:.6e} hbm_bytes "
+              f"{row['hbm_bytes']:.6e} t_compute {row['t_compute_s']:.6f} s "
+              f"t_memory {row['t_memory_s']:.6f} s t_bound "
+              f"{row['t_bound_s']:.6f} s ({row['bottleneck']}); measured "
+              f"{measured:.6f} s = {row['measured_over_bound']:.3f} x "
+              f"t_bound; model_flops {mf:.6e} MFU {row['mfu']:.4f} "
+              f"(counted in {row['count_s']:.2f} s)")
+        print(f"[15]   kernels: {json.dumps(counter.kernels)}")
+        assert measured >= terms.t_bound, (
+            f"{name} measured {measured} s, faster than its bound "
+            f"{terms.t_bound} s: a miscount")
+    return rows
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import sketchboost_tabular as paper
@@ -4065,6 +4126,7 @@ def main() -> int:
           f"loss {base_loss!r}")
     assert math.isfinite(train_loss) and train_loss < base_loss
 
+    round_counter = count_round(torch, model, Xtr, ytr, Xev, yev)
     lap("4-5 fit, predict")
     profile_rounds(torch, model, dev, Xtr, ytr, Xev, yev)
     lap("6 profile")
@@ -4179,8 +4241,11 @@ def main() -> int:
         if r["name"] in (b7.name, b8.name):
             r["family_launches"] = {arch: v[r["name"]] for arch, v in
                                     family_launches.items()}
+    roofline = roofline_phase(torch, round_counter, round_s, prefill,
+                              decode, training)
+    lap("15 roofline")
     script_s = time.perf_counter() - t_script
-    print(f"[15] the script took {script_s:.1f} s")
+    print(f"[16] the script took {script_s:.1f} s")
     print(json.dumps({"kernels": rows, "fit_s": fit_s, "script_s": script_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
@@ -4190,7 +4255,7 @@ def main() -> int:
                       "prefill": prefill,
                       "decode": decode, "distributed": distributed,
                       "families": families, "training": training,
-                      "laps_s": laps, "card": smi}))
+                      "roofline": roofline, "laps_s": laps, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,6 +65,7 @@ from repro_torch.core import split as S
 from repro_torch.core import tree as T
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import compression as CP
+from repro_torch.models.params import spec_entry
 from repro_torch.runtime import chaos as CH
 from repro_torch.runtime import elastic as E
 from repro_torch.runtime import fault as FT
@@ -206,6 +207,27 @@ def round_collective_bytes(cfg: B.GBDTConfig, m: int, d: int
             "exact_bytes": 4 * cells * c_full * trees,
             "moved_bytes": 4 * cells * c_moved * trees,
             "full_bytes": full_bytes}
+
+
+def gbdt_input_specs(n: int, m: int, d: int, mesh, cfg: B.GBDTConfig, *,
+                     row_axes=("data",), model_axis="model"
+                     ) -> Dict[str, Any]:
+    """The dry-run cell's inputs as ``(meta tensor, partition spec)``
+    pairs: F (n, d) float32 over ``(row_axes, model_axis)``, the codes
+    (n, m) uint8 over the rows, Y ((n,) int32 class ids for multiclass,
+    else (n, d) float32 like F); ``key`` None (the port's draws come from a
+    generator or are passed in)."""
+    rows = spec_entry(tuple(row_axes))
+    f_spec, row_spec = (rows, model_axis), (rows,)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    if cfg.loss == "multiclass":
+        y = (meta((n,), torch.int32), row_spec)
+    else:
+        y = (meta((n, d), torch.float32), f_spec)
+    return dict(F=(meta((n, d), torch.float32), f_spec),
+                codes=(meta((n, m), torch.uint8), row_spec), Y=y, key=None)
 
 
 class RowReduce:

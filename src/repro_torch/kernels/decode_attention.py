@@ -7,6 +7,7 @@ of the cache and without its tile padding: the kernel reads k and v where
 they lie, with row stride ``hkv * dh``.  A CPU tensor goes to the plain
 version (`ref.decode_attention_ref`); a CUDA tensor goes to the kernel, or
 the wrapper raises.  ``KERNEL.launches`` counts the kernel's launches.
+Under a roofline counter each call is counted by `work.decode`.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels._build import CudaKernel, require
 
 KERNEL = CudaKernel(
@@ -80,10 +81,29 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lo < 1 or hi > s:
         raise ValueError(f"lengths must lie in [1, {s}] (the cache's "
                          f"slots), got [{lo}, {hi}]")
-    if q.device.type == "cpu":
-        if not isinstance(lengths, torch.Tensor):
-            lengths = torch.full((b,), int(lengths), dtype=torch.int32)
-        return ref.decode_attention_ref(q, k, v, lengths, window=window)
+    with work.kernel(KERNEL.name, lambda: work.decode(
+            b, hq, hkv, dh, _seen(lengths, b, window), q.element_size(),
+            k.element_size()), q, k, v) as shape_only:
+        if shape_only:
+            return torch.empty_like(q)
+        if q.device.type == "cpu":
+            if not isinstance(lengths, torch.Tensor):
+                lengths = torch.full((b,), int(lengths), dtype=torch.int32)
+            return ref.decode_attention_ref(q, k, v, lengths, window=window)
+        return _launch(q, k, v, lengths, window)
+
+
+def _seen(lengths, b: int, window: Optional[int]) -> int:
+    """Cache slots the rows see in all: each row's length cut to the
+    window."""
+    if isinstance(lengths, torch.Tensor):
+        return int(torch.clamp(lengths.long(), max=window).sum())
+    return b * (int(lengths) if window is None else min(int(lengths), window))
+
+
+def _launch(q, k, v, lengths, window):
+    b, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
     require(q, q.dtype, (b, hq, dh), "q")
     require(k, k.dtype, (b, s, hkv, dh), "k")
     require(v, k.dtype, (b, s, hkv, dh), "v")

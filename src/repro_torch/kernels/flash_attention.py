@@ -16,7 +16,10 @@ requiring them) runs as `FlashAttention`, a ``torch.autograd.Function``:
 the forward kernel also writes each query row's float32 log-sum-exp, and
 the backward kernel recomputes the probabilities from it.  Any other call
 launches the forward alone, without that output.  On the CPU the plain
-version runs under autograd as it is.
+version runs under autograd as it is, except under a roofline counter
+(`kernels.work`), where it runs as `FlashAttention` too, so that each
+call, forward and backward, is counted once by its formula on either
+device.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels._build import CudaKernel, require
 
 KERNEL = CudaKernel(
@@ -84,12 +87,19 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out, lse
 
 
+def _fwd_work(q, k, causal, window, lse):
+    b, hq, sq, dh = q.shape
+    return lambda: work.flash_fwd(b, hq, k.shape[1], sq, k.shape[2], dh,
+                                  causal, window, q.element_size(), lse)
+
+
 class FlashAttention(torch.autograd.Function):
-    """B7 on the card with its hand-written backward."""
+    """B7 with its hand-written backward: the kernels on the card, the
+    plain versions on the CPU (where it runs only under a counter)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out, lse = _launch(q, k, v, causal, window, with_lse=True)
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -112,12 +122,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window`` behind it.  Every query row must see a key, which fails only
     when ``sq - sk >= window``.  Differentiable on both devices."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+                                    or v.requires_grad) and (
+                                        q.device.type != "cpu"
+                                        or work.counting()):
         return FlashAttention.apply(q, k, v, causal, window)
-    return _launch(q, k, v, causal, window, with_lse=False)[0]
+    with work.kernel(KERNEL.name, _fwd_work(q, k, causal, window, False),
+                     q, k, v) as shape_only:
+        if shape_only:
+            return torch.empty_like(q)
+        if q.device.type == "cpu":
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+        return _launch(q, k, v, causal, window, with_lse=False)[0]
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -126,10 +143,15 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     log-sum-exp of its scaled scores: (out, lse (b, hq, sq)), what
     `flash_attention_bwd` takes."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       return_lse=True)
-    return _launch(q, k, v, causal, window, with_lse=True)
+    with work.kernel(KERNEL.name, _fwd_work(q, k, causal, window, True),
+                     q, k, v) as shape_only:
+        if shape_only:
+            return torch.empty_like(q), q.new_empty(q.shape[:3],
+                                                    dtype=torch.float32)
+        if q.device.type == "cpu":
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        return _launch(q, k, v, causal, window, with_lse=True)
 
 
 def bwd_launch_info(dh: int) -> dict:
@@ -169,9 +191,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq):
         raise ValueError(f"lse must be float32 of shape {(b, hq, sq)}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    if q.device.type == "cpu":
-        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                           causal=causal, window=window)
+    with work.kernel(BWD_KERNEL.name, lambda: work.flash_bwd(
+            b, hq, hkv, sq, sk, dh, causal, window, q.element_size()),
+            q, k, v, dout) as shape_only:
+        if shape_only:
+            return tuple(torch.empty_like(t) for t in (q, k, v))
+        if q.device.type == "cpu":
+            return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                               causal=causal, window=window)
+        return _launch_bwd(q, k, v, out, lse, dout, causal, window)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, window):
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout), ("lse", lse)):
         require(t, t.dtype, tuple(t.shape), name)

@@ -11,7 +11,8 @@ take every channel in one launch.  A CPU tensor goes to the plain version
 (`ref.hist_nodes_ref`, `ref.histogram_ref`); a CUDA tensor goes to the
 kernel, or the wrapper raises.  ``KERNEL.launches``,
 ``KERNEL_BF16.launches`` and ``DIRECT_KERNEL.launches`` count the kernels'
-launches.
+launches.  Under a roofline counter B1's calls are counted by
+`work.hist_nodes`.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.core.quantize import MAX_BINS
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels._build import CudaKernel, require
 
 _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
@@ -70,13 +71,24 @@ def hist_nodes(codes_t: torch.Tensor, order: torch.Tensor,
     if counts.device.type == "cpu" and int(counts.sum()) > s:
         raise ValueError(f"counts sum to {int(counts.sum())}, past the {s} "
                          "rows of order")
-    if codes_t.device.type == "cpu":
-        return ref.hist_nodes_ref(codes_t, order, stats_p, counts,
-                                  build_counts, n_bins=n_bins,
-                                  hist_dtype=hist_dtype)
+    kernel = KERNEL_BF16 if hist_dtype == "bfloat16" else KERNEL
+    with work.kernel(kernel.name, lambda: work.hist_nodes(
+            int(build_counts.sum()), m, counts.shape[0], n_bins,
+            stats_p.shape[1], stats_p.element_size())):
+        if codes_t.device.type == "cpu":
+            return ref.hist_nodes_ref(codes_t, order, stats_p, counts,
+                                      build_counts, n_bins=n_bins,
+                                      hist_dtype=hist_dtype)
+        return _launch_nodes(kernel, codes_t, order, stats_p, counts,
+                             build_counts, n_bins, dtype)
+
+
+def _launch_nodes(kernel, codes_t, order, stats_p, counts, build_counts,
+                  n_bins, dtype):
+    m, n = codes_t.shape
+    s = order.shape[0]
     n_nodes = counts.shape[0]
     c = stats_p.shape[1]
-    kernel = KERNEL_BF16 if hist_dtype == "bfloat16" else KERNEL
     require(codes_t, torch.uint8, (m, n), "codes_t")
     require(order, torch.int32, (s,), "order")
     require(stats_p, dtype, (s, c), "stats_p")

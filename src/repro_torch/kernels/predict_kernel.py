@@ -4,7 +4,9 @@ Replaces the JAX package's ``forest_traverse_pallas``.  A CPU tensor goes
 to the plain version (`ref.forest_apply_ref`); a CUDA tensor goes to the
 kernel, or the wrapper raises.  ``KERNEL.launches`` counts the kernel's
 launches.  Both update ``F`` in place and return it.  The kernel picks its
-tile for each call; `launch_info` reports the pick and its build.
+tile for each call; `launch_info` reports the pick and its build.  Under a
+roofline counter each call is counted by `work.traverse`, over the nodes
+its rows' walks touch.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels._build import CudaKernel, require
 
 KERNEL = CudaKernel(
@@ -51,9 +53,19 @@ def forest_traverse(F: torch.Tensor, codes: torch.Tensor, feat: torch.Tensor,
     feat/thr/left/right (T, N) int32, leaf (T, N, W) float32, out_col (T,)
     int32."""
     lr = float(np.float32(lr))
-    if F.device.type == "cpu":
-        return ref.forest_apply_ref(F, codes, feat, thr, left, right, leaf,
-                                    out_col, lr, depth=depth)
+    n, D = F.shape
+    T, N, W = leaf.shape
+    with work.kernel(KERNEL.name, lambda: work.traverse(
+            n, codes.shape[1], T, D, W, leaf.element_size(),
+            *work.traverse_touched(codes, feat, thr, left, right, depth))):
+        if F.device.type == "cpu":
+            return ref.forest_apply_ref(F, codes, feat, thr, left, right,
+                                        leaf, out_col, lr, depth=depth)
+        return _launch(F, codes, feat, thr, left, right, leaf, out_col, lr,
+                       depth)
+
+
+def _launch(F, codes, feat, thr, left, right, leaf, out_col, lr, depth):
     n, D = F.shape
     T, N, W = leaf.shape
     M = codes.shape[1]

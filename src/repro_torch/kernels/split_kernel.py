@@ -6,6 +6,7 @@ the wrapper raises.  Two entry points share the source: ``KERNEL`` for up
 to 32 channels (a sketch of up to 31 columns), ``WIDE_KERNEL`` for 33 to
 1,024 (wider sketches, and SketchBoost Full's d + 1 channels; up to 256
 bins), which is faster from 33 channels on; each counts its own launches.
+Under a roofline counter each call is counted by `work.split_scan`.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels._build import CudaKernel, require
 
 KERNEL = CudaKernel(
@@ -45,8 +46,16 @@ def split_scan(hist: torch.Tensor, lam: float, min_data: float,
     """(nodes, m, B, C) float32 histograms + (m,) float32 feature mask ->
     per-node ``(best_gain float32, best_idx int32)``; idx = feature * B +
     bin, ties to the lowest index, ``(-inf, 0)`` with no legal split."""
-    if hist.device.type == "cpu":
-        return ref.split_scan_ref(hist, lam, min_data, mask)
+    nodes, m, B, c = hist.shape
+    name = (KERNEL if c <= NARROW_CHANNELS else WIDE_KERNEL).name
+    with work.kernel(name, lambda: work.split_scan(
+            nodes, int((mask > 0).sum()), m, B, c)):
+        if hist.device.type == "cpu":
+            return ref.split_scan_ref(hist, lam, min_data, mask)
+        return _launch(hist, lam, min_data, mask)
+
+
+def _launch(hist, lam, min_data, mask):
     nodes, m, B, c = hist.shape
     require(hist, torch.float32, (nodes, m, B, c), "hist")
     require(mask, torch.float32, (m,), "mask")

@@ -13,6 +13,8 @@ ranks share a card (NCCL refuses two ranks on one GPU) or on the CPU.
 Nothing here switches backend or device when one fails.  Under
 ``torchrun`` `make_mesh` initialises the world from its ``env://``
 variables; a world started by `repro_torch.launch.dist` is already up.
+An `AbstractMesh` has the axes and sizes alone, for planning a world one
+does not have (`make_production_mesh`, the dry run).
 """
 from __future__ import annotations
 
@@ -192,11 +194,34 @@ def host_device_mesh(model_parallel: int = 1, pods: int = 1, *,
                      device=device)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16 x 16 (256 chips) and 2 x 16 x 16 (512 chips)
-    meshes, which the dry-run slice brings."""
-    raise NotImplementedError(
-        "make_production_mesh (256 or 512 ranks) is not ported yet: it "
-        "comes with the dry-run slice of repro_torch (gbdt_input_specs and "
-        "the LM sharding rules); build a mesh of the world you have with "
-        "make_mesh")
+class AbstractMesh:
+    """A mesh's axis names and sizes, with no ranks and no process groups
+    (the reference's ``jax.sharding.AbstractMesh``): what the dry run plans
+    a world of 256 or 512 cards on.  It has the ``axes``, ``shape`` and
+    ``size`` of a `Mesh`, so the partition specs
+    (`models.params.partition_spec`, `models.lm.cache_pspecs`,
+    `core.distributed.gbdt_input_specs`) take either kind."""
+
+    def __init__(self, shape: Tuple[int, ...], axes: Tuple[str, ...]):
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {tuple(shape)} and axes {tuple(axes)} "
+                             f"differ in length")
+        self.shape = tuple(int(s) for s in shape)
+        self.axes = tuple(axes)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh(shape={self.shape}, axes={self.axes})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production meshes, abstract: ``(16, 16)`` over
+    ``("data", "model")`` (256 cards), or ``(2, 16, 16)`` over ``("pod",
+    "data", "model")`` (512).  For the dry run's specs and roofline; a
+    mesh of real ranks comes from `make_mesh`."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))

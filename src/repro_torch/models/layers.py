@@ -11,10 +11,16 @@ reference's pure-jnp ``chunked_attention`` and ``decode_attention_jnp``
 (its ``use_pallas=False`` paths) have no counterpart: the first rounds the
 probabilities to the model dtype before the PV product, where B7 keeps
 them in float32, and the second computes B8's function without the kernel.
+
+`AxisCtx` describes a step's layout on a mesh (batch axes, model axis,
+sequence-sharded residuals) for the dry run's specs and collective counts.
+The reference threads it through the layers to constrain activations; the
+port's layers take none, and a context changes no number of a step.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +28,40 @@ import torch.nn.functional as F
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.params import ParamDecl
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisCtx:
+    """A step's layout on a mesh (None: no mesh): the batch dimension over
+    ``batch_axes``, heads and FFN hidden over ``model_axis`` (None in
+    ``dp_only`` mode), residuals also over ``model_axis`` by sequence
+    when ``seq_shard``.  Each method gives the partition spec the
+    reference constrains that activation to."""
+    mesh: Optional[Any] = None
+    batch_axes: Tuple[str, ...] = ("data",)
+    model_axis: Optional[str] = "model"
+    seq_shard: bool = False
+
+    def batch(self) -> Any:
+        return (self.batch_axes if len(self.batch_axes) > 1
+                else self.batch_axes[0])
+
+    def residual(self) -> Tuple:
+        """(B, S, D): batch over the batch axes, optionally seq over
+        model."""
+        return (self.batch(), self.model_axis if self.seq_shard else None,
+                None)
+
+    def heads(self) -> Tuple:
+        """(B, S, H, dh): heads over model."""
+        return (self.batch(), None, self.model_axis, None)
+
+    def ffn(self) -> Tuple:
+        """(B, S, F): hidden over model."""
+        return (self.batch(), None, self.model_axis)
+
+
+NULL_CTX = AxisCtx()
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

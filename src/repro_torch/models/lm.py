@@ -42,6 +42,10 @@ the port keeps one host int for the cache, so a decode step reads nothing
 back from the card.  Like the reference's, `prefill` fills no cache: a
 prompt enters it token by token through `decode_step`, and nothing fills
 the image cache (the reference's neither).
+
+For the dry run, `abstract` and `abstract_cache` give the parameters and
+the cache as ``meta`` tensors with their partition specs on a mesh
+(`sharding_rules`, `cache_pspecs`).
 """
 from __future__ import annotations
 
@@ -59,7 +63,9 @@ from repro_torch.models import layers as Ly
 from repro_torch.models import moe as Moe
 from repro_torch.models import ssm as Ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import ParamDecl, init_params, stack
+from repro_torch.models.params import (LOGICAL_RULES, ParamDecl,
+                                       abstract_params, dp_only_rules,
+                                       init_params, mesh_axes, stack)
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -180,6 +186,41 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None):
     on it."""
     return unstack_params(cfg, init_params(param_decls(cfg), generator,
                                            model_dtype(cfg), device))
+
+
+def _unstack_specs(tree, n: int) -> List[Any]:
+    """A spec tree of stacked leaves -> a list of n trees without the
+    leading (layer or site) entry."""
+    if isinstance(tree, tuple):
+        return [tree[1:] for _ in range(n)]
+    per_key = {k: _unstack_specs(v, n) for k, v in tree.items()}
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+
+
+def sharding_rules(cfg: ModelConfig, mesh=None):
+    """Logical -> mesh axes for ``cfg`` on ``mesh``: `dp_only_rules` in
+    ``dp_only`` mode; across pods the FSDP storage over ``("pod",
+    "data")`` too; else `params.LOGICAL_RULES`."""
+    if mesh is not None and cfg.tp_strategy == "dp_only":
+        return dp_only_rules(mesh)
+    if mesh is not None and "pod" in mesh_axes(mesh):
+        return dict(LOGICAL_RULES, fsdp=("pod", "data"))
+    return LOGICAL_RULES
+
+
+def abstract(cfg: ModelConfig, mesh=None):
+    """``(params, specs)``: the parameters as ``meta`` tensors in `init`'s
+    layout (blocks and cross sites unstacked, norms and gates float32)
+    and, with a mesh, their partition specs in the same layout (else
+    None)."""
+    values, specs = abstract_params(param_decls(cfg), model_dtype(cfg), mesh,
+                                    rules=sharding_rules(cfg, mesh))
+    values = unstack_params(cfg, values)
+    if specs is not None:
+        specs["blocks"] = _unstack_specs(specs["blocks"], cfg.n_layers)
+        if "cross" in specs:
+            specs["cross"] = _unstack_specs(specs["cross"], n_sites(cfg))
+    return values, specs
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +467,86 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
         cache["image_kv"] = {
             n: torch.zeros(shape, dtype=dtype, device=device) for n in "kv"}
     return cache
+
+
+def cache_pspecs(cfg: ModelConfig, batch: int, mesh,
+                 batch_axes: Tuple[str, ...] = ("data",),
+                 model_axis: str = "model") -> Dict[str, Any]:
+    """Partition specs of `init_cache`'s tensors (its host-int ``length``
+    has none): the batch over ``batch_axes`` when divisible, else
+    replicated (long_500k's batch of 1); kv heads over ``model_axis`` when
+    divisible, else the cache's sequence (slots) over it; SSM state heads
+    and the x convolution's channels over ``model_axis``.  A spec may name
+    an axis its dimension does not divide by; `abstract_cache` drops it
+    there."""
+    sizes = mesh_axes(mesh)
+    tp = sizes[model_axis]
+    nrow = 1
+    for a in batch_axes:
+        nrow *= sizes[a]
+    baxes = batch_axes if len(batch_axes) > 1 else batch_axes[0]
+    b_ax = baxes if batch % nrow == 0 else None
+
+    def attn_kv(stacked: bool) -> Tuple:
+        kv_ax = model_axis if cfg.n_kv_heads % tp == 0 else None
+        seq_ax = model_axis if kv_ax is None else None
+        spec = (b_ax, seq_ax, kv_ax, None)
+        return (None, *spec) if stacked else spec
+
+    if _is_ssm(cfg):
+        h_ax = model_axis if cfg.ssm_nheads % tp == 0 else None
+        di_ax = model_axis if cfg.d_inner % tp == 0 else None
+        pspecs: Dict[str, Any] = {"layers": {
+            "state": (None, b_ax, h_ax, None, None),
+            "conv_x": (None, b_ax, None, di_ax),
+            "conv_B": (None, b_ax, None, None),
+            "conv_C": (None, b_ax, None, None),
+        }}
+        if cfg.family == "hybrid" and cfg.attn_every:
+            pspecs["shared_attn"] = [
+                {"k": attn_kv(False), "v": attn_kv(False)}
+                for _ in range(n_sites(cfg))]
+        return pspecs
+    pspecs = {"layers": {"k": attn_kv(True), "v": attn_kv(True)}}
+    if cfg.family == "vlm" and cfg.cross_attn_every:
+        kv_ax = model_axis if cfg.n_kv_heads % tp == 0 else None
+        pspecs["image_kv"] = {"k": (None, b_ax, None, kv_ax, None),
+                              "v": (None, b_ax, None, kv_ax, None)}
+    return pspecs
+
+
+def _fit_spec(shape, spec: Tuple, mesh) -> Tuple:
+    """``spec`` with each axis its dimension does not divide by dropped."""
+    sizes = mesh_axes(mesh)
+    names = list(spec) + [None] * (len(shape) - len(spec))
+    fixed = []
+    for dim, ax in zip(shape, names):
+        n = 1
+        for a in (() if ax is None else ax if isinstance(ax, tuple)
+                  else (ax,)):
+            n *= sizes[a]
+        fixed.append(ax if dim % n == 0 else None)
+    return tuple(fixed)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, s_max: int, mesh=None,
+                   batch_axes: Tuple[str, ...] = ("data",),
+                   model_axis: str = "model", dtype=torch.bfloat16):
+    """``(cache, specs)``: `init_cache` on the ``meta`` device (no
+    storage) and, with a mesh, each tensor's partition spec
+    (`cache_pspecs` fitted to the allocated shapes; else None)."""
+    cache = init_cache(cfg, batch, s_max, dtype, device="meta")
+    if mesh is None:
+        return cache, None
+    specs = cache_pspecs(cfg, batch, mesh, batch_axes, model_axis)
+
+    def fit(c, sp):
+        if isinstance(sp, tuple):
+            return _fit_spec(c.shape, sp, mesh)
+        if isinstance(sp, list):
+            return [fit(ci, si) for ci, si in zip(c, sp)]
+        return {k: fit(c[k], v) for k, v in sp.items()}
+    return cache, fit(cache, specs)
 
 
 def _layer_decode(bp, x: torch.Tensor, layers, i: int, length: int,

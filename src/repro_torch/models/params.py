@@ -1,16 +1,29 @@
 """Declarative parameters: shapes, logical axes and init in one tree.
 
-The port of the declaration half of the JAX package's ``models/params.py``.
-Modules declare ``ParamDecl(shape, axes, init)`` leaves in nested dicts; the
-same tree then counts parameters (`n_params`) or materializes as random
-tensors (`init_params`).  The axes are kept for parity with the reference's
-declarations; the mesh and sharding half comes with the distributed slice.
+The port of the JAX package's ``models/params.py``.  Modules declare
+``ParamDecl(shape, axes, init)`` leaves in nested dicts; the same tree then
+counts parameters (`n_params`), materializes as random tensors
+(`init_params`), as ``meta`` tensors with their partition specs
+(`abstract_params`, for the dry run: no storage), or as each rank's shard
+shapes on a mesh (`tree_shard_shapes`).  Logical axes:
+
+  "tp"    tensor-parallel        -> mesh "model"
+  "fsdp"  fully-sharded params   -> mesh "data"   (ZeRO-3-style storage)
+  "ep"    expert-parallel        -> mesh "model"
+  None    replicated dimension
+
+A partition spec is a plain tuple with one entry a dimension, as the
+reference's ``PartitionSpec``: a mesh axis name, a tuple of names, or None
+(replicated).  A mesh is anything with ``axes`` and ``shape``: a real
+`launch.mesh.Mesh` of ranks or an `launch.mesh.AbstractMesh`.
+Divisibility fallback: a dimension not divisible by its mesh axes' size is
+replicated (kv_heads=8 on a 16-way model axis).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -26,6 +39,13 @@ class ParamDecl:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+LOGICAL_RULES = {"tp": "model", "fsdp": "data", "ep": "model"}
+
+
+def is_decl(x) -> bool:
+    return isinstance(x, ParamDecl)
 
 
 def map_decls(fn, tree):
@@ -86,3 +106,105 @@ def init_params(decl_tree, generator: torch.Generator,
         return w.mul_(scale).to(dtype)
 
     return map_decls(make, decl_tree)
+
+
+# ---------------------------------------------------------------------------
+# Partition specs on a mesh
+# ---------------------------------------------------------------------------
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a mesh (real or abstract)."""
+    return dict(zip(mesh.axes, mesh.shape))
+
+
+def spec_entry(axes):
+    """One spec entry for a dimension over ``axes`` (a name or a tuple of
+    names), normalized as the reference's ``PartitionSpec`` does: no axis
+    is None, one axis its name."""
+    if isinstance(axes, tuple):
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+    return axes
+
+
+def dp_only_rules(mesh):
+    """Rules for small archs where TP is pure collective overhead: params
+    replicated over "model" (no tp/ep), FSDP storage over every axis, and
+    the batch sharded over "model" as extra data parallelism."""
+    fsdp = tuple(a for a in ("pod", "data", "model") if a in mesh_axes(mesh))
+    return {"tp": None, "ep": None, "fsdp": fsdp}
+
+
+def _axis_size(mesh, mesh_ax) -> int:
+    sizes = mesh_axes(mesh)
+    if isinstance(mesh_ax, tuple):
+        n = 1
+        for a in mesh_ax:
+            n *= sizes.get(a, 1)
+        return n
+    return sizes.get(mesh_ax, 1)
+
+
+def partition_spec(d: ParamDecl, mesh, rules=None) -> Tuple:
+    """Logical axes -> partition spec with the divisibility fallback;
+    ``()`` without a mesh.  ``rules`` maps a logical axis to a mesh axis
+    (or a tuple of axes, or None: replicated)."""
+    if mesh is None:
+        return ()
+    rules = rules or LOGICAL_RULES
+    sizes = mesh_axes(mesh)
+    names = []
+    for dim, ax in zip(d.shape, d.axes):
+        mesh_ax = None if ax is None else rules.get(ax, ax)
+        if mesh_ax is None:
+            names.append(None)
+            continue
+        single = mesh_ax if isinstance(mesh_ax, tuple) else (mesh_ax,)
+        if all(a in sizes for a in single) and \
+                dim % _axis_size(mesh, mesh_ax) == 0:
+            names.append(spec_entry(mesh_ax))
+        else:
+            names.append(None)                      # replicate (fallback)
+    return tuple(names)
+
+
+def tree_pspecs(decl_tree, mesh, rules=None):
+    return map_decls(lambda d: partition_spec(d, mesh, rules), decl_tree)
+
+
+def shard_shape(shape: Tuple[int, ...], spec: Tuple, mesh) -> Tuple[int, ...]:
+    """One rank's block of an array of ``shape`` laid out by ``spec`` (a
+    spec shorter than the shape replicates the rest).  Every sharded
+    dimension must divide by its axes' size."""
+    out = []
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        n = 1 if ax is None else _axis_size(mesh, ax)
+        if dim % n:
+            raise ValueError(f"dimension {i} of {tuple(shape)} does not "
+                             f"divide over {ax!r} ({n} ranks)")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def tree_shard_shapes(decl_tree, mesh, rules=None):
+    """Each leaf's shard shape on one rank of ``mesh``."""
+    return map_decls(
+        lambda d: shard_shape(d.shape, partition_spec(d, mesh, rules), mesh),
+        decl_tree)
+
+
+def decl_dtype(d: ParamDecl, dtype: torch.dtype) -> torch.dtype:
+    """A leaf's type: float32 for ``zeros``/``ones`` (norms, gates,
+    optimizer moments), ``dtype`` otherwise."""
+    return torch.float32 if d.init in ("zeros", "ones") else dtype
+
+
+def abstract_params(decl_tree, dtype: torch.dtype = torch.bfloat16,
+                    mesh=None, rules=None):
+    """``(tensors, specs)``: the tree as ``meta`` tensors (shapes and
+    dtypes, no storage) and, with a mesh, its partition specs (else
+    None)."""
+    values = map_decls(lambda d: torch.empty(d.shape, dtype=decl_dtype(
+        d, dtype), device="meta"), decl_tree)
+    specs = None if mesh is None else tree_pspecs(decl_tree, mesh, rules)
+    return values, specs

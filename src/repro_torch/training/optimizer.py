@@ -22,7 +22,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.models.params import ParamDecl, map_decls
+from repro_torch.models.params import ParamDecl, abstract_params, map_decls
 
 Tree = Any
 
@@ -271,6 +271,17 @@ def opt_state_decls(decl_tree: Tree, cfg: OptConfig) -> Tree:
             return {"v": f32(d)}
         return map_decls(one, decl_tree)
     raise ValueError(cfg.name)
+
+
+def opt_abstract(decl_tree: Tree, cfg: OptConfig, mesh=None,
+                 rules=None) -> Tuple[Tree, Optional[Tree]]:
+    """``(state, specs)``: the optimizer state of `opt_state_decls` as
+    float32 ``meta`` tensors (no storage) and, with a mesh, their
+    partition specs (ZeRO-style: each moment where its parameter's shard
+    lives); the tree is the declarations' (stacked layers), the reference's
+    ``opt_abstract``."""
+    return abstract_params(opt_state_decls(decl_tree, cfg), mesh=mesh,
+                           rules=rules)
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,10 @@ parameters and moments into the given tensors.  The reference's
 PyTorch runs eagerly, and the in-place update is the donation.
 
 The reference's ``TrainConfig.compress_pods``, ``compress_rank`` and
-``log_every`` have no field here: its step reads none of them.  The mesh
-half (``make_axis_ctx``, ``batch_sharding``, a step on a mesh, the
-cross-pod compression) comes with the LM sharding rules of
-``models/params.py``.
+``log_every`` have no field here: its step reads none of them.  The
+layout half is ported for the dry run (`make_axis_ctx`, `batch_sharding`,
+`input_specs` on a mesh, with `models.params.tree_pspecs`); a step on a
+mesh and the cross-pod compression are not yet (`MESH_NOT_PORTED`).
 """
 from __future__ import annotations
 
@@ -27,6 +27,8 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import AxisCtx
+from repro_torch.models.params import mesh_axes, spec_entry
 from repro_torch.training import optimizer as opt
 
 Tree = Any
@@ -46,15 +48,32 @@ def default_opt_config(cfg: ModelConfig) -> opt.OptConfig:
 
 
 MESH_NOT_PORTED = (
-    "an LM training step on a mesh is not ported yet: it needs the LM "
-    "sharding half of models/params.py (partition_spec, tree_shardings), "
-    "which comes with the next slice of repro_torch (the dry run); pass "
-    "mesh=None")
+    "an LM training step on a mesh is not ported yet: its partition specs "
+    "exist (models.params.tree_pspecs, lm.sharding_rules, "
+    "train_lib.input_specs(mesh=...)), and the step that shards the "
+    "parameters and optimizer state over a mesh's process groups is the "
+    "next slice of repro_torch; pass mesh=None")
 
 COMPRESS_NOT_PORTED = (
     "cross-pod gradient compression for an LM is not ported: it is a "
     "collective of a step on a mesh (see MESH_NOT_PORTED); --compress "
     "applies to the GBDT's --dist fit only")
+
+
+def make_axis_ctx(mesh, cfg: ModelConfig) -> AxisCtx:
+    """The step's layout on ``mesh``: the batch over ``pod`` and ``data``
+    (and ``model`` in ``dp_only`` mode, which shards nothing over it),
+    heads and FFN over ``model``."""
+    if mesh is None:
+        return AxisCtx()
+    sizes = mesh_axes(mesh)
+    if cfg.tp_strategy == "dp_only":
+        batch_axes = tuple(a for a in ("pod", "data", "model") if a in sizes)
+        return AxisCtx(mesh=mesh, batch_axes=batch_axes, model_axis=None,
+                       seq_shard=False)
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    return AxisCtx(mesh=mesh, batch_axes=batch_axes, model_axis="model",
+                   seq_shard=cfg.seq_shard_residuals)
 
 
 def _no_mesh(mesh) -> None:
@@ -116,6 +135,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     return train_step
 
 
+def batch_sharding(mesh, global_batch: int = 0,
+                   include_model: bool = False):
+    """``spec_rest -> spec``: the batch dimension over the data-parallel
+    axes (``pod``, ``data``, and ``model`` with ``include_model``), then
+    ``spec_rest``; the batch replicated when ``global_batch`` does not
+    divide by their size (long_500k's batch of 1).  None without a mesh."""
+    if mesh is None:
+        return None
+    sizes = mesh_axes(mesh)
+    axes = ("pod", "data", "model") if include_model else ("pod", "data")
+    batch_axes = tuple(a for a in axes if a in sizes)
+    nrow = 1
+    for a in batch_axes:
+        nrow *= sizes[a]
+    if global_batch and global_batch % nrow != 0:
+        batch_axes = ()
+    first = spec_entry(batch_axes)
+    return lambda spec_rest: (first, *spec_rest)
+
+
 def input_specs(cfg: ModelConfig, *, seq_len: int, global_batch: int,
                 kind: str, mesh: Optional[Any] = None) -> Dict[str, Any]:
     """Stand-ins for every model input of a shape cell, as tensors on the
@@ -123,8 +162,8 @@ def input_specs(cfg: ModelConfig, *, seq_len: int, global_batch: int,
 
     train/prefill: token (or stub-embedding) batch and labels (and a VLM's
     image embeddings).  decode: one new token; the cache is the caller's
-    (`lm.init_cache` on the meta device)."""
-    _no_mesh(mesh)
+    (`lm.abstract_cache`).  With a mesh it returns ``(inputs, specs)``,
+    ``specs`` the partition spec of each input (`batch_sharding`)."""
     b, s = global_batch, seq_len
     meta = dict(device="meta")
     if kind in ("train", "prefill"):
@@ -139,11 +178,17 @@ def input_specs(cfg: ModelConfig, *, seq_len: int, global_batch: int,
             batch["image_embeds"] = torch.empty(
                 (b, cfg.n_image_tokens, cfg.d_model), dtype=torch.bfloat16,
                 **meta)
-        return batch
-    if kind == "decode":
+    elif kind == "decode":
         if cfg.embed_inputs:
             tok = torch.empty((b, cfg.d_model), dtype=torch.bfloat16, **meta)
         else:
             tok = torch.empty((b,), dtype=torch.int32, **meta)
-        return {"token": tok}
-    raise ValueError(kind)
+        batch = {"token": tok}
+    else:
+        raise ValueError(kind)
+    if mesh is None:
+        return batch
+    mk = batch_sharding(mesh, global_batch,
+                        include_model=cfg.tp_strategy == "dp_only")
+    specs = {k: mk((None,) * (t.dim() - 1)) for k, t in batch.items()}
+    return batch, specs

@@ -177,8 +177,14 @@ def test_axis_groups_are_the_mesh_lines():
 
 
 def test_production_mesh_names_its_slice():
-    with pytest.raises(NotImplementedError, match="dry-run slice"):
-        TM.make_production_mesh()
+    """The dry run's meshes: abstract (axes and sizes, no ranks), the
+    reference's 16 x 16 and 2 x 16 x 16."""
+    single, multi = (TM.make_production_mesh(multi_pod=m)
+                     for m in (False, True))
+    assert isinstance(single, TM.AbstractMesh)
+    assert (single.shape, single.axes) == ((16, 16), ("data", "model"))
+    assert (multi.shape, multi.axes, multi.size) == (
+        (2, 16, 16), ("pod", "data", "model"), 512)
 
 
 # -- the sketched all-reduce -------------------------------------------------------

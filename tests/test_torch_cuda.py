@@ -1849,3 +1849,41 @@ def test_train_step_on_card_matches_cpu(dev, arch):
         assert err <= 1e-4 * float(a.abs().max()), err
     for k in ("loss", "grad_norm"):
         assert abs(got_m[k] - want_m[k]) <= 1e-5 * abs(want_m[k]), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_roofline_counter_counts_a_train_step_alike_on_card_and_cpu(dev,
+                                                                    dtype):
+    """The roofline counter (`roofline.analysis.Counter`) gives a smoke
+    train step the same FLOPs and bytes on the card as on the CPU: B7 and
+    its backward count by their formulas whether they launch the kernels
+    or run the plain versions, and the ops around them are the same."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_lib
+    cfg = dataclasses.replace(smoke_config("h2o-danube-3-4b"), dtype=dtype)
+    tc = train_lib.TrainConfig(opt=opt.OptConfig(warmup_steps=1))
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 80))
+             for k in ("inputs", "labels")}
+    p0 = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def count(device):
+        params = opt.tree_map(lambda t: t.to(device, copy=True), p0)
+        b = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        state = opt.opt_init(params, tc.opt)
+        step = train_lib.make_train_step(cfg, tc)
+        before = flash_attention.BWD_KERNEL.launches
+        with RA.Counter() as counter:
+            step(params, state, b, 3)
+        launched = flash_attention.BWD_KERNEL.launches - before
+        return counter.flops, counter.hbm_bytes, counter.kernels, launched
+
+    want = count("cpu")
+    got = count(dev)
+    assert want[3] == 0 and got[3] == cfg.n_layers
+    assert got[:3] == want[:3]

@@ -77,6 +77,14 @@ def _data():
     return codes, np.asarray(y), dyadic
 
 
+def _fine_dyadic():
+    """Targets on a grid of 2^-10: their gradients' sums over N rows are
+    exact in float32 in any order, and most are not bfloat16 values."""
+    rng = np.random.default_rng(5)
+    return (np.round(rng.normal(size=(N, D)) * 1024) / 1024).astype(
+        np.float32)
+
+
 def replay(kw, rounds):
     """The reference fit_distributed's per-round draws for the port:
     ``(sketch_mats, collective_mats)`` (None where it draws nothing)."""
@@ -172,10 +180,15 @@ ERRORS = (("err_ova_feature_shard", _kw(strategy="one_vs_all"),
           ("err_ova_leafwise", _kw(strategy="one_vs_all", growth="leafwise",
                                    max_leaves=4), {}, "one-vs-all leaf-wise"))
 EVALS = ("multiclass", "multilabel", "multitask_mse")
+# The direct engine with each statistics type, on `_fine_dyadic` targets.
+DIRECT_DTYPES = {f"direct_{dt}": _kw(loss="multitask_mse",
+                                     hist_engine="direct", hist_dtype=dt,
+                                     learning_rate=0.5)
+                 for dt in ("float32", "bfloat16")}
 
 
 def _port_payload(codes, y, dyadic):
-    arrays = dict(codes=codes, y=y, dyadic=dyadic,
+    arrays = dict(codes=codes, y=y, dyadic=dyadic, fine=_fine_dyadic(),
                   codes7=np.zeros((N, 7), np.uint8))
     cases = []
     for name, kw, target, rounds, fit_kw in CASES:
@@ -202,6 +215,9 @@ def _port_payload(codes, y, dyadic):
                           codes="codes7" if name == "err_indivisible"
                           else "codes", Y="y", kw=fit_kw,
                           expect_error=True))
+    for name, kw in DIRECT_DTYPES.items():
+        cases.append(dict(name=name, mesh=MESH22, cfg=kw, codes="codes",
+                          Y="fine", return_F=True))
     rng = np.random.default_rng(3)
     arrays["F_eval"] = rng.normal(size=(N, D)).astype(np.float32)
     for loss in EVALS:
@@ -222,6 +238,14 @@ def _reference(codes, y, dyadic):
         F, forest, _ = GD.fit_distributed(
             JCfg(**dict(kw, n_trees=rounds, use_kernel=False)), mesh,
             jnp.asarray(codes), targets[target], **fit_kw)
+        out[name] = (np.asarray(F), {k: np.asarray(v) for k, v in
+                                     forest._asdict().items()})
+    for name, kw in DIRECT_DTYPES.items():
+        # The reference takes bf16 statistics only with a kernel mode; its
+        # distributed builds are jnp and round the statistics themselves.
+        F, forest, _ = GD.fit_distributed(
+            JCfg(**dict(kw, use_kernel="interpret")), mesh,
+            jnp.asarray(codes), jnp.asarray(_fine_dyadic()))
         out[name] = (np.asarray(F), {k: np.asarray(v) for k, v in
                                      forest._asdict().items()})
     rng = np.random.default_rng(3)
@@ -282,6 +306,27 @@ def test_one_vs_all_first_round_bitwise(runs):
         assert np.array_equal(got["forest"][f], forest[f])
     np.testing.assert_allclose(got["forest"]["gain"], forest["gain"],
                                rtol=1e-5, atol=1e-7)
+
+
+def test_direct_engine_ignores_bf16_unlike_the_reference(runs):
+    """The port's distributed direct engine takes no bf16 rounding (as
+    both packages' single-device direct engines): with
+    ``hist_dtype="bfloat16"`` it fits bit for bit what it fits in float32,
+    and, on targets whose sums are exact in float32, what the reference
+    fits in float32.  The reference's distributed round rounds the
+    statistics to bf16 for every engine, so its bf16 gains differ."""
+    port, ref, _ = runs
+    got16, got32 = port[0]["direct_bfloat16"], port[0]["direct_float32"]
+    assert np.array_equal(got16["F"], got32["F"])
+    for f in got32["forest"]:
+        assert np.array_equal(got16["forest"][f], got32["forest"][f]), f
+    (F32, ref32), (_, ref16) = ref["direct_float32"], ref["direct_bfloat16"]
+    assert np.array_equal(got32["F"], F32)
+    assert _forest_equal(got32["forest"], ref32)
+    np.testing.assert_allclose(got32["forest"]["gain"], ref32["gain"],
+                               rtol=1e-5, atol=1e-7)
+    assert not np.allclose(ref16["gain"], ref32["gain"], rtol=1e-5,
+                           atol=1e-7)
 
 
 @pytest.mark.parametrize("name", [c[0] for c in CASES
