@@ -1458,7 +1458,7 @@ def check_flash_bwd(torch, gen, dev, first):
         w = work.flash_bwd(b, hq, hkv, sq, sk, dh, causal, window,
                            q.element_size())
         pairs = w["pairs"] // (b * hq)
-        ops, design_ops, n_bytes = w["useful_flops"], w["flops"], w["bytes"]
+        ops, design_ops, n_bytes = w["flops"], w["design_flops"], w["bytes"]
         if dtype == torch.bfloat16:
             b_ms, b_by = bound_ms(n_bytes, 0, n_bf16_ops=ops)
         else:

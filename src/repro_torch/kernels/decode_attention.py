@@ -97,7 +97,10 @@ def _seen(lengths, b: int, window: Optional[int]) -> int:
     """Cache slots the rows see in all: each row's length cut to the
     window."""
     if isinstance(lengths, torch.Tensor):
-        return int(torch.clamp(lengths.long(), max=window).sum())
+        seen = lengths.long()
+        if window is not None:
+            seen = torch.clamp(seen, max=window)
+        return int(seen.sum())
     return b * (int(lengths) if window is None else min(int(lengths), window))
 
 

@@ -11,15 +11,14 @@ tensor goes to the kernel, or the wrapper raises.  ``KERNEL.launches``
 counts the forward kernel's launches, ``BWD_KERNEL.launches`` the
 backward's (one a call: its three device kernels go in one launch).
 
-On the card, a call that records gradients (grad mode on and q, k or v
-requiring them) runs as `FlashAttention`, a ``torch.autograd.Function``:
-the forward kernel also writes each query row's float32 log-sum-exp, and
-the backward kernel recomputes the probabilities from it.  Any other call
-launches the forward alone, without that output.  On the CPU the plain
-version runs under autograd as it is, except under a roofline counter
-(`kernels.work`), where it runs as `FlashAttention` too, so that each
-call, forward and backward, is counted once by its formula on either
-device.
+A call that records gradients (grad mode on and q, k or v requiring them)
+runs as `FlashAttention`, a ``torch.autograd.Function``, on either device:
+the forward also gives each query row's float32 log-sum-exp, and the
+backward recomputes the probabilities from it (the kernels on the card,
+`ref.flash_attention_ref` and `ref.flash_attention_bwd_ref` on the CPU).
+Any other call runs the forward alone, without that output.  So a roofline
+counter (`kernels.work`) counts each call, forward and backward, once by
+its formula, on the same structure on either device.
 """
 from __future__ import annotations
 
@@ -95,7 +94,7 @@ def _fwd_work(q, k, causal, window, lse):
 
 class FlashAttention(torch.autograd.Function):
     """B7 with its hand-written backward: the kernels on the card, the
-    plain versions on the CPU (where it runs only under a counter)."""
+    plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -123,9 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     when ``sq - sk >= window``.  Differentiable on both devices."""
     _check(q, k, v, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad) and (
-                                        q.device.type != "cpu"
-                                        or work.counting()):
+                                    or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window)
     with work.kernel(KERNEL.name, _fwd_work(q, k, causal, window, False),
                      q, k, v) as shape_only:

@@ -8,10 +8,14 @@ work depends on the data.  They are the bounds of the kernel table:
 ``chip_smoke.py`` phase 3 divides them by the card's rates, and the
 roofline counter (`roofline.analysis.Counter`) adds them for each call.
 
-``flops`` is what the kernel's design computes (B7's bf16 body puts P
-through three bf16 parts: 8 dh a seen pair; B7's backward 13 products a
-pair on the tensor cores, 7 on the CUDA cores); ``useful_flops`` beside it
-is what the function needs (B7 4 dh a pair, its backward 5 products).
+``flops`` is the count the bound reads, the one the counter adds to a
+step: the function's own work, except that B7's bf16 body cannot do with
+less than 8 dh a seen pair (its float32 P goes through PV as three exact
+bf16 parts).  ``useful_flops`` beside it is what the function needs (B7
+4 dh a pair), and ``design_flops`` what the design computes (B7's
+backward 13 products a pair on the tensor cores, P and dS in three bf16
+parts and S and dP again for dQ; 7 on the CUDA cores; where they match,
+``flops``).
 
 `kernel` is the hook: each wrapper runs its kernel, or its plain version,
 inside ``with work.kernel(name, lambda: <formula>, *inputs):``.  With no
@@ -42,11 +46,6 @@ def push(counter) -> None:
 
 def pop(counter) -> None:
     _COUNTERS.remove(counter)
-
-
-def counting() -> bool:
-    """Whether a counter is active and not already inside a kernel."""
-    return any(not c.suspended for c in _COUNTERS)
 
 
 @contextlib.contextmanager
@@ -86,9 +85,10 @@ def _all_fake(inputs) -> bool:
 
 
 def _work(flops: float, n_bytes: float, useful: Optional[float] = None,
-          **extra) -> Dict[str, float]:
+          design: Optional[float] = None, **extra) -> Dict[str, float]:
     return dict(flops=float(flops), bytes=float(n_bytes),
                 useful_flops=float(flops if useful is None else useful),
+                design_flops=float(flops if design is None else design),
                 **extra)
 
 
@@ -122,16 +122,16 @@ def flash_bwd(b: int, hq: int, hkv: int, sq: int, sk: int, dh: int,
               causal: bool, window, itemsize: int) -> Dict[str, float]:
     """B7's backward: q, out, dout and dq (b, hq, sq, dh), k, v, dk and dv
     (b, hkv, sk, dh), and the float32 lse.  The gradient needs 5 products
-    of 2 dh a seen pair (S, dP, dV, dK, dQ: ``useful_flops``); the bf16
-    body with dh <= 128 runs 13 on the tensor cores (P and dS in three bf16
-    parts, S and dP again for dQ), the CUDA-core body 7."""
+    of 2 dh a seen pair (S, dP, dV, dK, dQ: ``flops``); the bf16 body with
+    dh <= 128 runs 13 on the tensor cores (P and dS in three bf16 parts, S
+    and dP again for dQ), the CUDA-core body 7 (``design_flops``)."""
     pairs = attention_pairs(sq, sk, causal, window) * b * hq
     ops = 5 * 2 * dh * pairs
     tensor_cores = itemsize == 2 and dh <= 128
     design = (13 if tensor_cores else 7) * ops // 5
     n_bytes = (itemsize * (4 * b * hq * sq * dh + 4 * b * hkv * sk * dh)
                + 4 * b * hq * sq)
-    return _work(design, n_bytes, ops, pairs=pairs)
+    return _work(ops, n_bytes, design=design, pairs=pairs)
 
 
 # -- B8 ------------------------------------------------------------------------

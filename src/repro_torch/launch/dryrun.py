@@ -53,7 +53,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import lm
 from repro_torch.models.config import (LM_SHAPES, ModelConfig, ShapeCell,
                                        shape_by_name)
-from repro_torch.models.params import mesh_axes, shard_shape
+from repro_torch.models.params import batch_axes, shard_shape
 from repro_torch.roofline import analysis as RA
 from repro_torch.training import lm_serve, train_lib
 from repro_torch.training import optimizer as opt
@@ -68,10 +68,7 @@ def cell_is_legal(cfg: ModelConfig, cell: ShapeCell) -> Tuple[bool, str]:
 
 
 def _batch_axes(mesh, cfg: Optional[ModelConfig] = None) -> Tuple[str, ...]:
-    axes = (("pod", "data", "model")
-            if cfg is not None and cfg.tp_strategy == "dp_only"
-            else ("pod", "data"))
-    return tuple(a for a in axes if a in mesh_axes(mesh))
+    return batch_axes(mesh, cfg is not None and cfg.tp_strategy == "dp_only")
 
 
 def probe_depths(cfg: ModelConfig) -> Tuple[int, int]:
@@ -355,8 +352,7 @@ def count_gbdt_round(F, codes, codes_t, Y, cfg, generator=None,
     return counter
 
 
-def run_gbdt(*, multi_pod: bool = False, sketch: bool = True,
-             feature_shard: bool = False, n_outputs: Optional[int] = None,
+def run_gbdt(*, multi_pod: bool = False,
              probe_rows: Tuple[int, int] = (16_384, 32_768)
              ) -> Dict[str, Any]:
     """The paper's cell: one round's FLOPs and bytes from real CPU rounds
@@ -368,15 +364,10 @@ def run_gbdt(*, multi_pod: bool = False, sketch: bool = True,
     from repro_torch.core import distributed as GD
     mesh = make_production_mesh(multi_pod=multi_pod)
     cfg, n_rows, n_features = get_gbdt_config()
-    if not sketch:
-        cfg = dataclasses.replace(cfg, sketch_method="none")
-    if n_outputs:
-        cfg = dataclasses.replace(cfg, n_outputs=n_outputs)
     rec: Dict[str, Any] = {
         "arch": "sketchboost-gbdt", "mesh": "2x16x16" if multi_pod else "16x16",
-        "shape": f"2Mx100 d={n_outputs or get_gbdt_config()[0].n_outputs} "
-                 f"sketch={'on' if sketch else 'off'}"
-                 f"{' fshard' if feature_shard else ''}"}
+        "shape": f"2Mx100 d={cfg.n_outputs} "
+                 f"sketch={'off' if cfg.sketch_method == 'none' else 'on'}"}
     try:
         t0 = time.perf_counter()
         baxes = _batch_axes(mesh)
@@ -394,9 +385,8 @@ def run_gbdt(*, multi_pod: bool = False, sketch: bool = True,
             name: {k: v if k == "calls" else ex(probes[0].kernels[name][k], v)
                    for k, v in k2.items()}
             for name, k2 in probes[1].kernels.items()}
-        tp = mesh_axes(mesh)["model"]
-        m_rank = n_features // tp if feature_shard else n_features
-        coll = RA.gbdt_collectives(cfg, m_rank, cfg.n_outputs, mesh, baxes)
+        coll = RA.gbdt_collectives(cfg, n_features, cfg.n_outputs, mesh,
+                                   baxes)
         specs = GD.gbdt_input_specs(n_rows, n_features, cfg.n_outputs, mesh,
                                     cfg, row_axes=baxes)
         arg = sum(_shard_bytes(v[0], v[1], mesh) for v in specs.values()

@@ -12,10 +12,9 @@ reference's pure-jnp ``chunked_attention`` and ``decode_attention_jnp``
 probabilities to the model dtype before the PV product, where B7 keeps
 them in float32, and the second computes B8's function without the kernel.
 
-`AxisCtx` describes a step's layout on a mesh (batch axes, model axis,
-sequence-sharded residuals) for the dry run's specs and collective counts.
-The reference threads it through the layers to constrain activations; the
-port's layers take none, and a context changes no number of a step.
+`AxisCtx` describes a step's layout on a mesh (batch axes, model axis)
+for the dry run's collective count.  The reference threads it through the
+layers to constrain activations; the port's layers take none.
 """
 from __future__ import annotations
 
@@ -34,34 +33,10 @@ from repro_torch.models.params import ParamDecl
 class AxisCtx:
     """A step's layout on a mesh (None: no mesh): the batch dimension over
     ``batch_axes``, heads and FFN hidden over ``model_axis`` (None in
-    ``dp_only`` mode), residuals also over ``model_axis`` by sequence
-    when ``seq_shard``.  Each method gives the partition spec the
-    reference constrains that activation to."""
+    ``dp_only`` mode)."""
     mesh: Optional[Any] = None
     batch_axes: Tuple[str, ...] = ("data",)
     model_axis: Optional[str] = "model"
-    seq_shard: bool = False
-
-    def batch(self) -> Any:
-        return (self.batch_axes if len(self.batch_axes) > 1
-                else self.batch_axes[0])
-
-    def residual(self) -> Tuple:
-        """(B, S, D): batch over the batch axes, optionally seq over
-        model."""
-        return (self.batch(), self.model_axis if self.seq_shard else None,
-                None)
-
-    def heads(self) -> Tuple:
-        """(B, S, H, dh): heads over model."""
-        return (self.batch(), None, self.model_axis, None)
-
-    def ffn(self) -> Tuple:
-        """(B, S, F): hidden over model."""
-        return (self.batch(), None, self.model_axis)
-
-
-NULL_CTX = AxisCtx()
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -126,12 +126,19 @@ def spec_entry(axes):
     return axes
 
 
+def batch_axes(mesh, dp_only: bool = False) -> Tuple[str, ...]:
+    """The axes of ``mesh`` a step's batch is split over: ``pod`` and
+    ``data``, and ``model`` too in ``dp_only`` mode, which shards no
+    parameter over it."""
+    axes = ("pod", "data", "model") if dp_only else ("pod", "data")
+    return tuple(a for a in axes if a in mesh_axes(mesh))
+
+
 def dp_only_rules(mesh):
     """Rules for small archs where TP is pure collective overhead: params
     replicated over "model" (no tp/ep), FSDP storage over every axis, and
     the batch sharded over "model" as extra data parallelism."""
-    fsdp = tuple(a for a in ("pod", "data", "model") if a in mesh_axes(mesh))
-    return {"tp": None, "ep": None, "fsdp": fsdp}
+    return {"tp": None, "ep": None, "fsdp": batch_axes(mesh, dp_only=True)}
 
 
 def _axis_size(mesh, mesh_ax) -> int:

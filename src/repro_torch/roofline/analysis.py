@@ -4,7 +4,7 @@ The three roofline terms, as in the JAX package's ``roofline/analysis.py``:
 
   compute term    = flops            / (chips * PEAK_FLOPS)
   memory term     = hbm_bytes        / (chips * HBM_BW)
-  collective term = collective_bytes / (chips * COLLECTIVE_BW)
+  collective term = collective_bytes / (chips * link_bw(chips))
 
 The reference reads FLOPs and bytes from XLA's ``cost_analysis`` and parses
 the compiled HLO for its collectives.  The port has no compiler artefact,
@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import re
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -56,34 +55,16 @@ NVLINK_BW = 450e9            # H100 SXM5 datasheet: NVLink 4, 900 GB/s a GPU
 NET_BW = 50e9                # DGX H100 datasheet: one 400 Gb/s ConnectX-7
                              # port a GPU; bytes/s a GPU a direction, across
                              # nodes
-# The collective term's link rate.  Every axis of the 256- and 512-rank
-# production meshes (16 x 16, 2 x 16 x 16) spans more than one node of 8
-# GPUs, so each collective of a step crosses the network: NET_BW.
-COLLECTIVE_BW = NET_BW
-
-_DTYPE_BYTES = {
-    "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2,
-    "s32": 4, "u32": 4, "s64": 8, "u64": 8, "f8e4m3fn": 1, "f8e5m2": 1,
-    "bf16": 2, "f16": 2, "f32": 4, "f64": 8, "c64": 8, "c128": 16,
-    "token": 0, "opaque": 0,
-}
-
-_SHAPE_RE = re.compile(r"([a-z0-9]+)\[([\d,]*)\]")
+GPUS_PER_NODE = 8            # DGX H100 / HGX H100: 8 GPUs on one NVLink
 
 
-def shape_bytes(shape_str: str) -> int:
-    """Bytes of one HLO-style shape string, e.g. 'bf16[128,4096]{1,0}'.
-    Tuple shapes: sum of components."""
-    total = 0
-    for dtype, dims in _SHAPE_RE.findall(shape_str):
-        if dtype not in _DTYPE_BYTES:
-            continue
-        n = 1
-        if dims:
-            for d in dims.split(","):
-                n *= int(d)
-        total += n * _DTYPE_BYTES[dtype]
-    return total
+def link_bw(chips: int) -> float:
+    """The collective term's link rate for a mesh of ``chips`` GPUs:
+    NVLink when the mesh fits in one node, else the network.  Every axis
+    of the 256- and 512-rank production meshes (16 x 16, 2 x 16 x 16)
+    spans more than one node of 8 GPUs, so each collective of their steps
+    crosses the network: NET_BW."""
+    return NVLINK_BW if chips <= GPUS_PER_NODE else NET_BW
 
 
 @dataclasses.dataclass
@@ -122,7 +103,7 @@ class RooflineTerms:
 
     @property
     def t_collective(self) -> float:
-        return self.collective_bytes / (self.chips * COLLECTIVE_BW)
+        return self.collective_bytes / (self.chips * link_bw(self.chips))
 
     @property
     def bottleneck(self) -> str:
@@ -326,8 +307,9 @@ def op_bytes(func, args, kwargs, out) -> int:
 class Counter(TorchDispatchMode):
     """Counts the FLOPs and bytes of every aten op run under it (see the
     module's rules), and each hand-written kernel's call by its formula
-    (`kernels.work`): ``kernels`` maps a kernel's name to its calls,
-    flops, useful flops and bytes.  Works on real tensors on either device
+    (`kernels.work`), adding the formula's ``flops`` (the count its bound
+    in the kernel table reads): ``kernels`` maps a kernel's name to its
+    calls, flops, useful and design flops, and bytes.  Works on real tensors on either device
     and on fake ones (under ``FakeTensorMode``, entered before it)."""
 
     def __init__(self):
@@ -366,14 +348,17 @@ class Counter(TorchDispatchMode):
         return out
 
     def add_kernel(self, name: str, *, flops: float, bytes: float,
-                   useful_flops: float, **extra) -> None:
+                   useful_flops: float, design_flops: float,
+                   **extra) -> None:
         self.flops += flops
         self.hbm_bytes += bytes
-        k = self.kernels.setdefault(name, dict(calls=0, flops=0.0,
-                                               useful_flops=0.0, bytes=0.0))
+        k = self.kernels.setdefault(name, dict(
+            calls=0, flops=0.0, useful_flops=0.0, design_flops=0.0,
+            bytes=0.0))
         k["calls"] += 1
         k["flops"] += flops
         k["useful_flops"] += useful_flops
+        k["design_flops"] += design_flops
         k["bytes"] += bytes
 
     def terms(self, chips: int = 1, collective_bytes: float = 0.0,

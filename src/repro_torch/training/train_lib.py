@@ -28,7 +28,7 @@ import torch
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import AxisCtx
-from repro_torch.models.params import mesh_axes, spec_entry
+from repro_torch.models.params import batch_axes, mesh_axes, spec_entry
 from repro_torch.training import optimizer as opt
 
 Tree = Any
@@ -61,19 +61,13 @@ COMPRESS_NOT_PORTED = (
 
 
 def make_axis_ctx(mesh, cfg: ModelConfig) -> AxisCtx:
-    """The step's layout on ``mesh``: the batch over ``pod`` and ``data``
-    (and ``model`` in ``dp_only`` mode, which shards nothing over it),
-    heads and FFN over ``model``."""
+    """The step's layout on ``mesh``: the batch over `params.batch_axes`,
+    heads and FFN over ``model`` (over nothing in ``dp_only`` mode)."""
     if mesh is None:
         return AxisCtx()
-    sizes = mesh_axes(mesh)
-    if cfg.tp_strategy == "dp_only":
-        batch_axes = tuple(a for a in ("pod", "data", "model") if a in sizes)
-        return AxisCtx(mesh=mesh, batch_axes=batch_axes, model_axis=None,
-                       seq_shard=False)
-    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
-    return AxisCtx(mesh=mesh, batch_axes=batch_axes, model_axis="model",
-                   seq_shard=cfg.seq_shard_residuals)
+    dp_only = cfg.tp_strategy == "dp_only"
+    return AxisCtx(mesh=mesh, batch_axes=batch_axes(mesh, dp_only),
+                   model_axis=None if dp_only else "model")
 
 
 def _no_mesh(mesh) -> None:
@@ -144,14 +138,13 @@ def batch_sharding(mesh, global_batch: int = 0,
     if mesh is None:
         return None
     sizes = mesh_axes(mesh)
-    axes = ("pod", "data", "model") if include_model else ("pod", "data")
-    batch_axes = tuple(a for a in axes if a in sizes)
+    axes = batch_axes(mesh, include_model)
     nrow = 1
-    for a in batch_axes:
+    for a in axes:
         nrow *= sizes[a]
     if global_batch and global_batch % nrow != 0:
-        batch_axes = ()
-    first = spec_entry(batch_axes)
+        axes = ()
+    first = spec_entry(axes)
     return lambda spec_rest: (first, *spec_rest)
 
 

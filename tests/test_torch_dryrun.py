@@ -286,11 +286,9 @@ def test_input_specs_and_axis_ctx_on_a_mesh():
             tc = dataclasses.replace(tcfg, tp_strategy=jc.tp_strategy)
             from repro.training.train_lib import make_axis_ctx
             w, g = make_axis_ctx(jm, jc), TT.make_axis_ctx(tm, tc)
-            assert (w.batch_axes, w.model_axis, w.seq_shard) == (
-                g.batch_axes, g.model_axis, g.seq_shard)
-            assert g.batch() == w.batch()
-            assert g.residual() == (w.batch(), w.model_axis if w.seq_shard
-                                    else None, None)
+            assert (w.batch_axes, w.model_axis) == (g.batch_axes,
+                                                    g.model_axis)
+            assert TDR._batch_axes(tm, tc) == w.batch_axes
     assert TT.batch_sharding(None) is None
     assert TT.make_axis_ctx(None, TC.get_config("gemma-7b")).mesh is None
     with pytest.raises(NotImplementedError, match="next slice"):
@@ -319,7 +317,7 @@ def test_extrapolate_and_terms_match_reference(monkeypatch):
             v1, v2, l1, l2, full)
     monkeypatch.setattr(TRA, "PEAK_FLOPS", JRA.PEAK_FLOPS)
     monkeypatch.setattr(TRA, "HBM_BW", JRA.HBM_BW)
-    monkeypatch.setattr(TRA, "COLLECTIVE_BW", JRA.ICI_BW)
+    monkeypatch.setattr(TRA, "link_bw", lambda chips: JRA.ICI_BW)
     for args in ((3.8e16, 9.5e13, 3.5e13, 256, 2.6e16), (0.0, 0.0, 0.0, 1),
                  (1e12, 5e12, 0.0, 1, 7e11), (2e12, 1e9, 9e15, 512, 1e12)):
         assert TRA.RooflineTerms(*args).to_dict() == \
@@ -329,13 +327,12 @@ def test_extrapolate_and_terms_match_reference(monkeypatch):
     rows = [{"a": 1, "b": "xx"}, {"a": 22}]
     assert TRA.format_table(rows, ["a", "b"]) == JRA.format_table(rows,
                                                                   ["a", "b"])
-    assert TRA.shape_bytes("bf16[128,4096]{1,0}") == JRA.shape_bytes(
-        "bf16[128,4096]{1,0}")
 
 
 def test_h100_constants():
     assert (TRA.PEAK_FLOPS, TRA.HBM_BW) == (989e12, 3.35e12)
-    assert TRA.COLLECTIVE_BW == TRA.NET_BW < TRA.NVLINK_BW
+    assert TRA.link_bw(256) == TRA.link_bw(512) == TRA.NET_BW
+    assert TRA.link_bw(1) == TRA.link_bw(8) == TRA.NVLINK_BW > TRA.NET_BW
 
 
 def test_report_prints_the_reference_text():
@@ -402,12 +399,12 @@ def test_counted_flops_of_a_train_step_are_the_closed_form(remat):
     # each layer's forward again up to its last product (the MLP's ``wo``:
     # torch.utils.checkpoint stops recomputing once the tensors the
     # backward saved are back); B7's forward (float32: 4 dh a pair) once a
-    # layer and again under remat, its backward (the CUDA-core design: 7
-    # products of 2 dh) once.
+    # layer and again under remat, its backward (the gradient's 5 products
+    # of 2 dh; the CUDA-core design's 7 beside it) once.
     recompute = layer - 2 * T * F * D
     want = (3 * (cfg.n_layers * layer + head) + remat * cfg.n_layers * recompute
             + cfg.n_layers * (1 + remat) * 4 * dh * pairs
-            + cfg.n_layers * 14 * dh * pairs)
+            + cfg.n_layers * 10 * dh * pairs)
     params = TLM.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     from repro_torch.training import optimizer as TO
     tcfg = TT.TrainConfig(opt=TO.OptConfig(name="adamw"))
@@ -422,8 +419,8 @@ def test_counted_flops_of_a_train_step_are_the_closed_form(remat):
     k = counter.kernels
     assert k["flash_attention"]["calls"] == cfg.n_layers * (1 + remat)
     assert k["flash_attention_bwd"]["calls"] == cfg.n_layers
-    assert k["flash_attention_bwd"]["useful_flops"] == \
-        cfg.n_layers * 10 * dh * pairs
+    assert k["flash_attention_bwd"]["design_flops"] == \
+        cfg.n_layers * 14 * dh * pairs
     assert counter.hbm_bytes > 0
 
 
@@ -458,12 +455,12 @@ def test_attention_wrappers_report_their_formulas(dtype):
           fwd_bytes + 4 * b * hq * sq)
     with TRA.Counter() as c:
         FA.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=win)
-    design = 13 if dtype == torch.bfloat16 else 7
-    _only(c, "flash_attention_bwd", design * 2 * dh * pairs,
+    _only(c, "flash_attention_bwd", 10 * dh * pairs,
           sz * (4 * b * hq * sq * dh + 4 * b * hkv * sk * dh)
           + 4 * b * hq * sq)
-    assert c.kernels["flash_attention_bwd"]["useful_flops"] == \
-        10 * dh * pairs
+    design = 13 if dtype == torch.bfloat16 else 7
+    assert c.kernels["flash_attention_bwd"]["design_flops"] == \
+        design * 2 * dh * pairs
     # Under grad the CPU path goes through FlashAttention too, and its
     # gradients are the plain backward's.
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -482,10 +479,11 @@ def test_attention_wrappers_report_their_formulas(dtype):
               for _ in range(2))
     # A tensor's lengths are checked by a min and a max (int64: 2 x 8 bytes
     # read, 8 written each).
-    for lengths, seen, check in ((25, b * 12, 0),
-                                 (torch.tensor([5, 30]), 5 + 12, 48)):
+    for lengths, window, seen, check in (
+            (25, 12, b * 12, 0), (torch.tensor([5, 30]), 12, 5 + 12, 48),
+            (torch.tensor([5, 30]), None, 5 + 30, 48)):
         with TRA.Counter() as c:
-            DA.decode_attention(qd, kc, vc, lengths, window=12)
+            DA.decode_attention(qd, kc, vc, lengths, window=window)
         _only(c, "decode_attention", 4 * dh * hq * seen,
               2 * 2 * seen * hkv * dh + 2 * sz * b * hq * dh, check)
 
