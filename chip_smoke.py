@@ -175,8 +175,9 @@ Phases (any failure exits non-zero; nothing is caught):
      bytes equal to `round_collective_bytes`, seconds a round and peak
      memory a rank, B3 on rank 0; (c) 65,536 x 16, d = 8 dyadic targets,
      one round of every sketch method in both growth modes, the direct
-     engine, bf16 statistics, ``feature_shard``, one-vs-all and the
-     pass-through compressed collective, (1, 1) against (2, 2), and one
+     engine, bf16 statistics, ``feature_shard``, one-vs-all level-wise and
+     leaf-wise and the pass-through compressed collective, (1, 1) against
+     (2, 2), and one
      compressed run at ``dist_hist_k=2`` with its drift; (d) 4 rounds on
      (2, 2) killed at round 2 and resumed in a two-rank world on (1, 2),
      bitwise;
@@ -208,7 +209,9 @@ Phases (any failure exits non-zero; nothing is caught):
      within 1e-4 of its largest magnitude, parameters within 1e-4 of their
      largest magnitude where the gradient's sign is resolved (and within
      2 lr elsewhere); (c) ``launch.train.train_gbdt`` with its default
-     arguments and with ``--dist`` on a one-rank NCCL world;
+     arguments and with ``--dist`` on a one-rank NCCL world; (a)'s losses
+     and its parameters after the timed steps are kept on the host for
+     phase 16;
  15. the roofline on the card (`roofline_phase`): phase 4's median round
      (counted on the card after phase 5 under the roofline counter, its
      eval included), phase 10's 1 x 32,768 prefill, phase 11's decode_32k
@@ -216,7 +219,21 @@ Phases (any failure exits non-zero; nothing is caught):
      bytes, compute, memory and bound times on one rank at the H100's
      constants, the measured time and its ratio to the bound (a path
      measured faster than its bound fails the phase), model FLOPs and MFU;
- 16. print the kernel table as one JSON line, the card's line, and last
+ 16. LM training on a (data, model) mesh (`mesh_training_phase`, phase
+     14's state freed first): (a) a one-rank NCCL world at mesh (1, 1)
+     repeats phase 14 (a) from the same seed: step 0's loss bitwise phase
+     14's, the later ones within 1e-3 relative, the differing parameter
+     elements counted, ms a step, tokens/s, peak memory, B7's and its
+     backward's launches; (b) four gloo ranks sharing the card at mesh
+     (2, 2), FSDP over ``data`` and tensor parallelism over ``model`` (B7
+     and its backward on each rank's 16 q heads over 4 kv heads), a
+     float32 copy with 2 layers and a 256 window over 2 x 640 tokens, one
+     AdamW step held on rank 0 to the one-device step on the card at phase
+     14 (b)'s limits; each rank's collective bytes by op equal to
+     `roofline.analysis.lm_collectives`; a rank's step time and peak
+     memory;
+ 17. print the kernel table as one JSON line (B7's and its backward's rows
+     with their launches on phase 16's meshes), the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
@@ -231,8 +248,9 @@ again
 around phase 10's prefill requests (B7), again around phase 11's
 decode steps (B8), in each rank of phase 12 around each distributed
 fit and the prediction after it (B1, B2, B3, B4, B1-bf16), and around
-each of phase 13's prefill runs (B7) and decode mixes (B8), and around
-phase 14 (a)'s timed training steps (B7 and its backward).
+each of phase 13's prefill runs (B7) and decode mixes (B8), around
+phase 14 (a)'s timed training steps (B7 and its backward), around phase
+16 (a)'s and in each rank of 16 (b) around its step.
 """
 from __future__ import annotations
 
@@ -2490,6 +2508,9 @@ def dist_small_cases():
         ("c_bf16", dict(top, hist_dtype="bfloat16"), {}, "Yc"),
         ("c_feature_shard", top, {"feature_shard": True}, "Yc"),
         ("c_one_vs_all", dict(base, strategy="one_vs_all"), {}, "Yc"),
+        ("c_one_vs_all_leafwise", dict(base, strategy="one_vs_all",
+                                       growth="leafwise", max_leaves=8),
+         {}, "Yc"),
         ("c_full_wide", dict(full, n_outputs=40), {}, "Yw"),
         ("c_passthrough_levelwise", dict(
             full, dist_hist_compression="sketch", dist_hist_k=d), {}, "Yc"),
@@ -2520,8 +2541,8 @@ def distributed_phase(torch, dev, Xtr, ytr, Xte, yte, cfg,
     a round, peak memory a rank, and B3 on rank 0; (c) 65,536 x 16, d = 8,
     one round each of every sketch method level-wise and leaf-wise at 8
     leaves, the direct engine (B4), bf16 statistics (B1-bf16),
-    ``feature_shard``, one-vs-all, SketchBoost Full at d = 40 (B2-wide)
-    and the pass-through compressed
+    ``feature_shard``, one-vs-all level-wise and leaf-wise at 8 leaves,
+    SketchBoost Full at d = 40 (B2-wide) and the pass-through compressed
     collective, (1, 1) against (2, 2): F and the trees bitwise, the gains
     within 1e-5 of the tree's largest (sums of non-dyadic sketch
     statistics, added in another order on each mesh); one compressed run at
@@ -3762,6 +3783,13 @@ def training_phase(torch, dev, b7, b7b, kernels, arch="h2o-danube-3-4b",
                          b7b.name: b7b.launches - bwd})
     launches = {k.name: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # Phase 16 (a) repeats these steps on a one-rank mesh: the losses and
+    # the parameters after them, on the host (the state cannot stay).
+    t0 = time.perf_counter()
+    after = {"losses": list(losses), "params": [
+        t.detach().to("cpu") for t in opt.tree_leaves(params)]}
+    print(f"[14] (a) parameters after step {steps} copied to the host for "
+          f"phase 16 in {time.perf_counter() - t0:.2f} s")
     for c in per_step:
         assert c == {b7.name: 2 * cfg.n_layers, b7b.name: cfg.n_layers}, c
     assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
@@ -3875,7 +3903,279 @@ def training_phase(torch, dev, b7, b7b, kernels, arch="h2o-danube-3-4b",
         assert out["acc"] > 1.0 / args.outputs, out["acc"]
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"[14] phase 14 took {rec['phase_s']:.2f} s; launches {launches}")
-    return rec, launches
+    return rec, launches, after
+
+
+def mesh_training_phase(torch, dev, b7, b7b, kernels, after14,
+                        arch="h2o-danube-3-4b", batch=2, seq=4096, steps=3):
+    """Phase 16: the LM training step on a (data, model) mesh
+    (`train_lib.make_train_step` with a mesh: FSDP over ``data``, tensor
+    parallelism over ``model``).  (a) A one-rank NCCL world at mesh
+    (1, 1): phase 14 (a)'s model, data and steps again (re-drawn from the
+    same seed: phase 14's state is gone), one untimed and ``steps`` timed
+    steps with every kernel count set to 0 just before and read after;
+    step 0's loss bitwise phase 14's, the later ones within 1e-3
+    relative, and the parameter elements that differ from phase 14's
+    counted (where any do, two gradients of one batch on the mesh name
+    the leaves that differ run to run).  (b) Four gloo ranks sharing the
+    card at mesh (2, 2) (NCCL takes one rank a card): a float32 copy at
+    full width, 2 layers, window 256, 2 x 640 tokens, one AdamW step,
+    held on rank 0 to the one-device step on the card; each rank's
+    collective bytes by op against `roofline.analysis.lm_collectives`."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardedPrefetcher, lm_batches
+    from repro_torch.launch import dist as LD
+    from repro_torch.launch.mesh import AbstractMesh, make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import shard_tree
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_lib
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    tcfg = train_lib.TrainConfig(opt=train_lib.default_opt_config(cfg))
+    rec = {}
+    with tempfile.TemporaryDirectory() as wd:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(wd, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), backend="nccl",
+                             device=dev)
+            specs = train_lib.mesh_specs(cfg, mesh)
+            full = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+            params = shard_tree(full, specs, mesh)
+            del full
+            state = opt.opt_init(params, tcfg.opt,
+                                 train_lib.mesh_layout(cfg, mesh))
+            step_fn = train_lib.make_train_step(cfg, tcfg, mesh)
+            stream = ShardedPrefetcher(lm_batches(cfg.vocab_size, batch,
+                                                  seq, seed=0), device=dev,
+                                       process_index=0, process_count=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, next(stream), 0)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            losses, times = [float(m["loss"])], []
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            for i in range(1, steps + 1):
+                batch_i = next(stream)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step_fn(params, state, batch_i, i)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+            launches_a = {k.name: k.launches for k in kernels}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            differ, n_el = {}, 0
+            for (name, t), h in zip(_leaf_names(opt, params),
+                                    after14["params"]):
+                n_el += t.numel()
+                d = int((t.detach() != h.to(dev)).sum())
+                if d:
+                    differ[name] = d
+            run_to_run = []
+            if differ:
+                grad_fn = train_lib.make_grad_fn(cfg, mesh)
+                b0 = next(stream)
+                g1 = [g.clone() for g in opt.tree_leaves(grad_fn(params,
+                                                                 b0)[1])]
+                g2 = opt.tree_leaves(grad_fn(params, b0)[1])
+                run_to_run = [name for (name, _), a, b in zip(
+                    _leaf_names(opt, params), g1, g2)
+                    if not torch.equal(a, b)]
+                del g1, g2
+            stream.close()
+        finally:
+            dist.destroy_process_group()
+    want = after14["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    ms = 1e3 * statistics.median(times)
+    tokens_s = batch * seq / (ms / 1e3)
+    print(f"[16] (a) mesh (1, 1), one-rank NCCL world, {arch} bf16, "
+          f"{batch} x {seq} tokens: first step (untimed) {first_s:.2f} s; "
+          f"seconds a step {times}, median {ms:.1f} ms = {tokens_s:.0f} "
+          f"tokens/s; peak {peak:.2f} GiB; losses {losses} against phase "
+          f"14's {want} (relative {rel}); parameter elements that differ "
+          f"from phase 14's after step {steps}: {sum(differ.values())} of "
+          f"{n_el} (by leaf {differ}); leaves whose gradients differ run "
+          f"to run on one batch: {run_to_run}; launches {launches_a}")
+    assert losses[0] == want[0], (losses[0], want[0])
+    assert all(r <= 1e-3 for r in rel), rel
+    assert launches_a[b7.name] == 2 * cfg.n_layers * steps, launches_a
+    assert launches_a[b7b.name] == cfg.n_layers * steps, launches_a
+    rec["a"] = dict(first_step_s=first_s, step_s=times, ms_per_step=ms,
+                    tokens_per_s=tokens_s, peak_gib=peak, losses=losses,
+                    phase14_losses=want, loss_rel=rel,
+                    differing_elements=sum(differ.values()),
+                    elements=n_el, differing_by_leaf=differ,
+                    run_to_run_differing_grads=run_to_run,
+                    launches=launches_a)
+    del params, state, m, step_fn, batch_i
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) four gloo ranks on the card at (2, 2).
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                                window=256, remat=False)
+    host = next(lm_batches(small.vocab_size, 2, 640, seed=2))
+    over = dict(n_layers=2, dtype="float32", window=256, remat=False)
+    case = dict(name="b", kind="lm", mesh=((2, 2), ("data", "model")),
+                arch=arch, smoke=False, cfg=over,
+                opt=dataclasses.asdict(train_lib.default_opt_config(small)),
+                batch={k: k for k in host}, seed=3, grads=True, step=50)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        res = LD.spawn("chip_smoke:mesh_rank", 4, wd, backend="gloo",
+                       device="cuda:0", pythonpath=[HERE],
+                       payload=dict(arrays=dict(host), cases=[case]),
+                       timeout=900, threads=2)
+    world_s = time.perf_counter() - t0
+    r0 = res[0]["b"]
+    want = RA.lm_collectives(small, "train", 640, 2,
+                             AbstractMesh((2, 2), ("data", "model")))
+    counted = [RA.counted_collectives(r["b"]["by_op"], r["b"]["calls"],
+                                      {"data": 2, "model": 2}).bytes_by_op
+               for r in res]
+    heads = [r["b"]["local_heads"] for r in res]
+    launches_b = [r["b"]["launches"] for r in res]
+    step_s = [r["b"]["step_s"][0] for r in res]
+    peaks = [r["b"]["peak_bytes"] / 2**30 for r in res]
+    print(f"[16] (b) mesh (2, 2), 4 gloo ranks on one card, {arch} float32 "
+          f"full width, 2 layers, window 256, 2 x 640 tokens, one AdamW "
+          f"step (step 50): loss rel diff {r0['loss_rel']!r} (limit 1e-5); "
+          f"gradients up to {r0['grad_share']!r} of 1e-4 max|g|; "
+          f"parameters where the gradient's sign is resolved up to "
+          f"{r0['param_share']!r} of 1e-4 max|p|; "
+          f"{r0['unresolved_sign_weights']} unresolved, moved up to "
+          f"{r0['unresolved_share']!r} of 2 lr; a rank's step {step_s} s, "
+          f"peak {peaks} GiB; q and kv heads a rank {heads}; launches "
+          f"{launches_b}; counted bytes by op {counted} against the "
+          f"closed form {want.bytes_by_op}; world {world_s:.1f} s")
+    assert r0["loss_rel"] <= 1e-5, r0
+    assert r0["grad_share"] <= 1.0 and r0["param_share"] <= 1.0 and \
+        r0["unresolved_share"] <= 1.0, r0
+    assert all(h == (small.n_heads // 2, small.n_kv_heads // 2)
+               for h in heads), heads
+    assert all(c == want.bytes_by_op for c in counted), counted
+    assert all(n == {b7.name: small.n_layers, b7b.name: small.n_layers}
+               for n in launches_b), launches_b
+    rec["b"] = dict(loss_rel_diff=r0["loss_rel"],
+                    grad_share_of_limit=r0["grad_share"],
+                    param_share_of_limit=r0["param_share"],
+                    unresolved_sign_weights=r0["unresolved_sign_weights"],
+                    unresolved_share_of_2lr=r0["unresolved_share"],
+                    rank_step_s=step_s, rank_peak_gib=peaks,
+                    local_heads=heads, launches=launches_b,
+                    counted_bytes=counted[0],
+                    closed_form_bytes=want.bytes_by_op, world_s=world_s,
+                    one_device_s=r0["one_device_s"])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[16] phase 16 took {rec['phase_s']:.2f} s")
+    return rec
+
+
+def mesh_rank(payload, ctx):
+    """Phase 16 (b)'s function on each rank of its world: the port's LM
+    cases (`launch.dist.run_cases`); then mesh rank 0, which holds the
+    gathered gradients and parameters, checks them against the one-device
+    step (`_one_device_shares`) and returns the shares in their place."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dist as LD
+    from repro_torch.models import lm
+
+    results = LD.run_cases(payload, ctx)
+    for case in payload["cases"]:
+        out = results[case["name"]]
+        if out is None or "grads" not in out:
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(case["arch"]), **case["cfg"])
+        full = lm.init(cfg, torch.Generator().manual_seed(case["seed"]),
+                       device="cpu")
+        whole = {k: payload["arrays"][v] for k, v in case["batch"].items()}
+        out.update(_one_device_shares(cfg, case, full, whole, out,
+                                      ctx.device))
+        del out["grads"], out["params"]
+    return results
+
+
+def _one_device_shares(cfg, case, full, whole, out, dev):
+    """The one-device gradients and first AdamW step of ``full`` on
+    ``whole`` against the mesh's (``out``), on ``dev``: the loss's relative
+    difference; the largest gradient error over 1e-4 of its leaf's
+    largest; the largest parameter error over 1e-4 of the leaf's largest
+    where the gradient's sign is resolved (|g| above the gradient limit),
+    and elsewhere over 2 lr + that limit (a weight then moves by about lr
+    sign(g), whichever way the sums' order tips it)."""
+    import torch
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_lib
+    ocfg = opt.OptConfig(**case["opt"])
+    params = opt.tree_map(lambda t: t.to(dev, copy=True), full)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in whole.items()}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    loss, grads = train_lib.make_grad_fn(cfg)(params, batch)
+    state = opt.opt_init(params, ocfg)
+    step = case["step"]
+    opt.opt_update(grads, state, params, step, ocfg,
+                   norm=opt.global_norm(grads))
+    torch.cuda.synchronize(dev)
+    lr = float(opt.lr_schedule(ocfg, step))
+    res = {"one_device_s": time.perf_counter() - t0,
+           "loss_rel": abs(out["grad_loss"] - float(loss)) / abs(float(loss))}
+    g_share = p_share = flip = 0.0
+    unresolved = 0
+    for g, p, mg, mp in zip(*(opt.tree_leaves(t) for t in (
+            grads, params, out["grads"], out["params"]))):
+        g, p = g.detach().cpu().float(), p.detach().cpu().float()
+        mg, mp = torch.as_tensor(mg).float(), torch.as_tensor(mp).float()
+        g_env = 1e-4 * float(g.abs().max())
+        g_share = max(g_share, float((mg - g).abs().max()) / max(g_env,
+                                                                  1e-30))
+        resolved = g.abs() > g_env
+        d = (mp - p).abs()
+        p_env = 1e-4 * float(p.abs().max())
+        if bool(resolved.any()):
+            p_share = max(p_share, float(d[resolved].max())
+                          / max(p_env, 1e-30))
+        if bool((~resolved).any()):
+            unresolved += int((~resolved).sum())
+            flip = max(flip, float(d[~resolved].max()) / (2 * lr + p_env))
+    res.update(grad_share=g_share, param_share=p_share,
+               unresolved_sign_weights=unresolved, unresolved_share=flip)
+    return res
+
+
+def _leaf_names(opt, params):
+    """(name, leaf) of an LM parameter tree in `optimizer.tree_leaves`
+    order."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from walk(t[k], f"{path}/{k}" if path else k)
+        elif isinstance(t, list):
+            for i, x in enumerate(t):
+                yield from walk(x, f"{path}/{i}")
+        else:
+            yield path, t
+    out = list(walk(params, ""))
+    assert [id(t) for _, t in out] == [id(t) for t in opt.tree_leaves(
+        params)]
+    return out
 
 
 def count_round(torch, model, Xtr, ytr, Xev, yev):
@@ -4185,7 +4485,8 @@ def main() -> int:
     # Phase 14 runs alone on the card: free phase 13's memory.
     gc.collect()
     torch.cuda.empty_cache()
-    training, train_launches = training_phase(torch, dev, b7, b7b, every)
+    training, train_launches, after14 = training_phase(torch, dev, b7, b7b,
+                                                       every)
     lap("14 training")
     assert train_launches[b7.name] > 0 and train_launches[b7b.name] > 0, \
         train_launches
@@ -4244,8 +4545,21 @@ def main() -> int:
     roofline = roofline_phase(torch, round_counter, round_s, prefill,
                               decode, training)
     lap("15 roofline")
+    # Phase 16 runs alone on the card: phase 14's state is freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_training = mesh_training_phase(torch, dev, b7, b7b, every, after14)
+    del after14
+    lap("16 mesh training")
+    for r in rows:                           # B7, B7-bwd: phase 16's step
+        if r["name"] in (b7.name, b7b.name):
+            r["mesh_launches"] = {
+                "a_mesh_1x1_3_steps": mesh_training["a"]["launches"][
+                    r["name"]],
+                "b_mesh_2x2_a_rank": [n[r["name"]] for n in
+                                      mesh_training["b"]["launches"]]}
     script_s = time.perf_counter() - t_script
-    print(f"[16] the script took {script_s:.1f} s")
+    print(f"[17] the script took {script_s:.1f} s")
     print(json.dumps({"kernels": rows, "fit_s": fit_s, "script_s": script_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
@@ -4255,7 +4569,8 @@ def main() -> int:
                       "prefill": prefill,
                       "decode": decode, "distributed": distributed,
                       "families": families, "training": training,
-                      "roofline": roofline, "laps_s": laps, "card": smi}))
+                      "roofline": roofline, "mesh_training": mesh_training,
+                      "laps_s": laps, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

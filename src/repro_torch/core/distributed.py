@@ -309,8 +309,7 @@ def _all_bad(flag: Optional[torch.Tensor], mesh) -> Optional[torch.Tensor]:
 def check_layout(cfg: B.GBDTConfig, mesh, *, m: int,
                  feature_shard: bool = False,
                  model_axis: str = "model") -> None:
-    """The reference's refusals of a sharded layout (and of one-vs-all
-    leaf-wise, which a later slice brings)."""
+    """The reference's refusals of a sharded layout."""
     if feature_shard and cfg.strategy == "one_vs_all":
         raise ValueError(
             "feature_shard=True shards the histogram feature axis over the "
@@ -328,11 +327,6 @@ def check_layout(cfg: B.GBDTConfig, mesh, *, m: int,
             f"feature_shard=True needs the feature count ({m}) divisible by "
             f"the model axis ({tp}); pad the feature matrix or use "
             "feature_shard=False")
-    if cfg.strategy == "one_vs_all" and cfg.growth == "leafwise":
-        raise NotImplementedError(
-            "strategy='one_vs_all' with growth='leafwise' under sharding is "
-            "not ported yet: it comes with the one-vs-all leaf-wise "
-            "distributed slice of repro_torch; use growth='levelwise'")
 
 
 def distributed_round(F_l: torch.Tensor, codes_l: torch.Tensor,

@@ -567,7 +567,8 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
                         min_data_in_leaf: float = 1.0, min_gain: float = 0.0,
                         feature_mask: Optional[torch.Tensor] = None,
                         hist_dtype: str = "float32",
-                        weights: Optional[torch.Tensor] = None):
+                        weights: Optional[torch.Tensor] = None,
+                        reduce=None):
     """Grow one univariate tree per column of ``G`` leaf-wise, in lockstep.
 
     Each tree's steps are `grow_tree_leafwise`'s on statistics ``[g_t w,
@@ -585,6 +586,14 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
     entries, in the same order, so its nodes are those of one tree at a
     time; at ``max_leaves = 2^depth`` with every node splitting, its
     leaves are `grow_trees_levelwise`'s, bit for bit.
+    With ``reduce`` (`core.distributed.RowReduce`) the group is one rank's
+    share of distributed trees, as `grow_tree_leafwise`'s: the roots and
+    every step's built children are all-reduced between the B1 and the B2
+    launch (collective step 0 the roots, t + 1 step t), the built child is
+    the smaller by the left and right counts summed over the ranks (one
+    small all-reduce a step), and the leaf sums and the covers are summed.
+    A rank may hold no row of a segment; its share of that histogram is
+    zero.
     Returns ``(NodeTree, leaf_pos)``: fields with a leading ``trees`` axis
     (value ``(trees, N, 1)``) and ``leaf_pos`` (trees, n) int32, the node of
     each row in each tree.
@@ -638,13 +647,15 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
 
     up = _upload([starts[:, 0], counts[:, 0]], device)
     root = build(up[0], up[1], entries)
+    if reduce is not None:
+        root = reduce.hist(root, 0)
     g0, f0, t0, leaf0 = score(root)
     pend_gain[:, 0] = np.where(leaf0, -np.inf, g0)
     pend_feat[:, 0], pend_thr[:, 0] = f0, t0
     pool = {(t, 0): root[t] for t in range(trees)}
     del root
     node_count = np.ones(trees, np.int64)
-    for _ in range(max_leaves - 1):
+    for step in range(max_leaves - 1):
         p = np.argmax(pend_gain, 1)
         grow = np.flatnonzero(pend_gain[np.arange(trees), p] > gate)
         if grow.size == 0:                    # every frontier is empty
@@ -687,11 +698,19 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
         left[grow, p], right[grow, p] = c1, c2
         d_child = node_depth[grow, p] + 1
         node_depth[grow, c1] = node_depth[grow, c2] = d_child
-        built_left = n_left <= n_right
+        if reduce is None:
+            built_left = n_left <= n_right
+        else:
+            pair = reduce.counts(torch.from_numpy(np.stack([n_left,
+                                                            n_right])))
+            pair = pair.numpy()
+            built_left = pair[0] <= pair[1]
         bc = np.where(built_left, n_left, n_right)
         up = _upload([np.where(built_left, s0, s0 + n_left), bc,
                       built_left], device)
         built = build(up[0], up[1], int(bc.sum()))
+        if reduce is not None:
+            built = reduce.hist(built, step + 1)
         sib = torch.stack([pool.pop((int(t), int(j)))
                            for t, j in zip(grow, p)]) - built
         side = up[2].bool().reshape(-1, 1, 1, 1)
@@ -722,6 +741,8 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
                        dtype=torch.float32, device=device)
     sums[up[3]] = _leaf_sums(g_flat, _flat_weighted(H_diag, weights), idx,
                              lengths, weights, order)
+    if reduce is not None:
+        sums = reduce.sums(sums)
     is_term_d = _upload([is_term.reshape(-1)], device)[0].bool()
     value = torch.where(is_term_d, -sums[:, 0] / (sums[:, 1] + lam),
                         torch.zeros((), device=device))
@@ -729,8 +750,11 @@ def grow_trees_leafwise(codes_t: torch.Tensor, G: torch.Tensor,
     leaf_pos[idx] = torch.repeat_interleave(up[2].to(torch.int32), lengths,
                                             output_size=entries)
     # Covers bottom-up, as `grow_tree_leafwise` sweeps them.
-    cover = (counts.astype(np.float32) if weights is None
-             else sums[:, 2].reshape(trees, N).cpu().numpy())
+    if weights is None:
+        cover = (counts if reduce is None else reduce.counts(
+            torch.from_numpy(counts)).numpy()).astype(np.float32)
+    else:
+        cover = sums[:, 2].reshape(trees, N).cpu().numpy()
     rows_t = np.arange(trees)
     for j in range(N - 1, -1, -1):
         inner = left[:, j] != j
@@ -760,23 +784,16 @@ def grow_trees(codes: torch.Tensor, codes_t: torch.Tensor, G: torch.Tensor,
     for ``"direct"`` `grow_tree` one tree at a time (B4 bins rows in
     dataset order from one node position a row, so it takes no shared
     partition: ``trees`` B4 launches a level).  ``reduce`` makes the group
-    one rank's share of distributed trees (level-wise only: one-vs-all
-    leaf-wise under sharding comes with a later slice).  Returns ``(tree,
-    leaf_pos)`` with a leading ``trees`` axis."""
+    one rank's share of distributed trees.  Returns ``(tree, leaf_pos)``
+    with a leading ``trees`` axis."""
     kw = dict(depth=depth, n_bins=n_bins, lam=lam,
               min_data_in_leaf=min_data_in_leaf, min_gain=min_gain,
               feature_mask=feature_mask, hist_dtype=hist_dtype,
               weights=weights)
+    kw["reduce"] = reduce
     if growth == "leafwise":
-        if reduce is not None:
-            raise NotImplementedError(
-                "strategy='one_vs_all' with growth='leafwise' under "
-                "sharding is not ported yet: it comes with the one-vs-all "
-                "leaf-wise distributed slice of repro_torch; use "
-                "growth='levelwise' or strategy='single_tree'")
         return grow_trees_leafwise(codes_t, G, H_diag, max_leaves=max_leaves,
                                    **kw)
-    kw["reduce"] = reduce
     engine = H.resolve_hist_engine(hist_engine)
     if engine != "direct":
         return grow_trees_levelwise(codes_t, G, H_diag,

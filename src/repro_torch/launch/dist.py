@@ -286,7 +286,14 @@ def _fit_case(case, arrays, mesh, ctx) -> Dict[str, Any]:
         m_b = m // tp if kw.get("feature_shard") else m
         d_b = (cfg.n_outputs // tp if cfg.strategy == "one_vs_all"
                else cfg.n_outputs)
-        leaves = ([int(c + 1) // 2 for c in forest.node_count.reshape(-1)]
+        counts = getattr(forest, "node_count", None)
+        if cfg.growth == "leafwise" and cfg.strategy == "one_vs_all":
+            # This rank's trees, a leaf count each.
+            mi = mesh.index("model")
+            counts = counts.reshape(counts.shape[0], -1)[
+                :, mi * d_b:(mi + 1) * d_b]
+            d_b = 1
+        leaves = ([int(c + 1) // 2 for c in counts.reshape(-1)]
                   if cfg.growth == "leafwise" else [0] * forest.feat.shape[0])
         out["hist_bytes_model"] = sum(
             D.round_collective_bytes(dataclasses.replace(
@@ -297,14 +304,111 @@ def _fit_case(case, arrays, mesh, ctx) -> Dict[str, Any]:
     return out
 
 
+def _lm_case(case, arrays, mesh, ctx) -> Dict[str, Any]:
+    """One rank's share of LM training steps on ``mesh``
+    (`training.train_lib.make_train_step`): the parameters from
+    ``arrays[case["params"]]`` (a whole tree) or drawn from
+    ``case["seed"]`` on the CPU, cut to this rank's blocks; the batch
+    ``{name: arrays key}`` cut to its rows.  With ``grads`` the gradients
+    of the first batch are gathered first; with ``plans`` every MoE
+    routing plan of that gradient's forward is recorded.  Returns the
+    losses, grad norms, the first step's counted collectives (``by_op``,
+    ``calls``), B7's forward and backward launches, the seconds and peak
+    memory, and this rank's q and kv heads; on mesh rank 0 also the
+    gathered gradients and the parameters after the steps."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import lm
+    from repro_torch.models import moe as Moe
+    from repro_torch.models import params as PM
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_lib
+
+    base = (smoke_config(case["arch"]) if case.get("smoke", True)
+            else get_config(case["arch"]))
+    cfg = dataclasses.replace(base, **case.get("cfg", {}))
+    ocfg = opt.OptConfig(**case.get("opt", {}))
+    dev = ctx.device
+    specs = train_lib.mesh_specs(cfg, mesh)
+    layout = train_lib.mesh_layout(cfg, mesh)
+    full = (arrays[case["params"]] if case.get("params") else
+            lm.init(cfg, torch.Generator().manual_seed(case.get("seed", 0)),
+                    device="cpu"))
+    params = PM.shard_tree(full, specs, mesh, device=dev)
+    del full
+    top = mesh.rank == 0
+    whole = {k: arrays[v] for k, v in case["batch"].items()}
+    batch = train_lib.local_batch(whole, mesh, cfg)
+    attn = params["blocks"][0].get("attn")
+    hd = cfg.head_dim_
+    out: Dict[str, Any] = {"coords": dict(mesh.coords), "local_heads": (
+        None if attn is None else (attn["wq"].shape[1] // hd,
+                                   attn["wk"].shape[1] // hd))}
+    if case.get("grads"):
+        plans, plan = [], Moe.moe_plan
+
+        def recording(*a, **kw):
+            res = plan(*a, **kw)
+            plans.append({k: res[k].cpu().numpy()
+                          for k in ("gidx", "slot", "in_cap")})
+            return res
+        Moe.moe_plan = recording if case.get("plans") else plan
+        try:
+            loss, grads = train_lib.make_grad_fn(cfg, mesh)(params, batch)
+        finally:
+            Moe.moe_plan = plan
+        full_g = PM.gather_tree(grads, specs, mesh)
+        if top:
+            out["grad_loss"] = float(loss)
+            out["grads"] = _host(full_g)
+            out["plans"] = plans
+        del grads, full_g
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    state = opt.opt_init(params, ocfg, layout)
+    step_fn = train_lib.make_train_step(
+        cfg, train_lib.TrainConfig(opt=ocfg), mesh)
+    launches0 = (FA.KERNEL.launches, FA.BWD_KERNEL.launches)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, norms, secs = [], [], []
+    for i in range(case.get("steps", 1)):
+        mesh.reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch,
+                                   case.get("step", 0) + i)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i == 0:
+            out["by_op"] = dict(mesh.by_op)
+            out["calls"] = dict(mesh.calls)
+            out["launches"] = {
+                FA.KERNEL.name: FA.KERNEL.launches - launches0[0],
+                FA.BWD_KERNEL.name: FA.BWD_KERNEL.launches - launches0[1]}
+    out.update(losses=losses, grad_norms=norms, step_s=secs)
+    if dev.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if case.get("return_params", True):
+        full_p = PM.gather_tree(params, specs, mesh)
+        if top:
+            out["params"] = _host(full_p)
+        del full_p
+    return out
+
+
 def run_cases(payload: Dict[str, Any], ctx: RankContext,
               other: Optional[Callable] = None) -> Dict[str, Any]:
     """Run every case of ``payload["cases"]`` on this rank, in order, and
     return ``{name: result}`` (None where the rank is outside the case's
     mesh).  A case names its mesh ``(shape, axes)`` over the first ranks
     of the world, its kind (``"fit"``, the default, runs `core.distributed.
-    fit_distributed`; any other kind goes to ``other(case, arrays, mesh,
-    ctx)``) and its arrays by key into ``payload["arrays"]``."""
+    fit_distributed`; ``"lm"`` LM training steps, `_lm_case`; any other
+    kind goes to ``other(case, arrays, mesh, ctx)``) and its arrays by key
+    into ``payload["arrays"]``."""
     from repro_torch.launch.mesh import make_mesh
 
     arrays = payload.get("arrays", {})
@@ -322,6 +426,8 @@ def run_cases(payload: Dict[str, Any], ctx: RankContext,
         kind = case.get("kind", "fit")
         if kind == "fit":
             results[case["name"]] = _fit_case(case, arrays, mesh, ctx)
+        elif kind == "lm":
+            results[case["name"]] = _lm_case(case, arrays, mesh, ctx)
         elif other is not None:
             results[case["name"]] = other(case, arrays, mesh, ctx)
         else:

@@ -40,8 +40,12 @@ class MeshSpec(NamedTuple):
 class Mesh:
     """This rank's place in a grid of ranks: ``axes`` and ``shape``,
     ``coords`` (axis -> index), one process group an axis, the ``device``
-    its tensors live on, and ``counted``, the bytes all-reduced so far,
-    keyed ``(axis, tag)``."""
+    its tensors live on, ``by_op`` and ``calls``, the bytes handed to
+    collectives so far and the calls, keyed ``(op, axis, tag)`` (an op's
+    payload is the buffer it reduces or exchanges, or for an all-gather the
+    block each rank adds; `roofline.analysis.counted_collectives` turns
+    them into ring bytes), and ``counted``, the bytes keyed ``(axis,
+    tag)``."""
 
     def __init__(self, spec: MeshSpec, rank: int, groups: Dict[str, object],
                  device: torch.device):
@@ -53,7 +57,8 @@ class Mesh:
                                 np.unravel_index(rank, self.shape))))
         self.groups = groups
         self.device = device
-        self.counted: collections.Counter = collections.Counter()
+        self.by_op: collections.Counter = collections.Counter()
+        self.calls: collections.Counter = collections.Counter()
 
     @property
     def spec(self) -> MeshSpec:
@@ -78,11 +83,21 @@ class Mesh:
             total *= self.axis_size(ax)
         return idx, total
 
-    def count(self, axis: str, tag: str, n_bytes: int) -> None:
-        self.counted[(axis, tag)] += int(n_bytes)
+    @property
+    def counted(self) -> collections.Counter:
+        out: collections.Counter = collections.Counter()
+        for (_, axis, tag), n in self.by_op.items():
+            out[(axis, tag)] += n
+        return out
+
+    def count(self, axis: str, tag: str, n_bytes: int,
+              op: str = "all-reduce") -> None:
+        self.by_op[(op, axis, tag)] += int(n_bytes)
+        self.calls[(op, axis, tag)] += 1
 
     def reset_counts(self) -> None:
-        self.counted.clear()
+        self.by_op.clear()
+        self.calls.clear()
 
     def gather(self, x: torch.Tensor, rows: Sequence[str] = ("data",),
                cols: Optional[str] = "model") -> torch.Tensor:

@@ -20,9 +20,21 @@ for bit; the reference's loop restarts its stream instead.  ``--dist``
 fits through `core.distributed.fit_distributed` on a ``(data, model)``
 mesh of the ``torch.distributed`` world: under ``torchrun`` the world
 comes from its ``env://`` variables, otherwise this process starts a
-one-rank world itself (NCCL on the card, gloo on the CPU).  ``--mesh``
-(an LM step on a mesh) and ``--compress`` for the LM have no port yet:
-both raise.
+one-rank world itself (NCCL on the card, gloo on the CPU).
+
+``--mesh`` trains an LM on `launch.mesh.host_device_mesh(--model-parallel)`
+of the same kind of world (`train_lib.make_train_step` on a mesh: FSDP
+over ``data``, tensor and expert parallelism over ``model``), e.g. on
+four CPU ranks:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch h2o-danube-3-4b --mesh --model-parallel 2 --device cpu
+
+Every rank draws the same parameters from ``--seed``, keeps its blocks,
+and keeps its rows of each global batch.  Rank 0 prints and logs.  With
+``--ckpt-dir`` rank 0 writes the gathered parameters and optimizer state,
+and a resumed run cuts them to its blocks again.  ``--compress`` has
+nothing to port for an LM (`train_lib.COMPRESS_NOT_PORTED`) and raises.
 """
 from __future__ import annotations
 
@@ -76,30 +88,55 @@ def train_lm(args, chaos: Any = None) -> Dict[str, Any]:
         hd = max(32, args.d_model // cfg.n_heads)
         cfg = dataclasses.replace(cfg, d_model=args.d_model, head_dim=hd,
                                   d_ff=0 if cfg.d_ff == 0 else 4 * args.d_model)
-    if args.mesh:
-        raise NotImplementedError(train_lib.MESH_NOT_PORTED)
     if args.compress:
         raise NotImplementedError(train_lib.COMPRESS_NOT_PORTED)
+    if args.mesh:
+        import torch.distributed as dist
+        started = not dist.is_initialized()
+        with tempfile.TemporaryDirectory() as workdir:
+            _world(resolve_device(args.device), workdir)
+            try:
+                return _train_lm(args, cfg, chaos, mesh=True)
+            finally:
+                if started:
+                    dist.destroy_process_group()
+    return _train_lm(args, cfg, chaos)
+
+
+def _train_lm(args, cfg, chaos, mesh: bool = False) -> Dict[str, Any]:
+    from repro_torch.models import params as PM
     tcfg = train_lib.TrainConfig(
         opt=opt.OptConfig(name=args.optimizer, lr=args.lr,
                           warmup_steps=min(100, args.steps // 10 + 1),
                           decay_steps=args.steps))
-    step_fn = train_lib.make_train_step(cfg, tcfg)
     device = resolve_device(args.device)
-
+    m = None
+    if mesh:
+        from repro_torch.launch.mesh import host_device_mesh
+        m = host_device_mesh(args.model_parallel, device=device)
+        device = m.device
+    step_fn = train_lib.make_train_step(cfg, tcfg, m)
     params = lm.init(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device=device)
-    opt_state = opt.opt_init(params, tcfg.opt)
     n_params = sum(x.numel() for x in opt.tree_leaves(params))
-    print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, "
-          f"batch={args.batch} seq={args.seq}")
+    layout = train_lib.mesh_layout(cfg, m)
+    if m is not None:
+        params = PM.shard_tree(params, layout.specs, m)
+    opt_state = opt.opt_init(params, tcfg.opt, layout)
+    lead = m is None or m.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    say(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, "
+        f"batch={args.batch} seq={args.seq}"
+        + ("" if m is None else f" mesh={m.shape}"))
 
+    index, count = ((0, 1) if m is None else m.block_index(
+        train_lib.make_axis_ctx(m, cfg).batch_axes))
     batches = data.ShardedPrefetcher(data.lm_batches(
         cfg.vocab_size, args.batch, args.seq, seed=args.seed,
         embed_dim=cfg.d_model if cfg.embed_inputs else 0,
         image_tokens=cfg.n_image_tokens if cfg.family == "vlm" else 0,
-        d_model=cfg.d_model), device=device, process_index=0,
-        process_count=1)
+        d_model=cfg.d_model), device=device, process_index=index,
+        process_count=count)
     cursor = _BatchCursor(batches)
 
     def loop_step(state, i):
@@ -110,9 +147,13 @@ def train_lm(args, chaos: Any = None) -> Dict[str, Any]:
         _sync(device)
         return (params, opt_state, step + 1), metrics
 
+    extra = {} if m is None else _mesh_checkpoints(
+        args.ckpt_dir, m, layout, opt.opt_state_specs(params, tcfg.opt,
+                                                      layout),
+        (params, opt_state, 0))
     loop = RestartableLoop(args.ckpt_dir, loop_step,
                            save_every=args.save_every, chaos=chaos,
-                           device=device) if args.ckpt_dir else None
+                           device=device, **extra) if args.ckpt_dir else None
     logs = []
 
     def on_metrics(step, m):
@@ -121,8 +162,8 @@ def train_lm(args, chaos: Any = None) -> Dict[str, Any]:
                "step_time_s": m["step_time_s"]}
         logs.append(rec)
         if step % args.log_every == 0:
-            print(f"[train] step {step} loss={rec['loss']:.4f} "
-                  f"gnorm={rec['grad_norm']:.2f} {rec['step_time_s']:.2f}s")
+            say(f"[train] step {step} loss={rec['loss']:.4f} "
+                f"gnorm={rec['grad_norm']:.2f} {rec['step_time_s']:.2f}s")
 
     state = (params, opt_state, 0)
     try:
@@ -138,9 +179,38 @@ def train_lm(args, chaos: Any = None) -> Dict[str, Any]:
         batches.close()
     final_loss = logs[-1]["loss"] if logs else float("nan")
     first_loss = logs[0]["loss"] if logs else float("nan")
-    print(f"[train] done: loss {first_loss:.4f} -> {final_loss:.4f}")
+    say(f"[train] done: loss {first_loss:.4f} -> {final_loss:.4f}")
     return {"first_loss": first_loss, "final_loss": final_loss, "logs": logs,
-            "state": state}
+            "state": state, "mesh": m}
+
+
+def _mesh_checkpoints(ckpt_dir: str, m, layout, opt_specs, like):
+    """`RestartableLoop`'s ``save_fn``/``restore_fn`` on a mesh: every
+    rank gathers the state, rank 0 writes it, the ranks wait for it; a
+    restore reads the whole state (of ``like``'s structure) on every rank
+    and cuts its blocks."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.io.checkpoint import CheckpointManager
+    from repro_torch.models import params as PM
+    mgr = CheckpointManager(ckpt_dir, async_save=False) if ckpt_dir else None
+
+    def save_fn(step, state):
+        params, opt_state, i = state
+        whole = (PM.gather_tree(params, layout.specs, m),
+                 PM.gather_tree(opt_state, opt_specs, m), i)
+        if m.rank == 0:
+            mgr.save(step, whole)
+        C.barrier(m)
+
+    def restore_fn():
+        if mgr.latest_step() is None:
+            return None
+        (params, opt_state, i), step = mgr.restore(like, device="cpu")
+        return (PM.shard_tree(params, layout.specs, m),
+                PM.shard_tree(opt_state, opt_specs, m), i), step + 1
+
+    return dict(save_fn=save_fn, restore_fn=restore_fn)
+
 
 
 def _gbdt_data(args):
@@ -274,12 +344,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--d-model", type=int, default=0)
     ap.add_argument("--full-config", action="store_true")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard over available devices (not ported: "
-                         "raises)")
+                    help="LM: train on a (data, model) mesh of the "
+                         "torch.distributed world's ranks (torchrun's, or a "
+                         "one-rank world); --model-parallel sets the model "
+                         "axis")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--compress", action="store_true",
                     help="with --dist, the GBDT histogram collective's "
-                         "sketch (LM: not ported, raises)")
+                         "sketch (LM: nothing to port, raises)")
     ap.add_argument("--compress-rank", type=int, default=32)
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint directory; for the GBDT this enables "
@@ -321,7 +393,8 @@ def main(argv=None):
     res = (train_gbdt(args) if args.arch == "sketchboost-gbdt"
            else train_lm(args))
     res.pop("state", None)
-    if args.out:
+    m = res.pop("mesh", None)
+    if args.out and (m is None or m.rank == 0):
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
     return res

@@ -46,6 +46,18 @@ the image cache (the reference's neither).
 For the dry run, `abstract` and `abstract_cache` give the parameters and
 the cache as ``meta`` tensors with their partition specs on a mesh
 (`sharding_rules`, `cache_pspecs`).
+
+`lm_loss` also runs one rank's share of a training step on a mesh of
+ranks (``ctx``, `layers.AxisCtx`): the parameters are this rank's blocks
+(`params.shard_tree`), the batch this rank's rows.  The embedding, head,
+final norm, shared block and cross sites are all-gathered over the FSDP
+axes once, each layer's weights inside its block (so that `_remat`
+gathers them again in the backward), and the layers run tensor-parallel
+over ``model``.  The vocabulary is split over ``model`` too: the lookup
+masks the ids outside this rank's rows and sums over the axis, the logits
+stay split, and the log-softmax takes its max and its sum of exponentials
+over the axis.  The loss is this rank's weighted sum over the weights'
+global sum, so that the sum over the batch axes is the one-device loss.
 """
 from __future__ import annotations
 
@@ -58,6 +70,7 @@ import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models import layers as Ly
 from repro_torch.models import moe as Moe
@@ -236,39 +249,44 @@ def _moe_kwargs(cfg: ModelConfig) -> Dict[str, Any]:
     return dict(n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act,
                 capacity_factor=cfg.capacity_factor,
                 router_group=cfg.router_group,
-                dispatch_mode=cfg.dispatch_mode)
+                dispatch_mode=cfg.dispatch_mode, d_ff=cfg.d_ff)
 
 
-def _ffn(bp, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(bp, h: torch.Tensor, cfg: ModelConfig,
+         ctx: Ly.AxisCtx = Ly.NULL_CTX) -> torch.Tensor:
     """The block's MLP, or its MoE layer on (B, S, D)."""
     if cfg.n_experts:
-        return Moe.moe_apply(bp["moe"], h, **_moe_kwargs(cfg))
-    return Ly.mlp_apply(bp["mlp"], h, act=cfg.act)
+        return Moe.moe_apply(bp["moe"], h, ctx=ctx, **_moe_kwargs(cfg))
+    return Ly.mlp_apply(bp["mlp"], h, act=cfg.act, d_ff=cfg.d_ff, ctx=ctx)
 
 
-def _dense_block(bp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _dense_block(bp, x: torch.Tensor, cfg: ModelConfig,
+                 ctx: Ly.AxisCtx = Ly.NULL_CTX) -> torch.Tensor:
     h = Ly.rms_norm(x, bp["ln1"], cfg.norm_eps)
-    h = Ly.attention_apply(bp["attn"], h, window=cfg.window,
+    h = Ly.attention_apply(bp["attn"], h, window=cfg.window, ctx=ctx,
                            **_attn_kwargs(cfg))
     x = x + h
-    return x + _ffn(bp, Ly.rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
+    return x + _ffn(bp, Ly.rms_norm(x, bp["ln2"], cfg.norm_eps), cfg, ctx)
 
 
-def _ssm_block(bp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ssm_block(bp, x: torch.Tensor, cfg: ModelConfig,
+               ctx: Ly.AxisCtx = Ly.NULL_CTX) -> torch.Tensor:
     h = Ly.rms_norm(x, bp["ln1"], cfg.norm_eps)
     return x + Ssm.ssm_apply(bp["ssm"], h, n_state=cfg.ssm_state,
                              n_heads=cfg.ssm_nheads,
                              head_dim=cfg.ssm_headdim, d_conv=cfg.ssm_conv,
-                             chunk=cfg.ssm_chunk)
+                             chunk=cfg.ssm_chunk, ctx=ctx)
 
 
-def _shared_attn_block(sp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _shared_attn_block(sp, x: torch.Tensor, cfg: ModelConfig,
+                       ctx: Ly.AxisCtx = Ly.NULL_CTX) -> torch.Tensor:
     """The hybrid's shared block: causal attention without a window, then
     the gelu MLP."""
     h = Ly.rms_norm(x, sp["ln1"], cfg.norm_eps)
-    x = x + Ly.attention_apply(sp["attn"], h, **_attn_kwargs(cfg))
+    x = x + Ly.attention_apply(sp["attn"], h, ctx=ctx, **_attn_kwargs(cfg))
     h = Ly.rms_norm(x, sp["ln2"], cfg.norm_eps)
-    return x + Ly.mlp_apply(sp["mlp"], h, act="gelu")
+    return x + Ly.mlp_apply(sp["mlp"], h, act="gelu",
+                            d_ff=cfg.d_ff or 4 * cfg.d_model, ctx=ctx)
 
 
 def _gate(cp, x: torch.Tensor) -> torch.Tensor:
@@ -276,23 +294,42 @@ def _gate(cp, x: torch.Tensor) -> torch.Tensor:
 
 
 def _cross_block(cp, x: torch.Tensor, image_embeds: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig,
+                 ctx: Ly.AxisCtx = Ly.NULL_CTX) -> torch.Tensor:
     """Non-causal cross-attention over the image embeddings, added through
     ``tanh(gate)`` (0 at init)."""
     c = Ly.rms_norm(x, cp["ln"], cfg.norm_eps)
-    c = Ly.attention_apply(cp["attn"], c, kv_inputs=image_embeds,
+    c = Ly.attention_apply(cp["attn"], c, kv_inputs=image_embeds, ctx=ctx,
                            **_attn_kwargs(cfg))
     return x + _gate(cp, x) * c
 
 
-def embed_tokens(params, cfg: ModelConfig, inputs) -> torch.Tensor:
+def _vocab_split(table: torch.Tensor, cfg: ModelConfig,
+                 ctx: Ly.AxisCtx) -> bool:
+    """Whether ``table`` (embedding or head) is this rank's block of the
+    vocabulary on a model axis of more than one rank."""
+    return ctx.tp > 1 and table.shape[0] < cfg.padded_vocab
+
+
+def embed_tokens(params, cfg: ModelConfig, inputs,
+                 ctx: Ly.AxisCtx = Ly.NULL_CTX) -> torch.Tensor:
     """Token ids (B, S) -> embeddings, or, with ``embed_inputs``, the given
     (B, S, d_model) embeddings cast to the model dtype; then times
-    ``sqrt(d_model)`` rounded to that dtype when ``embed_scale``."""
+    ``sqrt(d_model)`` rounded to that dtype when ``embed_scale``.  With
+    the vocabulary split over ``model`` each rank looks up the ids in its
+    rows, zeros the others, and the lookups are summed over the axis."""
     embed = params["embed"]
     inputs = torch.as_tensor(inputs, device=embed.device)
     if cfg.embed_inputs:
         x = inputs.to(model_dtype(cfg))
+    elif _vocab_split(embed, cfg, ctx):
+        vl = embed.shape[0]
+        ids = inputs.long() - ctx.tp_rank * vl
+        inside = (ids >= 0) & (ids < vl)
+        x = embed[ids.clamp(0, vl - 1)]
+        x = torch.where(inside[..., None], x,
+                        torch.zeros((), dtype=x.dtype, device=x.device))
+        x = ctx.reduce(x)
     else:
         x = embed[inputs.long()]
     if cfg.embed_scale:
@@ -301,12 +338,15 @@ def embed_tokens(params, cfg: ModelConfig, inputs) -> torch.Tensor:
     return x
 
 
-def logits_from_hidden(params, cfg: ModelConfig,
-                       x: torch.Tensor) -> torch.Tensor:
+def logits_from_hidden(params, cfg: ModelConfig, x: torch.Tensor,
+                       ctx: Ly.AxisCtx = Ly.NULL_CTX) -> torch.Tensor:
     """Final norm, then the head product in the model dtype, then float32,
-    then the tanh soft cap when set: float32 logits over ``padded_vocab``."""
+    then the tanh soft cap when set: float32 logits over ``padded_vocab``
+    (this rank's block of it when the head is split over ``model``)."""
     x = Ly.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if _vocab_split(head, cfg, ctx):
+        x = ctx.copy(x)
     logits = (x @ head.t()).float()
     if cfg.logit_softcap:
         cap = cfg.logit_softcap
@@ -356,20 +396,56 @@ def _remat(block, policy: str):
     return run
 
 
+# The leaves outside the layers, gathered once a step on a mesh.
+_TOP = ("embed", "lm_head", "final_norm", "shared_attn", "cross")
+
+
+def _gather_top(params, cfg: ModelConfig, ctx: Ly.AxisCtx):
+    """``params`` with every leaf outside ``blocks`` gathered over the FSDP
+    axes (the embedding left as it is where nothing reads it: an untied
+    model fed embeddings)."""
+    out = dict(params)
+    for k in _TOP:
+        if k not in params or (k == "embed" and cfg.embed_inputs
+                               and not cfg.tie_embeddings):
+            continue
+        out[k] = ctx.gather(params[k], ctx.specs[k])
+    return out
+
+
+def _layer(block, ctx: Ly.AxisCtx, i: int):
+    """Layer ``i``'s function ``(bp, x, cfg)``: ``block`` itself without a
+    mesh, else ``block`` on the layer's weights gathered over the FSDP
+    axes, under ``ctx``."""
+    if ctx.mesh is None:
+        return block
+    spec = ctx.specs["blocks"][i]
+
+    def run(bp, x, cfg):
+        return block(ctx.gather(bp, spec), x, cfg, ctx)
+    return run
+
+
 def _hidden(params, cfg: ModelConfig, batch: Dict[str, Any],
-            remat: bool = False) -> torch.Tensor:
-    x = embed_tokens(params, cfg, batch["inputs"])
+            remat: bool = False,
+            ctx: Ly.AxisCtx = Ly.NULL_CTX) -> torch.Tensor:
+    """The last layer's output.  On a mesh (``ctx``) ``params`` holds the
+    gathered leaves outside the layers (`_gather_top`) and each layer's
+    blocks, gathered inside its (remat'd) function."""
+    x = embed_tokens(params, cfg, batch["inputs"], ctx)
     image_embeds = _image_embeds(params, cfg, batch)
     block = _ssm_block if _is_ssm(cfg) else _dense_block
-    if remat:
-        block = _remat(block, cfg.remat_policy)
     for site, s0, s1 in segments(cfg):
         if site is not None and cfg.family == "hybrid":
-            x = _shared_attn_block(params["shared_attn"], x, cfg)
+            x = _shared_attn_block(params["shared_attn"], x, cfg, ctx)
         elif site is not None and cfg.family == "vlm":
-            x = _cross_block(params["cross"][site], x, image_embeds, cfg)
-        for bp in params["blocks"][s0:s1]:
-            x = block(bp, x, cfg)
+            x = _cross_block(params["cross"][site], x, image_embeds, cfg,
+                             ctx)
+        for i in range(s0, s1):
+            fn = _layer(block, ctx, i)
+            if remat:
+                fn = _remat(fn, cfg.remat_policy)
+            x = fn(params["blocks"][i], x, cfg)
     return x
 
 
@@ -399,7 +475,26 @@ def vocab_mask(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
     return torch.where(ids < cfg.vocab_size, 0.0, -1e30)
 
 
-def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any]
+def _split_label_logp(logits: torch.Tensor, labels: torch.Tensor,
+                      ctx: Ly.AxisCtx) -> torch.Tensor:
+    """The labels' log-probabilities from this rank's block of the logits
+    (vocabulary split over ``model``): the max and the sum of exponentials
+    over the axis, the label's logit from the rank that holds it."""
+    mesh, axis = ctx.mesh, ctx.model_axis
+    vl = logits.shape[-1]
+    m = C.all_reduce_max(logits.detach().amax(-1), mesh, axis, tag="loss")
+    se = C.reduce_from((logits - m[..., None]).exp().sum(-1), mesh, axis,
+                       tag="loss")
+    local = labels - ctx.tp_rank * vl
+    inside = (local >= 0) & (local < vl)
+    lab = logits.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    lab = torch.where(inside, lab, torch.zeros((), device=lab.device))
+    lab = C.reduce_from(lab, mesh, axis, tag="loss")
+    return lab - (m + se.log())
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any],
+            ctx: Optional[Ly.AxisCtx] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Mean next-token cross-entropy, recording gradients: the forward
     (each plain layer under `_remat` when ``cfg.remat``), the vocab mask
@@ -407,19 +502,39 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, Any]
     log-probabilities weighted by ``batch["loss_mask"]`` (ones when
     absent) and divided by the weights' sum (at least 1).  Returns
     ``(loss, {"ce": loss})``; as in the reference, no MoE load-balance
-    term is added (`moe.moe_aux_loss` is not called)."""
-    logits = logits_from_hidden(params, cfg, _hidden(params, cfg, batch,
-                                                     remat=cfg.remat))
+    term is added (`moe.moe_aux_loss` is not called).
+
+    On a mesh (``ctx``) ``params`` are this rank's blocks and ``batch``
+    its rows; the weights' sum is taken over the batch axes, so that the
+    returned loss is this rank's share: summed over the batch axes it is
+    the one-device loss of the global batch."""
+    ctx = ctx or Ly.NULL_CTX
+    if ctx.mesh is not None:
+        params = _gather_top(params, cfg, ctx)
+    logits = logits_from_hidden(
+        params, cfg, _hidden(params, cfg, batch, remat=cfg.remat, ctx=ctx),
+        ctx)
+    split = ctx.tp > 1 and logits.shape[-1] < cfg.padded_vocab
     mask = vocab_mask(cfg, device=logits.device)
     if mask is not None:
+        if split:
+            vl = logits.shape[-1]
+            mask = mask[ctx.tp_rank * vl:(ctx.tp_rank + 1) * vl]
         logits = logits + mask
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    picked = logp.gather(-1, labels[..., None])[..., 0]
+    if split:
+        picked = _split_label_logp(logits, labels, ctx)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        picked = logp.gather(-1, labels[..., None])[..., 0]
     weights = batch.get("loss_mask")
     weights = (torch.ones_like(picked) if weights is None else
                torch.as_tensor(weights, device=logits.device).to(picked.dtype))
-    loss = -(picked * weights).sum() / weights.sum().clamp_min(1.0)
+    den = weights.sum()
+    if ctx.mesh is not None:
+        for ax in ctx.batch_axes:
+            den = C.all_reduce(den, ctx.mesh, ax, tag="loss")
+    loss = -(picked * weights).sum() / den.clamp_min(1.0)
     return loss, {"ce": loss}
 
 

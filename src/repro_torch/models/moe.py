@@ -21,6 +21,18 @@ in float32 and round once.  The reference's ``moe_shard`` shapes only the
 sharding of the declarations (`moe_decls`) and changes nothing on one
 device, so `moe_apply` does not take it.
 
+On a mesh (``ctx``, a model axis of more than one rank) every rank routes
+every token of its data shard, so the plan (`moe_plan`: choices, slots,
+drops) is the one-device plan on the same tokens.  With the experts split
+over ``model`` (``moe_shard="ep"``, `_moe_ep`) each rank owns a contiguous
+share of the tokens: it fills its tokens' slots, an all-to-all brings
+each expert's slots to the rank that holds it, and a second all-to-all
+returns the outputs to their tokens' owners, which combine them and
+all-gather the tokens.  With each expert's ``d_ff`` split (``"tp"``) every
+rank runs every slot through its block of every expert and the combined
+tokens are summed over ``model``.  The gate values enter the combine
+through `collectives.copy_to`, as each rank's combine sees part of them.
+
 ``torch.topk`` does not say which of two equal probabilities it takes
 first; ``jax.lax.top_k`` takes the lower index, so `_route` sorts stably.
 No Pallas kernel is involved in the reference, and none here: the
@@ -33,6 +45,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
 from repro_torch.models.params import ParamDecl
 
 
@@ -111,21 +124,32 @@ def moe_plan(x: torch.Tensor, router: torch.Tensor, *, n_experts: int,
 
 def moe_apply(p, x: torch.Tensor, *, n_experts: int, top_k: int, act: str,
               capacity_factor: float = 2.0, router_group: int = 1024,
-              dispatch_mode: str = "einsum") -> torch.Tensor:
+              dispatch_mode: str = "einsum", d_ff: int = 0,
+              ctx=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D), the load-balance loss aside
-    (`moe_aux_loss`)."""
+    (`moe_aux_loss`).  ``ctx`` (`layers.AxisCtx`) with a model axis of
+    more than one rank runs the layer split over it (`_moe_ep` when ``p``
+    holds a block of the experts, the ``d_ff`` split when it holds a block
+    of each expert's ``d_ff``; replicated experts run as on one
+    device)."""
     if dispatch_mode not in ("einsum", "gather"):
         raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
     b, s, d = x.shape
     plan = moe_plan(x, p["router"], n_experts=n_experts, top_k=top_k,
                     capacity_factor=capacity_factor,
                     router_group=router_group)
+    tp = 1 if ctx is None else ctx.tp
+    if tp > 1 and p["wi"].shape[0] < n_experts:
+        return _moe_ep(p, x, plan, n_experts, top_k, act, dispatch_mode, ctx)
+    split_ff = tp > 1 and p["wi"].shape[2] < d_ff
     cap, g, slot, in_cap = plan["cap"], plan["g"], plan["slot"], plan["in_cap"]
     n_groups, n_slots = slot.shape[0], n_experts * cap
     # Each (token, choice)'s row of its group's (E * C) slots; a dropped one
     # goes to the extra last row, which nothing reads.
     dst = torch.where(in_cap, plan["gidx"] * cap + slot, n_slots)
     dst = dst.reshape(n_groups, g * top_k)
+    if split_ff:
+        x = ctx.copy(x)
     src = x.reshape(n_groups, g, 1, d).expand(n_groups, g, top_k, d)
     xe = x.new_zeros(n_groups, n_slots + 1, d)
     xe.scatter_(1, dst[..., None].expand(-1, -1, d),
@@ -136,11 +160,67 @@ def moe_apply(p, x: torch.Tensor, *, n_experts: int, top_k: int, act: str,
     ye = ye.reshape(n_groups, n_slots, d)
     picked = ye.gather(1, dst.clamp_max(n_slots - 1)[..., None]
                        .expand(-1, -1, d)).reshape(n_groups, g, top_k, d)
-    w = plan["gval"] * in_cap
+    gval = ctx.copy(plan["gval"]) if split_ff else plan["gval"]
+    w = gval * in_cap
     if dispatch_mode == "einsum":
         w = w.to(x.dtype)
     y = (picked.float() * w.float()[..., None]).sum(2).to(x.dtype)
-    return y.reshape(b, s, d)
+    y = y.reshape(b, s, d)
+    return ctx.reduce(y) if split_ff else y
+
+
+def _moe_ep(p, x: torch.Tensor, plan, n_experts: int, top_k: int, act: str,
+            dispatch_mode: str, ctx) -> torch.Tensor:
+    """The MoE layer with the experts split over the model axis: rank r
+    holds experts ``[r E/tp, (r+1) E/tp)`` and owns tokens ``[r t/tp,
+    (r+1) t/tp)`` of the flattened (B S) tokens.  Its tokens' slots
+    travel to their experts' ranks and back by two all-to-alls of (tp, G,
+    E/tp, C, D) buffers (zero where a slot is not the destination's), and
+    its combined tokens are all-gathered."""
+    b, s, d = x.shape
+    mesh, axis, tp, r = ctx.mesh, ctx.model_axis, ctx.tp, ctx.tp_rank
+    t = b * s
+    if t % tp:
+        raise ValueError(f"{t} tokens do not split over {tp} expert ranks")
+    cap, g, slot, in_cap = plan["cap"], plan["g"], plan["slot"], plan["in_cap"]
+    n_groups, n_slots = slot.shape[0], n_experts * cap
+    el = p["wi"].shape[0]
+    own = t // tp
+    owner = (torch.arange(t, device=x.device) // own).reshape(n_groups, g, 1)
+    owner = owner.expand(n_groups, g, top_k)
+    dst = torch.where(in_cap, plan["gidx"] * cap + slot, n_slots)
+    # The rank whose token fills each slot (-1: an empty slot).
+    slot_owner = torch.full((n_groups, n_slots + 1), -1, dtype=torch.int64,
+                            device=x.device)
+    slot_owner.scatter_(1, dst.reshape(n_groups, -1),
+                        owner.reshape(n_groups, -1))
+    slot_owner = slot_owner[:, :n_slots].reshape(n_groups, tp, el, cap)
+    mine = torch.where(owner == r, dst, n_slots).reshape(n_groups, -1)
+    x = ctx.copy(x)
+    src = x.reshape(n_groups, g, 1, d).expand(n_groups, g, top_k, d)
+    xe = x.new_zeros(n_groups, n_slots + 1, d)
+    xe.scatter_(1, mine[..., None].expand(-1, -1, d),
+                src.reshape(n_groups, g * top_k, d))
+    xe = xe[:, :n_slots].reshape(n_groups, tp, el, cap, d).transpose(0, 1)
+    recv = C.all_to_all_grad(xe.contiguous(), mesh, axis, tag="ep")
+    xl = recv.sum(0)                       # one owner a slot: exact
+    ye = _expert_ffn(xl.transpose(0, 1).reshape(el, -1, d), p, act)
+    ye = ye.reshape(el, n_groups, cap, d).transpose(0, 1)   # (G, el, C, D)
+    ranks = torch.arange(tp, device=x.device).reshape(tp, 1, 1, 1)
+    dest = (slot_owner[:, r][None] == ranks)[..., None]
+    send = torch.where(dest, ye[None], torch.zeros((), dtype=ye.dtype,
+                                                   device=ye.device))
+    back = C.all_to_all_grad(send, mesh, axis, tag="ep")   # (tp, G, el, C, D)
+    ye = back.transpose(0, 1).reshape(n_groups * n_slots, d)
+    rows = torch.arange(r * own, (r + 1) * own, device=x.device)
+    idx = (rows // g)[:, None] * n_slots + dst.reshape(t, top_k)[rows] \
+        .clamp_max(n_slots - 1)
+    picked = ye[idx]                                       # (own, k, D)
+    w = (ctx.copy(plan["gval"]) * in_cap).reshape(t, top_k)[rows]
+    if dispatch_mode == "einsum":
+        w = w.to(x.dtype)
+    y = (picked.float() * w.float()[..., None]).sum(1).to(x.dtype)
+    return C.gather_rows(y, mesh, axis, 0, tag="ep").reshape(b, s, d)
 
 
 def moe_aux_loss(p, x: torch.Tensor, *, n_experts: int,

@@ -5,7 +5,9 @@ The port of the JAX package's ``models/params.py``.  Modules declare
 counts parameters (`n_params`), materializes as random tensors
 (`init_params`), as ``meta`` tensors with their partition specs
 (`abstract_params`, for the dry run: no storage), or as each rank's shard
-shapes on a mesh (`tree_shard_shapes`).  Logical axes:
+shapes on a mesh (`tree_shard_shapes`).  `shard_tree` cuts a whole tree
+into one rank's blocks on a mesh of ranks, and `gather_tree` puts the
+blocks back together.  Logical axes:
 
   "tp"    tensor-parallel        -> mesh "model"
   "fsdp"  fully-sharded params   -> mesh "data"   (ZeRO-3-style storage)
@@ -215,3 +217,68 @@ def abstract_params(decl_tree, dtype: torch.dtype = torch.bfloat16,
         d, dtype), device="meta"), decl_tree)
     specs = None if mesh is None else tree_pspecs(decl_tree, mesh, rules)
     return values, specs
+
+
+# ---------------------------------------------------------------------------
+# One rank's blocks of a tree on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of nested dicts and lists of tensors
+    and the matching tree of partition specs (tuples), keeping the
+    structure."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_specs(fn, v, s) for v, s in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+def shard_block(x: torch.Tensor, spec: Tuple, mesh) -> torch.Tensor:
+    """This rank's block of the whole array ``x`` laid out by ``spec``
+    (a copy): each dimension cut over its axes, the first the major."""
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        idx, n = mesh.block_index(axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                             f"divide over {axes} ({n} ranks)")
+        blk = x.shape[dim] // n
+        x = x.narrow(dim, idx * blk, blk)
+    return x.clone()
+
+
+def shard_tree(tree, specs, mesh, device=None):
+    """A whole tree (every rank holds the same) -> this rank's blocks on
+    ``mesh``, on ``device`` (the mesh's by default).  ``specs`` matches the
+    tree (`models.lm.abstract`'s specs for the LM parameters)."""
+    dev = mesh.device if device is None else device
+    return map_specs(lambda x, sp: shard_block(x, sp, mesh).to(dev), tree,
+                     specs)
+
+
+def gather_block(x: torch.Tensor, spec: Tuple, mesh, *,
+                 tag: str = "gather") -> torch.Tensor:
+    """The whole array from every rank's block ``x`` (a collective over
+    the axes of ``spec``; each rank gets the whole)."""
+    from repro_torch.distributed import collectives as C
+    for dim, entry in enumerate(spec):
+        for ax in reversed(entry_axes(entry)):
+            x = C.all_gather_dim(x, mesh, ax, dim, tag=tag)
+    return x
+
+
+def gather_tree(tree, specs, mesh, *, tag: str = "gather"):
+    """`shard_tree`'s inverse: every rank's blocks -> the whole tree, on
+    every rank (rank 0 is the one that writes it)."""
+    return map_specs(lambda x, sp: gather_block(x, sp, mesh, tag=tag), tree,
+                     specs)

@@ -20,6 +20,14 @@ states differ from the reference's by rounding only (held to 1e-4 in
 exp(dt A) h + dt x B^T``, with the state and the convolution buffers of the
 cache updated in place.  No Pallas kernel is involved in the reference, and
 none here: plain PyTorch, projections by ``torch.matmul``.
+
+On a mesh (``ctx`` with a model axis of more than one rank) ``d_inner`` is
+split over ``model``: ``wz``, ``wx``, ``conv_x``, ``norm`` and ``wo`` are
+this rank's blocks, which hold whole SSD heads, and the replicated
+``wB``, ``wC``, ``wdt``, ``conv_B``, ``conv_C``, ``A_log``, ``D`` and
+``dt_bias`` enter through `collectives.copy_to` (each rank's gradient of
+them is its heads' part); each rank runs the scan on its heads, the gated
+RMSNorm sums its squares over the axis, and ``wo``'s products are summed.
 """
 from __future__ import annotations
 
@@ -28,7 +36,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rms_norm
+from repro_torch.distributed import collectives as C
+from repro_torch.models.layers import AxisCtx, rms_norm
 from repro_torch.models.params import ParamDecl
 
 
@@ -138,27 +147,53 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.reshape(b, s, h, p).to(x.dtype), h_final
 
 
+REPLICATED = ("wB", "wC", "wdt", "conv_B", "conv_C", "A_log", "D",
+              "dt_bias")
+
+
 def ssm_apply(p, x: torch.Tensor, *, n_state: int, n_heads: int,
-              head_dim: int, d_conv: int, chunk: int) -> torch.Tensor:
-    """Full-sequence Mamba2 block.  x: (B, S, D) -> (B, S, D)."""
+              head_dim: int, d_conv: int, chunk: int,
+              ctx=None) -> torch.Tensor:
+    """Full-sequence Mamba2 block.  x: (B, S, D) -> (B, S, D).  With
+    ``ctx`` and ``p`` holding a block of ``d_inner``, this rank's heads
+    (see the module docstring)."""
     b, s, _ = x.shape
+    split = (ctx is not None and ctx.tp > 1
+             and p["wz"].shape[1] < n_heads * head_dim)
+    tp = ctx.tp if split else 1
+    if n_heads % tp:
+        raise ValueError(f"{n_heads} SSD heads do not split over {tp} "
+                         f"model ranks")
+    # Without a split the copies, the norm's sum and wo's sum are
+    # identities, and this rank's heads are all of them.
+    sctx = ctx if split else AxisCtx()
+    hl = n_heads // tp
+    h0 = sctx.tp_rank * hl
+    x = sctx.copy(x)
+    p = dict(p, **{k: sctx.copy(p[k]) for k in REPLICATED})
     z = x @ p["wz"]
     xi = x @ p["wx"]
     Bm = x @ p["wB"]
     Cm = x @ p["wC"]
-    dt = F.softplus(x.float() @ p["wdt"].float() + p["dt_bias"])
+    dt = F.softplus(x.float() @ p["wdt"][:, h0:h0 + hl].float()
+                    + p["dt_bias"][h0:h0 + hl])
     xi = F.silu(_causal_conv(xi, p["conv_x"]).float()).to(x.dtype)
     Bm = F.silu(_causal_conv(Bm, p["conv_B"]).float()).to(x.dtype)
     Cm = F.silu(_causal_conv(Cm, p["conv_C"]).float()).to(x.dtype)
-    A = -torch.exp(p["A_log"].float())
-    xh = xi.reshape(b, s, n_heads, head_dim)
+    A = -torch.exp(p["A_log"][h0:h0 + hl].float())
+    xh = xi.reshape(b, s, hl, head_dim)
     y, _ = _ssd_chunked(xh, dt, A, Bm, Cm, chunk)
     # The skip term is float32, and so is y from here on (the reference's
     # promotion of a model-dtype y plus a float32 term).
-    y = y.float() + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(b, s, n_heads * head_dim)
-    y = rms_norm(y * F.silu(z.float()), p["norm"])
-    return y.to(x.dtype) @ p["wo"]
+    y = y.float() + p["D"][h0:h0 + hl].float()[None, None, :, None] \
+        * xh.float()
+    y = y.reshape(b, s, hl * head_dim) * F.silu(z.float())
+    # The gated RMSNorm over the whole d_inner: each rank's mean square of
+    # its equal block, averaged over the ranks (`layers.rms_norm` at tp 1).
+    var = C.psum_both(y.square().mean(-1, keepdim=True), sctx.mesh,
+                      sctx.model_axis) / tp
+    y = (y * torch.rsqrt(var + 1e-5) * p["norm"]).to(x.dtype)
+    return sctx.reduce(y @ p["wo"])
 
 
 def ssm_cache(b: int, n_heads: int, head_dim: int, n_state: int,

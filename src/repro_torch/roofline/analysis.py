@@ -45,6 +45,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import work
+from repro_torch.models import ssm
 
 # --- H100 SXM5 constants (per GPU) -------------------------------------------
 PEAK_FLOPS = 989e12          # H100 SXM5 datasheet: bf16 dense tensor cores
@@ -393,29 +394,63 @@ def _ring(op: str, n: int, payload: float) -> float:
     return (n - 1) / n * payload
 
 
+def counted_collectives(by_op, calls, sizes: Dict[str, int]
+                        ) -> CollectiveStats:
+    """A run's counted collectives (`launch.mesh.Mesh`'s ``by_op`` and
+    ``calls``, keyed ``(op, axis, tag)``, payload bytes) as the bytes each
+    rank sends by a ring (`_ring`) and the calls, by op: what
+    `lm_collectives` reckons for a step."""
+    out: Dict[str, float] = {}
+    count: Dict[str, int] = {}
+    for (op, axis, _), payload in by_op.items():
+        out[op] = out.get(op, 0.0) + _ring(op, sizes[axis], payload)
+    for (op, axis, _), n in calls.items():
+        if sizes[axis] > 1:
+            count[op] = count.get(op, 0) + n
+    return CollectiveStats({k: int(v) for k, v in out.items()}, count)
+
+
 def lm_collectives(cfg, kind: str, seq_len: int, global_batch: int,
                    mesh) -> CollectiveStats:
     """One step's collectives on ``mesh``, per rank: bytes each rank sends
-    (ring algorithms, the link's one direction) and the count, by op.
+    (ring algorithms, the link's one direction) and the count, by op, as
+    the port's step on a mesh of ranks runs them (`training.train_lib`,
+    `models.lm.lm_loss` with an `AxisCtx`).  Every collective is over one
+    axis; a tuple of axes is one call an axis, the inner axis first.
 
-    From the partition specs (`lm.sharding_rules`, `train_lib.make_axis_ctx`)
-    it counts, for ``kind`` "train":
-      * the all-gather of each parameter sharded over FSDP axes: once in the
-        forward, once in the backward, and once more for a layer's under
-        remat;
-      * the reduce-scatter of its gradient over those axes, and the
-        all-reduce over the batch axes that do not shard it (a parameter
-        replicated over a batch axis);
-      * two all-reduces of the local ``(b/dp, s, D)`` activations a layer in
-        the forward and two in the backward (one a row-parallel ``wo``
-        sharded over the model axis: attention and MLP, an SSM block's
-        one), and the forward's again under remat;
-      * the all-to-all of the routed tokens (top_k x capacity_factor slots
-        a token) for experts sharded over the model axis, two a layer
-        (dispatch, combine) in each pass.
-    "prefill" counts the forward's; "decode" the forward's with one token
-    a sequence.  The batch counts per data rank (``b/dp``), or whole where
-    it does not divide (long_500k)."""
+    For ``kind`` "train", each of ``cfg.microbatches`` microbatches of the
+    rank's ``b/dp`` rows (the batch whole where it does not divide,
+    long_500k) gathers and scatters:
+      * the all-gather of each parameter over the FSDP axes that split it:
+        once (the gathered weights serve the backward), and once more for
+        a layer's under remat, whose recomputed forward gathers again; the
+        embedding not at all where nothing reads it (an untied model fed
+        embeddings);
+      * the reduce-scatter of each gathered gradient over those axes;
+      * under tensor parallelism over ``model``, for each layer whose
+        heads, ``d_ff`` or ``d_inner`` are split: the row-parallel sum of
+        its output activations (forward, and again under remat but for
+        the sum that ends the block: the recomputed forward stops at the
+        last tensor the backward reads) and the sum of its input's
+        gradient (backward); an SSM block's gated-norm
+        squares (float32, one a token) forward and backward, and its
+        replicated leaves' gradients; the MoE gate values' gradients
+        (float32, ``top_k`` a token); experts split over ``model``: two
+        all-to-alls of the (tp, G, E/tp, C, D) slot buffers in each pass
+        and the all-gather of the combined tokens (forward); kv
+        weights split over ``model`` but not by whole heads: their
+        all-gather over it (forward, remat) and reduce-scatter;
+      * the vocabulary split over ``model``: the lookup's sum (forward),
+        the head input's gradient (backward) and the log-softmax's max, sum
+        of exponentials and label logit (float32, one a token);
+      * the loss weights' sum, one float32 a batch axis.
+    Once a step: each gradient's all-reduce over the batch axes that do
+    not split its parameter (float32 with microbatches), the loss (one
+    float32 a batch axis) and the global norm (one float32 an axis of
+    each set of axes that splits leaves).  Adafactor's row, column and
+    RMS sums are not counted.
+    "prefill" and "decode" count a forward's gathers and sums: every
+    token of the sequence, or one a sequence."""
     from repro_torch.models import lm
     from repro_torch.models.params import (decl_dtype, mesh_axes,
                                            partition_spec, shard_shape)
@@ -425,16 +460,23 @@ def lm_collectives(cfg, kind: str, seq_len: int, global_batch: int,
     rules = lm.sharding_rules(cfg, mesh)
     ctx = train_lib.make_axis_ctx(mesh, cfg)
     fsdp = set(_spec_axes(rules.get("fsdp")))
-    batch_axes = tuple(ctx.batch_axes)
-    n_rows = math.prod(sizes[a] for a in batch_axes)
+    batch_axes = [a for a in ctx.batch_axes if sizes[a] > 1]
+    n_rows = math.prod(sizes[a] for a in ctx.batch_axes)
     b_local = (global_batch // n_rows if global_batch % n_rows == 0
                else global_batch)
-    tokens = b_local * (1 if kind == "decode" else seq_len)
     train = kind == "train"
+    mb = max(cfg.microbatches, 1) if train else 1
     remat = train and cfg.remat
+    # A microbatch's share of the rank's tokens (a fraction of a row where
+    # the rank's rows do not split into the microbatches: llama3-405b's 8
+    # rows a rank into 16 on the 2 x 16 x 16 mesh, which the port's step
+    # refuses and the reference spreads over the data ranks).
+    tokens = b_local * (1 if kind == "decode" else seq_len) / mb
     dtype = lm.model_dtype(cfg)
-    act_bytes = tokens * cfg.d_model * torch.empty((), dtype=dtype
-                                                   ).element_size()
+    esize = torch.empty((), dtype=dtype).element_size()
+    act = tokens * cfg.d_model * esize
+    model_ax = ctx.model_axis
+    tp = sizes[model_ax] if model_ax is not None else 1
     by_op: Dict[str, float] = {}
     count: Dict[str, int] = {}
 
@@ -451,38 +493,135 @@ def lm_collectives(cfg, kind: str, seq_len: int, global_batch: int,
         else:
             yield path, tree
 
-    decls = lm.param_decls(cfg)
-    model_ax = ctx.model_axis
-    for path, d in walk(decls, ()):
-        in_layers = path[0] in ("blocks", "cross")
-        spec = partition_spec(d, mesh, rules)
-        shard = shard_shape(d.shape, spec, mesh)
-        nbytes = math.prod(shard) * torch.empty(
-            (), dtype=decl_dtype(d, dtype)).element_size()
-        used = {a for e in spec for a in _spec_axes(e)}
-        gathered = math.prod(sizes[a] for a in used & fsdp)
-        add("all-gather", gathered, nbytes,
-            1 + int(train) + int(remat and path[0] == "blocks"))
-        if train:
-            add("reduce-scatter", gathered, nbytes * gathered, 1)
-            free = math.prod(sizes[a] for a in batch_axes if a not in used)
-            add("all-reduce", free, nbytes, 1)
-        # Activation collectives, once a layer (the leaf is stacked over
-        # the layers or sites that use it).
-        uses = d.shape[0] if in_layers else (
-            lm.n_sites(cfg) if path[0] == "shared_attn" else 1)
-        passes = 1 + int(train) + int(remat and path[0] == "blocks")
-        if model_ax is None:
+    def n_uses(path) -> int:
+        """Calls of the layer that reads leaf ``path``: each layer's own,
+        each cross site's own, the shared block at every site."""
+        return (cfg.n_layers if path[0] == "blocks" else lm.n_sites(cfg)
+                if path[0] in ("cross", "shared_attn") else 1)
+
+    # Per leaf: gathers, scatters, gradient all-reduces.
+    norm_sets = set()
+    for path, d in walk(lm.param_decls(cfg), ()):
+        if path == ("embed",) and cfg.embed_inputs and \
+                not cfg.tie_embeddings:
             continue
-        tp = sizes[model_ax]
-        if path[-1] == "wo" and len(spec) >= 2 and \
-                model_ax in _spec_axes(spec[-2]):
-            add("all-reduce", tp, act_bytes, uses * passes)
-        if "moe" in path and path[-1] == "wi" and \
-                model_ax in _spec_axes(spec[-3]):
-            routed = act_bytes * cfg.top_k * cfg.capacity_factor
-            add("all-to-all", tp, routed, 2 * uses * passes)
+        spec = partition_spec(d, mesh, rules)
+        shape = list(shard_shape(d.shape, spec, mesh))
+        stacked = path[0] in ("blocks", "cross")
+        uses = n_uses(path)
+        leaves = uses if stacked else 1      # the shared block: one leaf
+        if stacked:
+            shape = shape[1:]
+        el = torch.empty((), dtype=decl_dtype(d, dtype)).element_size()
+        nbytes = math.prod(shape) * el
+        entries = spec[1:] if stacked else spec
+        used = {a for e in spec for a in _spec_axes(e)}
+        split = tuple(a for a in used if sizes[a] > 1)
+        if split:
+            norm_sets.add(frozenset(split))
+        gathered = nbytes
+        calls = 1 if kind != "train" else mb * (
+            1 + int(remat and path[0] == "blocks"))
+        for e in entries:
+            for a in reversed(_spec_axes(e)):
+                if a in fsdp and sizes[a] > 1:
+                    add("all-gather", sizes[a], gathered, leaves * calls)
+                    if train:
+                        add("reduce-scatter", sizes[a],
+                            gathered * sizes[a], leaves * mb)
+                    gathered *= sizes[a]
+        if train:
+            grad_el = 4 if mb > 1 else el
+            for a in batch_axes:
+                if a not in used:
+                    add("all-reduce", sizes[a],
+                        math.prod(shape) * grad_el, leaves)
+        # A leaf replicated over ``model`` inside split work: its
+        # gradient summed over the axis (backward).
+        if train and tp > 1 and _model_summed(cfg, path, tp):
+            add("all-reduce", tp, gathered, uses * mb)
+        # kv weights split over ``model`` but not by whole heads.
+        if tp > 1 and path[-1] in ("wk", "wv") and \
+                cfg.n_kv_heads % tp and model_ax in used:
+            add("all-gather", tp, gathered, uses * calls)
+            if train:
+                add("reduce-scatter", tp, gathered * tp, uses * mb)
+    if train:
+        for a in batch_axes:                 # the loss: den, then metric
+            add("all-reduce", sizes[a], 4, mb + 1)
+        for key in norm_sets:
+            for a in key:
+                add("all-reduce", sizes[a], 4, 1)
+
+    # Activations under tensor parallelism.  A remat'd layer's recomputed
+    # forward stops at the last tensor its backward reads, so the sum that
+    # ends the layer (``last``) runs once.
+    if tp > 1:
+        fwd = 1 if kind != "train" else mb * (1 + int(remat))
+        last = 1 if kind != "train" else mb
+        bwd = mb if train else 0
+        hd = cfg.head_dim_
+        attn_split = (cfg.n_heads * hd) % tp == 0
+
+        def dense_pair(split: bool, n: int, f_times: int,
+                       b_times: int) -> None:
+            if split:
+                add("all-reduce", tp, act, n * f_times)
+                add("all-reduce", tp, act, n * b_times)
+
+        n_attn_layers = 0 if lm._is_ssm(cfg) else cfg.n_layers
+        dense_pair(attn_split, n_attn_layers, fwd, bwd)
+        if cfg.family == "hybrid" and cfg.attn_every:
+            sites = lm.n_sites(cfg)
+            once = 1 if kind != "train" else mb
+            dense_pair(attn_split, sites, once, bwd)
+            dense_pair((cfg.d_ff or 4 * cfg.d_model) % tp == 0, sites,
+                       once, bwd)
+        if cfg.family == "vlm" and cfg.cross_attn_every:
+            once = 1 if kind != "train" else mb
+            dense_pair(attn_split, lm.n_sites(cfg), once, bwd)
+        if lm._is_ssm(cfg) and cfg.d_inner % tp == 0:
+            dense_pair(True, cfg.n_layers, last, bwd)
+            add("all-reduce", tp, tokens * 4, cfg.n_layers * (fwd + bwd))
+        if not lm._is_ssm(cfg) and not cfg.n_experts:
+            dense_pair(cfg.d_ff % tp == 0, cfg.n_layers, last, bwd)
+        if cfg.n_experts:
+            L, E, k = cfg.n_layers, cfg.n_experts, cfg.top_k
+            gate = tokens * k * 4
+            if cfg.moe_shard == "ep" and E % tp == 0:
+                t = max(int(tokens), 1)
+                g = min(cfg.router_group, t)
+                while t % g:
+                    g //= 2
+                cap = max(int(cfg.capacity_factor * g * k / E), 1)
+                slots = (t // g) * E * cap * cfg.d_model * esize
+                add("all-to-all", tp, slots, 2 * L * (fwd + bwd))
+                add("all-gather", tp, act // tp, L * last)
+                add("all-reduce", tp, act, L * bwd)
+                add("all-reduce", tp, gate, L * bwd)
+            elif cfg.moe_shard != "ep" and cfg.d_ff % tp == 0:
+                dense_pair(True, L, last, bwd)
+                add("all-reduce", tp, gate, L * bwd)
+        if cfg.padded_vocab % tp == 0:
+            once = 1 if kind != "train" else mb
+            if not cfg.embed_inputs:
+                add("all-reduce", tp, act, once)
+            if train:
+                add("all-reduce", tp, act, mb)
+                add("all-reduce", tp, tokens * 4, 3 * mb)
     return CollectiveStats({k: int(v) for k, v in by_op.items()}, count)
+
+
+def _model_summed(cfg, path, tp: int) -> bool:
+    """Whether the step sums leaf ``path``'s gradient over ``model``: an
+    SSM block's replicated leaves when ``d_inner`` is split, kv weights
+    replicated where heads are split."""
+    if path[-1] in ssm.REPLICATED and "ssm" in path:
+        return cfg.d_inner % tp == 0
+    if path[-1] in ("wk", "wv"):
+        return ((cfg.n_heads * cfg.head_dim_) % tp == 0
+                and (cfg.n_kv_heads * cfg.head_dim_) % tp != 0)
+    return False
 
 
 def gbdt_collectives(cfg, m: int, d: int, mesh,

@@ -13,6 +13,15 @@ Unlike the reference, whose updates return new trees, `opt_update` writes
 the new parameters and state into the given tensors (under
 ``torch.no_grad()``) and returns them: a training step on the card then
 holds one copy of the weights and of the moments.
+
+On a mesh of ranks the trees are this rank's blocks, and ``layout``
+(`Layout`: the mesh and the parameters' partition specs) says how each
+leaf is cut.  `global_norm` then sums each leaf's squares over the axes
+that split it (a replicated leaf counts once), Adafactor takes its row and
+column means and its update RMS over whole leaves (sums over the axes that
+split the dimension), and AdamW, elementwise, runs on the blocks as they
+are.  With every axis of one rank these are the one-device sums, op for
+op.
 """
 from __future__ import annotations
 
@@ -22,9 +31,39 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.models.params import ParamDecl, abstract_params, map_decls
+from repro_torch.distributed import collectives as C
+from repro_torch.models.params import (ParamDecl, abstract_params, entry_axes,
+                                       map_decls)
 
 Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How a tree of blocks is cut on a mesh of ranks: ``specs`` matches
+    the parameters (`models.lm.abstract`'s specs)."""
+    mesh: Any
+    specs: Any
+
+    def dims(self, spec) -> List[Tuple[str, ...]]:
+        """The axes of more than one rank that split each dimension."""
+        return [tuple(a for a in entry_axes(e)
+                      if self.mesh.axis_size(a) > 1) for e in spec]
+
+    def spec_leaves(self) -> List:
+        return tree_leaves(self.specs, lambda x: isinstance(x, tuple))
+
+    def psum(self, x: torch.Tensor, axes, tag: str) -> torch.Tensor:
+        for ax in axes:
+            x = C.all_reduce(x, self.mesh, ax, tag=tag)
+        return x
+
+    def full_shape(self, shape, spec) -> Tuple[int, ...]:
+        out = list(shape)
+        for i, axes in enumerate(self.dims(spec)):
+            for a in axes:
+                out[i] *= self.mesh.axis_size(a)
+        return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,16 +113,19 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
 def tree_unflatten(like: Tree, leaves) -> Tree:
     """A tree of ``like``'s structure holding ``leaves``, given in
     `tree_leaves` order."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-    return build(like)
+
+def _unflatten(t: Tree, it) -> Tree:
+    # Not a closure: a nested function that calls itself is a reference
+    # cycle, which would hold ``leaves`` (a step's gradients) until the
+    # cyclic collector happens to run.
+    if isinstance(t, dict):
+        out = {k: _unflatten(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten(x, it) for x in t)
+    return next(it)
 
 
 def _device(tree: Tree) -> torch.device:
@@ -113,17 +155,35 @@ def lr_schedule(cfg: OptConfig, step, device=None) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, decay)
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    return torch.sqrt(torch.stack(
-        [x.float().square().sum() for x in tree_leaves(tree)]).sum())
+def global_norm(tree: Tree, layout: Optional[Layout] = None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+    With ``layout`` the leaves are blocks: the leaves split over the same
+    axes are summed together, then over those axes (one scalar all-reduce
+    an axis of each such set)."""
+    sq = [x.float().square().sum() for x in tree_leaves(tree)]
+    if layout is None:
+        return torch.sqrt(torch.stack(sq).sum())
+    order = {a: i for i, a in enumerate(layout.mesh.axes)}
+    groups: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    for x, spec in zip(sq, layout.spec_leaves()):
+        key = tuple(sorted({a for d in layout.dims(spec) for a in d},
+                           key=order.get))
+        groups.setdefault(key, []).append(x)
+    total = None
+    for key in sorted(groups, key=lambda k: (len(k), k)):
+        part = layout.psum(torch.stack(groups[key]).sum(), key, "norm")
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Tree, torch.Tensor]:
     """Grads times ``min(1, max_norm / max(norm, 1e-9))`` (the factor cast
-    to each gradient's dtype), and the norm."""
-    norm = global_norm(grads)
+    to each gradient's dtype), and the norm (`global_norm`'s unless
+    given)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / norm.clamp_min(1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
@@ -169,77 +229,108 @@ def _factored(p_shape, min_dim: int) -> bool:
             and p_shape[-2] >= min_dim)
 
 
-def adafactor_init(params: Tree, cfg: Optional[OptConfig] = None) -> Tree:
+def adafactor_init(params: Tree, cfg: Optional[OptConfig] = None,
+                   layout: Optional[Layout] = None) -> Tree:
+    """Factored (``vr``, ``vc``) or whole (``v``) float32 second moments;
+    with ``layout`` the blocks of them, factored by the whole leaf's
+    shape."""
     cfg = cfg or OptConfig(name="adafactor")
 
-    def init_one(p):
+    def init_one(p, spec=None):
         z = lambda shape: torch.zeros(shape, dtype=torch.float32,
                                       device=p.device)
-        if _factored(p.shape, cfg.factored_min_dim):
+        full = p.shape if spec is None else layout.full_shape(p.shape, spec)
+        if _factored(full, cfg.factored_min_dim):
             return {"vr": z(p.shape[:-1]), "vc": z(p.shape[:-2] + p.shape[-1:])}
         return {"v": z(p.shape)}
 
-    return tree_map(init_one, params)
+    if layout is None:
+        return tree_map(init_one, params)
+    from repro_torch.models.params import map_specs
+    return map_specs(init_one, params, layout.specs)
 
 
-def _stacked_groups(params: Tree, grads: Tree, state: Tree):
-    """Lists of (grad, state, param) leaves that the reference holds as one
-    stacked leaf: the same path in every element of a list (``blocks``,
-    ``cross``), or one leaf alone."""
+def _stacked_groups(params: Tree, grads: Tree, state: Tree,
+                    specs: Tree = None):
+    """Lists of (grad, state, param, spec) leaves that the reference holds
+    as one stacked leaf: the same path in every element of a list
+    (``blocks``, ``cross``), or one leaf alone (``spec`` None without
+    specs)."""
     if isinstance(params, dict):
         for k in sorted(params):
-            yield from _stacked_groups(params[k], grads[k], state[k])
+            yield from _stacked_groups(params[k], grads[k], state[k],
+                                       None if specs is None else specs[k])
     elif isinstance(params, (list, tuple)):
-        per = [list(_stacked_groups(p, g, s))
-               for p, g, s in zip(params, grads, state)]
+        per = [list(_stacked_groups(p, g, s, None if specs is None
+                                    else specs[i]))
+               for i, (p, g, s) in enumerate(zip(params, grads, state))]
         for parts in zip(*per):
             yield [x for part in parts for x in part]
     else:
-        yield [(grads, state, params)]
+        yield [(grads, state, params, specs)]
 
 
 @torch.no_grad()
 def adafactor_update(grads: Tree, state: Tree, params: Tree, step,
-                     cfg: OptConfig):
+                     cfg: OptConfig, layout: Optional[Layout] = None):
     """The reference's rule.  Its update clipping (RMS <= 1) takes the RMS
     over a whole stacked leaf, all layers of ``blocks`` at once, so the
     port takes it over each `_stacked_groups` group: one pass updates the
     moments and sums the squares of the unclipped updates, a second
-    recomputes each update from its moments and applies it."""
+    recomputes each update from its moments and applies it.  With
+    ``layout`` a mean over a split dimension is a sum, summed over the
+    axes that split it, over the whole dimension, and so is the RMS."""
     dev = _device(params)
     lr = lr_schedule(cfg, step, dev)
     t = _f32(step, dev) + 1.0
     beta2 = 1.0 - t ** (-cfg.decay_rate)
     eps = 1e-30
 
-    def moments(g, s):
+    def mean(x, dim, axes, keepdim=False):
+        if not axes:
+            return x.mean(dim, keepdim=keepdim)
+        n = x.shape[dim] * math.prod(layout.mesh.axis_size(a) for a in axes)
+        return layout.psum(x.sum(dim, keepdim=keepdim), axes, "opt") / n
+
+    def moments(g, s, dims):
         gf = g.float()
         g2 = gf.square() + eps
         if "vr" in s:
-            s["vr"].copy_(beta2 * s["vr"] + (1 - beta2) * g2.mean(-1))
-            s["vc"].copy_(beta2 * s["vc"] + (1 - beta2) * g2.mean(-2))
+            s["vr"].copy_(beta2 * s["vr"] + (1 - beta2) * mean(g2, -1,
+                                                               dims[-1]))
+            s["vc"].copy_(beta2 * s["vc"] + (1 - beta2) * mean(g2, -2,
+                                                               dims[-2]))
         else:
             s["v"].copy_(beta2 * s["v"] + (1 - beta2) * g2)
 
-    def direction(g, s):
+    def direction(g, s, dims):
         gf = g.float()
         if "vr" in s:
             vr, vc = s["vr"], s["vc"]
-            r = vr / vr.mean(-1, keepdim=True).clamp_min(eps)
+            r = vr / mean(vr, -1, dims[-2], keepdim=True).clamp_min(eps)
             approx = r[..., None] * vc[..., None, :]
             return gf * torch.rsqrt(approx.clamp_min(eps))
         return gf * torch.rsqrt(s["v"].clamp_min(eps))
 
-    for group in _stacked_groups(params, grads, state):
-        sq, count = 0.0, 0
-        for g, s, _ in group:
-            moments(g, s)
-            sq = sq + direction(g, s).square().sum()
-            count += g.numel()
+    specs = None if layout is None else layout.specs
+    for group in _stacked_groups(params, grads, state, specs):
+        sq, count, split = 0.0, 0, ()
+        for g, s, _, spec in group:
+            dims = ([()] * g.dim() if spec is None else layout.dims(spec))
+            moments(g, s, dims)
+            sq = sq + direction(g, s, dims).square().sum()
+            n = g.numel()
+            if spec is not None:
+                split = tuple(a for d in dims for a in d)
+                n = math.prod(layout.full_shape(g.shape, spec))
+            count += n
+        if split:
+            sq = layout.psum(sq, split, "opt")
         # update clipping (RMS <= 1) as in the paper
         rms = torch.sqrt(sq / count + eps)
-        for g, s, p in group:
-            update = direction(g, s) / rms.clamp_min(1.0)
+        for g, s, p, spec in group:
+            dims = ([()] * g.dim() if spec is None else layout.dims(spec))
+            update = direction(g, s, dims) / rms.clamp_min(1.0)
             pf = p.float()
             update = update + cfg.weight_decay * pf
             p.copy_((pf - lr * update).to(p.dtype))
@@ -288,29 +379,56 @@ def opt_abstract(decl_tree: Tree, cfg: OptConfig, mesh=None,
 # Dispatch
 # ---------------------------------------------------------------------------
 
-def opt_init(params: Tree, cfg: OptConfig) -> Tree:
+def opt_init(params: Tree, cfg: OptConfig,
+             layout: Optional[Layout] = None) -> Tree:
+    """The optimizer state of ``params`` (with ``layout``: of these
+    blocks)."""
     if cfg.name == "adamw":
         return adamw_init(params)
     if cfg.name == "adafactor":
-        return adafactor_init(params, cfg)
+        return adafactor_init(params, cfg, layout)
     if cfg.name == "sgd":
         return {}
     raise ValueError(cfg.name)
 
 
+def opt_state_specs(params: Tree, cfg: OptConfig, layout: Layout) -> Tree:
+    """The partition specs of `opt_init`'s state on ``layout``'s mesh:
+    each moment where its parameter's block lives; Adafactor's factored
+    moments drop the factored dimension's entry."""
+    if cfg.name == "sgd":
+        return {}
+    if cfg.name == "adamw":
+        return {"m": layout.specs, "v": layout.specs}
+    if cfg.name == "adafactor":
+        from repro_torch.models.params import map_specs
+
+        def one(p, spec):
+            full = layout.full_shape(p.shape, spec)
+            if _factored(full, cfg.factored_min_dim):
+                return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+            return {"v": spec}
+        return map_specs(one, params, layout.specs)
+    raise ValueError(cfg.name)
+
+
 @torch.no_grad()
 def opt_update(grads: Tree, state: Tree, params: Tree, step,
-               cfg: OptConfig):
+               cfg: OptConfig, layout: Optional[Layout] = None,
+               norm: Optional[torch.Tensor] = None):
     """One step: clip the grads by their global norm when ``grad_clip``,
     then the named rule.  ``step`` is the step index (an int or a 0-d
-    tensor).  Returns ``(params, state)``, the given tensors updated in
-    place."""
+    tensor).  ``layout`` says how the blocks are cut on a mesh; ``norm``
+    is the gradients' global norm when the caller has it.  Returns
+    ``(params, state)``, the given tensors updated in place."""
     if cfg.grad_clip:
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+        if norm is None:
+            norm = global_norm(grads, layout)
+        grads, _ = clip_by_global_norm(grads, cfg.grad_clip, norm)
     if cfg.name == "adamw":
         return adamw_update(grads, state, params, step, cfg)
     if cfg.name == "adafactor":
-        return adafactor_update(grads, state, params, step, cfg)
+        return adafactor_update(grads, state, params, step, cfg, layout)
     if cfg.name == "sgd":
         lr = lr_schedule(cfg, step, _device(params))
 

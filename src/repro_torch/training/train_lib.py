@@ -1,7 +1,7 @@
 """Training step factory: loss -> gradients -> optimizer, with gradient
 accumulation over microbatches.
 
-The port of the JAX package's ``training/train_lib.py`` for one device.
+The port of the JAX package's ``training/train_lib.py``.
 `make_train_step` returns ``train_step(params, opt_state, batch, step) ->
 (params, opt_state, metrics)``: ``cfg.microbatches`` slices of the batch,
 each through `lm.lm_loss` and ``torch.autograd.grad``; with more than one,
@@ -12,11 +12,22 @@ parameters and moments into the given tensors.  The reference's
 ``jit_train_step`` (``jax.jit`` with donated buffers) has no counterpart:
 PyTorch runs eagerly, and the in-place update is the donation.
 
+On a mesh of ranks (`launch.mesh.Mesh`) the step is one rank's share:
+``params`` and ``opt_state`` are this rank's blocks (`params.shard_tree`
+on `mesh_specs`; `opt_init` with `mesh_layout`), ``batch`` its rows
+(`local_batch`).  Each layer's weights are all-gathered over the FSDP
+axes when the layer runs and the layers run tensor-parallel over
+``model`` (`lm.lm_loss` with `make_axis_ctx`); each gradient is
+reduce-scattered over the FSDP axes that split it (the gathers'
+backward) and all-reduced over the batch axes that do not.  ``dp_only``
+puts the batch and the storage over every axis, with no tensor
+parallelism.  The loss is the one-device loss of the global batch, and at
+mesh (1, 1) every collective has one rank and the step is the ``mesh=None``
+step bit for bit.
+
 The reference's ``TrainConfig.compress_pods``, ``compress_rank`` and
-``log_every`` have no field here: its step reads none of them.  The
-layout half is ported for the dry run (`make_axis_ctx`, `batch_sharding`,
-`input_specs` on a mesh, with `models.params.tree_pspecs`); a step on a
-mesh and the cross-pod compression are not yet (`MESH_NOT_PORTED`).
+``log_every`` have no field here: its step reads none of them
+(`COMPRESS_NOT_PORTED`).
 """
 from __future__ import annotations
 
@@ -25,10 +36,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.distributed import collectives as C
+from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import AxisCtx
-from repro_torch.models.params import batch_axes, mesh_axes, spec_entry
+from repro_torch.models.params import (batch_axes, entry_axes, mesh_axes,
+                                       spec_entry)
 from repro_torch.training import optimizer as opt
 
 Tree = Any
@@ -47,46 +61,70 @@ def default_opt_config(cfg: ModelConfig) -> opt.OptConfig:
                          lr=1e-4 if big else 3e-4)
 
 
-MESH_NOT_PORTED = (
-    "an LM training step on a mesh is not ported yet: its partition specs "
-    "exist (models.params.tree_pspecs, lm.sharding_rules, "
-    "train_lib.input_specs(mesh=...)), and the step that shards the "
-    "parameters and optimizer state over a mesh's process groups is the "
-    "next slice of repro_torch; pass mesh=None")
-
 COMPRESS_NOT_PORTED = (
-    "cross-pod gradient compression for an LM is not ported: it is a "
-    "collective of a step on a mesh (see MESH_NOT_PORTED); --compress "
-    "applies to the GBDT's --dist fit only")
+    "--compress has nothing to port for an LM: the reference's LM step "
+    "reads neither TrainConfig.compress_pods nor compress_rank, so its "
+    "--compress changes no number; --compress applies to the GBDT's "
+    "--dist fit (the histogram collective's sketch)")
 
 
 def make_axis_ctx(mesh, cfg: ModelConfig) -> AxisCtx:
     """The step's layout on ``mesh``: the batch over `params.batch_axes`,
-    heads and FFN over ``model`` (over nothing in ``dp_only`` mode)."""
+    heads and FFN over ``model`` (over nothing in ``dp_only`` mode), the
+    FSDP storage over `lm.sharding_rules`' axes; on a mesh of ranks also
+    the parameters' partition specs (`mesh_specs`)."""
     if mesh is None:
         return AxisCtx()
     dp_only = cfg.tp_strategy == "dp_only"
+    fsdp = tuple(entry_axes(lm.sharding_rules(cfg, mesh).get("fsdp")))
+    specs = None if isinstance(mesh, AbstractMesh) else mesh_specs(cfg, mesh)
     return AxisCtx(mesh=mesh, batch_axes=batch_axes(mesh, dp_only),
-                   model_axis=None if dp_only else "model")
+                   model_axis=None if dp_only else "model",
+                   fsdp_axes=fsdp, specs=specs)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+def mesh_specs(cfg: ModelConfig, mesh):
+    """The parameters' partition specs on ``mesh``, in `lm.init`'s layout
+    (`lm.abstract`)."""
+    return lm.abstract(cfg, mesh)[1]
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    mesh: Optional[Any] = None) -> Callable:
-    """Returns ``train_step(params, opt_state, batch, step) -> (params,
-    opt_state, metrics)``; ``metrics`` holds 0-d float32 tensors
-    ``loss`` (the mean of the microbatches' losses), ``grad_norm`` (before
-    clipping) and ``lr``.  ``batch`` holds (B, ...) tensors or arrays on
-    the parameters' device, B divisible by ``cfg.microbatches``; ``step``
-    is the step index.  The parameters are made to require gradients."""
-    _no_mesh(mesh)
+def mesh_layout(cfg: ModelConfig, mesh) -> Optional[opt.Layout]:
+    """The optimizer's view of the blocks on ``mesh`` (None without)."""
+    return None if mesh is None else opt.Layout(mesh, mesh_specs(cfg, mesh))
+
+
+def local_batch(batch: Dict[str, Any], mesh, cfg: ModelConfig):
+    """This rank's rows of a global batch on ``mesh``: the block of the
+    batch axes (rows ``[n/k i, n/k (i+1))``, as `data.ShardedPrefetcher`
+    cuts them), on the mesh's device."""
+    if mesh is None:
+        return batch
+    i, k = mesh.block_index(batch_axes(mesh, cfg.tp_strategy == "dp_only"))
+    out = {}
+    for name, v in batch.items():
+        v = torch.as_tensor(v)
+        n = v.shape[0] // k
+        out[name] = v[i * n:(i + 1) * n].to(mesh.device)
+    return out
+
+
+def make_grad_fn(cfg: ModelConfig, mesh=None) -> Callable:
+    """``grad_fn(params, batch) -> (loss, grads)``: the microbatches'
+    mean loss and gradients (a tree like ``params``).  On a mesh ``loss``
+    is the global batch's (summed over the batch axes) and ``grads`` this
+    rank's blocks of the global gradients.  The parameters are made to
+    require gradients."""
+    if isinstance(mesh, AbstractMesh):
+        raise ValueError(
+            "an AbstractMesh has axes and no ranks: a step runs on a "
+            "launch.mesh.Mesh of torch.distributed ranks (make_mesh); the "
+            "dry run counts an abstract one")
     mb = max(cfg.microbatches, 1)
+    ctx = make_axis_ctx(mesh, cfg)
+    layout = mesh_layout(cfg, mesh)
 
-    def train_step(params, opt_state, batch, step):
+    def grad_fn(params, batch):
         leaves = opt.tree_leaves(params)
         for p in leaves:
             if not p.requires_grad:
@@ -100,7 +138,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         for i in range(mb):
             sub = batch if mb == 1 else {
                 k: v[i * sz:(i + 1) * sz] for k, v in batch.items()}
-            loss, _ = lm.lm_loss(params, cfg, sub)
+            loss, _ = lm.lm_loss(params, cfg, sub,
+                                 ctx if mesh is not None else None)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g
                      for g, p in zip(grads, leaves)]
@@ -117,12 +156,48 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             for a in acc:
                 a.div_(mb)
             loss_acc = loss_acc / mb
-        grads = opt.tree_unflatten(params, acc)
-        del acc
-        gnorm = opt.global_norm(grads)
+        if mesh is not None:
+            acc = _reduce_replicated(acc, layout, ctx.batch_axes)
+            for ax in ctx.batch_axes:
+                loss_acc = C.all_reduce(loss_acc, mesh, ax, tag="loss")
+        return loss_acc, opt.tree_unflatten(params, acc)
+
+    return grad_fn
+
+
+def _reduce_replicated(grads, layout: opt.Layout, axes):
+    """Each gradient summed over the batch axes that do not split its
+    parameter (those that do were reduce-scattered by the gathers'
+    backward)."""
+    out = []
+    for g, spec in zip(grads, layout.spec_leaves()):
+        used = {a for e in spec for a in entry_axes(e)}
+        for ax in axes:
+            if ax not in used:
+                g = C.all_reduce(g, layout.mesh, ax, tag="grad")
+        out.append(g)
+    return out
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    mesh: Optional[Any] = None) -> Callable:
+    """Returns ``train_step(params, opt_state, batch, step) -> (params,
+    opt_state, metrics)``; ``metrics`` holds 0-d float32 tensors
+    ``loss`` (the mean of the microbatches' losses), ``grad_norm`` (before
+    clipping) and ``lr``.  ``batch`` holds (B, ...) tensors or arrays on
+    the parameters' device, B divisible by ``cfg.microbatches``; ``step``
+    is the step index.  On a mesh, ``params``/``opt_state`` are this
+    rank's blocks and ``batch`` its rows (module docstring).  The
+    parameters are made to require gradients."""
+    grad_fn = make_grad_fn(cfg, mesh)
+    layout = mesh_layout(cfg, mesh)
+
+    def train_step(params, opt_state, batch, step):
+        loss, grads = grad_fn(params, batch)
+        gnorm = opt.global_norm(grads, layout)
         params, opt_state = opt.opt_update(grads, opt_state, params, step,
-                                           tcfg.opt)
-        metrics = {"loss": loss_acc, "grad_norm": gnorm,
+                                           tcfg.opt, layout, norm=gnorm)
+        metrics = {"loss": loss, "grad_norm": gnorm,
                    "lr": opt.lr_schedule(tcfg.opt, step, gnorm.device)}
         return params, opt_state, metrics
 

@@ -1,7 +1,7 @@
 """The cases of kinds other than a fit that the port's distributed tests
 run on every rank of a spawned world: the collectives, the mesh helpers,
-the compressor, the sharded sketch, the eval, the elastic layouts and the
-restores, each on this rank's blocks.
+the compressor, the sharded sketch, the eval, the elastic layouts, the
+restores and the LM launcher on a mesh, each on this rank's blocks.
 
 A rank imports this module by name (``spawn(..., pythonpath=[HERE])``), so
 it imports neither ``jax`` nor the JAX package, as no rank may.
@@ -23,8 +23,8 @@ def run_cases(payload, ctx):
 
 
 def _case(case, arrays, mesh, ctx) -> Dict[str, Any]:
-    """Checks of the collectives, the compressor, the sketch, the eval and
-    the elastic layouts on this rank's blocks."""
+    """Checks of the collectives, the compressor, the sketch, the eval,
+    the elastic layouts and the LM launcher on this rank's blocks."""
     from repro_torch.core import distributed as D
     from repro_torch.core import boosting as B
     from repro_torch.core import sketch as SK
@@ -115,4 +115,29 @@ def _case(case, arrays, mesh, ctx) -> Dict[str, Any]:
         state, start = loop.resume_or_init(like)
         return {"manager": LD._host(got), "step": step, "loop": LD._host(state),
                 "start": start, "coords": dict(mesh.coords)}
+    if kind == "train_cli":
+        # `launch.train --mesh` on this world's (data, model) mesh: an
+        # unbroken run, and a run killed at step 3 and resumed from its
+        # checkpoint; each rank compares its blocks of the two ends.
+        from repro_torch.launch import train as TTR
+        from repro_torch.runtime import chaos as CH
+        from repro_torch.training import optimizer as opt
+
+        def args(tag):
+            return TTR.parser().parse_args(case["argv"] + [
+                "--device", str(dev), "--ckpt-dir", f"{case['dir']}/{tag}"])
+        whole = TTR.train_lm(args("whole"))
+        killed = False
+        try:
+            TTR.train_lm(args("killed"), chaos=CH.KillAtRound(3))
+        except CH.ChaosKill:
+            killed = True
+        resumed = TTR.train_lm(args("killed"))
+        a, b = whole["state"], resumed["state"]
+        same = all(torch.equal(x.detach(), y.detach()) for x, y in zip(
+            opt.tree_leaves(a[:2]), opt.tree_leaves(b[:2])))
+        return {"killed": killed, "same": same, "steps": (int(a[2]),
+                                                          int(b[2])),
+                "whole_logs": whole["logs"], "resumed_logs": resumed["logs"],
+                "shape": whole["mesh"].shape}
     raise ValueError(f"unknown case kind {kind!r}")

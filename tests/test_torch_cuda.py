@@ -1887,3 +1887,104 @@ def test_roofline_counter_counts_a_train_step_alike_on_card_and_cpu(dev,
     got = count(dev)
     assert want[3] == 0 and got[3] == cfg.n_layers
     assert got[:3] == want[:3]
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "phi3.5-moe-42b-a6.6b",
+                                  "mamba2-370m"])
+def test_one_rank_nccl_mesh_step_matches_the_card_step(dev, arch, tmp_path):
+    """The LM step on a one-rank NCCL world's (1, 1) mesh against the
+    ``mesh=None`` step on the card, float32 smoke models: the loss bit for
+    bit (every collective has one rank: the same ops), each gradient leaf
+    within 1e-5 of its largest magnitude (the embedding's ``index_put_``
+    backward adds in no fixed order on the card), B7's launches equal."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import shard_tree
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_lib
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 80)))
+             .to(dev) for k in ("inputs", "labels")}
+    p0 = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), backend="nccl",
+                         device=dev)
+        out = []
+        for m in (None, mesh):
+            params = opt.tree_map(lambda t: t.to(dev, copy=True), p0)
+            if m is not None:
+                params = shard_tree(params, train_lib.mesh_specs(cfg, m), m)
+            fwd, bwd = (flash_attention.KERNEL.launches,
+                        flash_attention.BWD_KERNEL.launches)
+            loss, grads = train_lib.make_grad_fn(cfg, m)(params, batch)
+            out.append((loss.cpu(), [g.cpu() for g in
+                                     opt.tree_leaves(grads)],
+                        (flash_attention.KERNEL.launches - fwd,
+                         flash_attention.BWD_KERNEL.launches - bwd)))
+    finally:
+        dist.destroy_process_group()
+    (l0, g0, n0), (l1, g1, n1) = out
+    assert torch.equal(l0, l1)
+    assert n0 == n1
+    for a, b in zip(g0, g1):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+def test_four_gloo_ranks_on_one_card_match_the_card_step(dev, tmp_path):
+    """Four gloo ranks sharing the card (NCCL takes one rank a card) run
+    danube's float32 smoke step at mesh (2, 2), B7 and its backward on
+    each rank's 2 q heads over 1 kv head: loss within 1e-5 relative and
+    gradients within 1e-4 of each leaf's largest against the card's
+    one-device step; each rank's collective bytes the closed form's."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import dist as LD
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import lm
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_lib
+    cfg = dataclasses.replace(smoke_config("h2o-danube-3-4b"),
+                              dtype="float32", n_kv_heads=2)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+             for k in ("inputs", "labels")}
+    p0 = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    case = dict(name="danube", kind="lm", mesh=((2, 2), ("data", "model")),
+                arch="h2o-danube-3-4b", cfg=dict(dtype="float32",
+                                                 n_kv_heads=2),
+                opt=dict(name="adamw"), batch={"inputs": "inputs",
+                                               "labels": "labels"},
+                params="params", grads=True, step=50)
+    res = LD.spawn("repro_torch.launch.dist:run_cases", 4, tmp_path,
+                   backend="gloo", device=str(dev), payload=dict(
+                       arrays=dict(batch, params=p0), cases=[case]),
+                   timeout=600)
+    params = opt.tree_map(lambda t: t.to(dev, copy=True), p0)
+    loss, grads = train_lib.make_grad_fn(cfg)(
+        params, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+    got = res[0]["danube"]
+    assert abs(got["grad_loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+    for a, b in zip(opt.tree_leaves(grads), opt.tree_leaves(got["grads"])):
+        a = a.cpu()
+        err = float((a - torch.as_tensor(b)).abs().max())
+        assert err <= 1e-4 * float(a.abs().max()), err
+    want = RA.lm_collectives(cfg, "train", 64, 4,
+                             AbstractMesh((2, 2), ("data", "model")))
+    for r in res:
+        g = r["danube"]
+        stats = RA.counted_collectives(g["by_op"], g["calls"],
+                                       {"data": 2, "model": 2})
+        assert stats.bytes_by_op == want.bytes_by_op
+        assert g["launches"] == {flash_attention.KERNEL.name:
+                                 2 * cfg.n_layers,
+                                 flash_attention.BWD_KERNEL.name:
+                                 cfg.n_layers}

@@ -129,6 +129,9 @@ def _cases():
     out.append(("dyadic_one_vs_all", _kw(
         loss="multitask_mse", strategy="one_vs_all", learning_rate=0.5),
         "dyadic", 1, {}))
+    out.append(("dyadic_one_vs_all_leafwise", _kw(
+        loss="multitask_mse", strategy="one_vs_all", growth="leafwise",
+        max_leaves=6, learning_rate=0.5), "dyadic", 1, {}))
     out += [("multi_single_tree_none", _kw(), "y", 3, {}),
             ("multi_single_tree_top_outputs", _kw(
                 sketch_method="top_outputs", sketch_k=3), "y", 3, {}),
@@ -136,6 +139,9 @@ def _cases():
              {}),
             ("multi_leafwise_none", _kw(growth="leafwise", max_leaves=6),
              "y", 3, {}),
+            ("multi_one_vs_all_leafwise", _kw(strategy="one_vs_all",
+                                              growth="leafwise",
+                                              max_leaves=6), "y", 3, {}),
             ("feature_shard_none", _kw(), "y", 2, {"feature_shard": True}),
             ("feature_shard_top_outputs", _kw(sketch_method="top_outputs",
                                               sketch_k=3), "y", 2,
@@ -168,6 +174,9 @@ SINGLE = (("single_levelwise_rp", _kw(sketch_method="random_projection",
           ("single_leafwise", _kw(growth="leafwise", max_leaves=6,
                                   n_trees=2)),
           ("single_one_vs_all", _kw(strategy="one_vs_all", n_trees=2)),
+          ("single_one_vs_all_leafwise", _kw(strategy="one_vs_all",
+                                             growth="leafwise", max_leaves=6,
+                                             n_trees=2)),
           ("single_direct", _kw(hist_engine="direct", sketch_method=
                                 "top_outputs", sketch_k=3, n_trees=2)),
           ("single_bf16", _kw(hist_dtype="bfloat16", n_trees=2)))
@@ -176,9 +185,7 @@ ERRORS = (("err_ova_feature_shard", _kw(strategy="one_vs_all"),
           ("err_leafwise_feature_shard", _kw(growth="leafwise",
                                              max_leaves=4),
            {"feature_shard": True}, "leaf-wise"),
-          ("err_indivisible", _kw(), {"feature_shard": True}, "divisible"),
-          ("err_ova_leafwise", _kw(strategy="one_vs_all", growth="leafwise",
-                                   max_leaves=4), {}, "one-vs-all leaf-wise"))
+          ("err_indivisible", _kw(), {"feature_shard": True}, "divisible"))
 EVALS = ("multiclass", "multilabel", "multitask_mse")
 # The direct engine with each statistics type, on `_fine_dyadic` targets.
 DIRECT_DTYPES = {f"direct_{dt}": _kw(loss="multitask_mse",
@@ -302,6 +309,23 @@ def test_one_vs_all_first_round_bitwise(runs):
     got, (F, forest) = port[0]["dyadic_one_vs_all"], ref["dyadic_one_vs_all"]
     assert np.array_equal(got["F"], F)
     assert _forest_equal(got["forest"], forest)
+    for f in ("value", "cover"):
+        assert np.array_equal(got["forest"][f], forest[f])
+    np.testing.assert_allclose(got["forest"]["gain"], forest["gain"],
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_one_vs_all_leafwise_first_round_bitwise(runs):
+    """One-vs-all leaf-wise under sharding on dyadic targets: the
+    reference vmaps its leaf-wise grower over the output shard, the port
+    grows a rank's trees in lockstep with the same collectives; F, the
+    trees, their values and covers bit for bit."""
+    port, ref, _ = runs
+    name = "dyadic_one_vs_all_leafwise"
+    got, (F, forest) = port[0][name], ref[name]
+    assert np.array_equal(got["F"], F)
+    assert _forest_equal(got["forest"], forest,
+                         ("feat", "thr", "left", "right", "node_count"))
     for f in ("value", "cover"):
         assert np.array_equal(got["forest"][f], forest[f])
     np.testing.assert_allclose(got["forest"]["gain"], forest["gain"],

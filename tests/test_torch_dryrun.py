@@ -291,7 +291,9 @@ def test_input_specs_and_axis_ctx_on_a_mesh():
             assert TDR._batch_axes(tm, tc) == w.batch_axes
     assert TT.batch_sharding(None) is None
     assert TT.make_axis_ctx(None, TC.get_config("gemma-7b")).mesh is None
-    with pytest.raises(NotImplementedError, match="next slice"):
+    # A step runs on a mesh of ranks (`tests/test_torch_mesh_train.py`);
+    # an abstract mesh, the dry run's, has none.
+    with pytest.raises(ValueError, match="no ranks"):
         TT.make_train_step(TC.get_config("gemma-7b"), TT.TrainConfig(),
                            mesh=tm)
 
@@ -622,24 +624,35 @@ def test_collective_closed_form_by_hand():
     # float32 norms (256,) whole.
     embed, attn, mlp, norm = 512, 4 * 512, 3 * 1024, 1024
     train = TRA.lm_collectives(cfg, "train", 4096, 256, tm)
-    # All-gathers: embed forward and backward, a layer's again under remat;
-    # reduce-scatters: each gradient; all-reduces: the 3 norms' gradients
-    # over data, and 2 row-parallel products x (forward, backward, remat)
-    # of (16, 4096, 256) bf16 activations over model.
+    # All-gathers: the (tied) embedding once, a layer's 7 matrices in the
+    # forward and again in the remat'd forward (the gathered weights serve
+    # the backward); reduce-scatters: each gradient; all-reduces: the 3
+    # norms' gradients over data; the attention's and the MLP's
+    # row-parallel products in the forward, the attention's again in the
+    # remat'd forward (which stops before the MLP's, the block's last),
+    # and their inputs' gradients, the lookup's sum and the head
+    # input's gradient, all (16, 4096, 256) bf16 activations over model;
+    # the log-softmax's max, sum and label logit (float32, one a token);
+    # the loss weights' sum and the loss over data; the global norm's
+    # one set of axes, {data, model}.
     act = 16 * 4096 * 256 * 2
-    assert train.count_by_op == {"all-gather": 2 + 7 * 3,
-                                 "reduce-scatter": 8, "all-reduce": 3 + 6}
+    tok = 16 * 4096 * 4
+    ar = 2 * 15 / 16
+    assert train.count_by_op == {"all-gather": 1 + 7 * 2,
+                                 "reduce-scatter": 8,
+                                 "all-reduce": 3 + 7 + 3 + 2 + 2}
     assert train.bytes_by_op == {
-        "all-gather": 15 * (2 * embed + 3 * (attn + mlp)),
+        "all-gather": 15 * (embed + 2 * (attn + mlp)),
         "reduce-scatter": 15 * (embed + attn + mlp),
-        "all-reduce": int(3 * 2 * 15 / 16 * norm + 6 * 2 * 15 / 16 * act)}
+        "all-reduce": int(ar * (3 * norm + 7 * act + 3 * tok + 4 * 4))}
     decode = TRA.lm_collectives(cfg, "decode", 4096, 128, tm)
-    assert decode.count_by_op == {"all-gather": 8, "all-reduce": 2}
+    assert decode.count_by_op == {"all-gather": 8, "all-reduce": 3}
     assert decode.bytes_by_op == {
         "all-gather": 15 * (embed + attn + mlp),
-        "all-reduce": int(2 * 2 * 15 / 16 * (8 * 256 * 2))}
+        "all-reduce": int(3 * ar * (8 * 256 * 2))}
     # Experts sharded over model exchange their tokens (dispatch and
-    # combine in each of three passes); grok-1's 8 experts do not divide
+    # combine in each of three passes: the remat'd forward reads the
+    # combine's output); grok-1's 8 experts do not divide
     # over 16 and stay whole.
     phi, grok = (TC.get_config(a) for a in ("phi3.5-moe-42b-a6.6b",
                                             "grok-1-314b"))

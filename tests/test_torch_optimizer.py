@@ -195,3 +195,23 @@ def test_opt_state_converter_round_trips(name):
     assert jax.tree.structure(back) == jax.tree.structure(js)
     for a, b in zip(jax.tree.leaves(js), jax.tree.leaves(back)):
         assert np.array_equal(a, b)
+
+
+def test_tree_unflatten_holds_no_leaf_past_its_tree():
+    """A tree built by `tree_unflatten` frees its leaves with it, without
+    the cyclic collector: the step's gradients go as soon as the caller
+    drops them."""
+    import gc
+    import weakref
+    leaves = [torch.zeros(4), torch.ones(2, 3), torch.full((1,), 2.0)]
+    refs = [weakref.ref(t) for t in leaves]
+    like = {"b": [None, {"c": None}], "a": None}
+    gc.disable()
+    try:
+        tree = TO.tree_unflatten(like, leaves)
+        assert list(tree) == ["b", "a"]
+        assert TO.tree_leaves(tree) == leaves
+        del tree, leaves
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()

@@ -363,12 +363,40 @@ def test_microbatches_and_remat_do_not_change_the_step(arch):
             assert np.array_equal(a, b)
 
 
-def test_train_step_refuses_a_mesh_and_a_ragged_batch():
+def test_train_step_refuses_a_mesh_and_a_ragged_batch(tmp_path):
+    """A mesh is no longer refused: on a one-rank (1, 1) mesh (a gloo
+    world of this process) the step is the ``mesh=None`` step bit for bit
+    (`test_torch_mesh_train.py` holds the sharded ones).  A batch that
+    does not split into the microbatches still raises."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import shard_tree
     cfg = dataclasses.replace(TC.smoke_config("h2o-danube-3-4b"),
-                              dtype="float32", microbatches=3)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TT.make_train_step(cfg, TT.TrainConfig(), mesh=object())
-    step = TT.make_train_step(cfg, TT.TrainConfig())
+                              dtype="float32", microbatches=2)
+    tc = TT.TrainConfig(opt=TO.OptConfig(warmup_steps=1, decay_steps=10))
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, b=4).items()}
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        out = []
+        for m in (None, mesh):
+            p = TLM.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+            if m is not None:
+                p = shard_tree(p, TT.mesh_specs(cfg, m), m)
+            st = TO.opt_init(p, tc.opt, TT.mesh_layout(cfg, m))
+            p, st, met = TT.make_train_step(cfg, tc, m)(
+                p, st, TT.local_batch(batch, m, cfg), 3)
+            out.append((met, TO.tree_leaves(p) + TO.tree_leaves(st)))
+    finally:
+        dist.destroy_process_group()
+    (m0, l0), (m1, l1) = out
+    assert torch.equal(m0["loss"], m1["loss"])
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+    assert all(torch.equal(a.detach(), b.detach()) for a, b in zip(l0, l1))
+    step = TT.make_train_step(dataclasses.replace(cfg, microbatches=3),
+                              TT.TrainConfig())
     p = TLM.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="microbatches"):
         step(p, {}, _batch(cfg, b=4), 0)
@@ -482,8 +510,14 @@ def test_train_lm_runs_every_optimizer_without_a_checkpoint(capsys):
                                   "--optimizer", opt]))
         assert len(res["logs"]) == 2
         assert all(math.isfinite(r["loss"]) for r in res["logs"])
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TTR.train_lm(_args(["--arch", "mamba2-370m", "--mesh"]))
+    # --mesh on a one-rank world of this process: the (1, 1) mesh's run
+    # is the run without it, bit for bit.
+    argv = ["--arch", "mamba2-370m", "--steps", "2", "--batch", "2",
+            "--seq", "16"]
+    plain = TTR.train_lm(_args(argv))
+    meshed = TTR.train_lm(_args(argv + ["--mesh"]))
+    assert meshed["mesh"].shape == (1, 1)
+    assert meshed["logs"][-1]["loss"] == plain["logs"][-1]["loss"]
     with pytest.raises(NotImplementedError, match="GBDT's --dist"):
         TTR.train_lm(_args(["--arch", "mamba2-370m", "--compress"]))
 
