@@ -74,7 +74,9 @@ Phases (any failure exits non-zero; nothing is caught):
      function, that call;
   4. fit the paper's configuration (``configs/sketchboost_tabular.py``) at
      full width, 2,097,152 rows x 100 features, d = 512, k = 5, depth 6,
-     256 bins, all 100 rounds, with a 131,072-row eval set;
+     256 bins, all 100 rounds, with a 131,072-row eval set, through the
+     default ``loop="scan"`` (segments of 32 rounds: a round's seconds
+     are its segment's average);
   5. predict 262,144 held-out rows through the traversal kernel;
   6. profile two more rounds of the loop body (device time by kernel,
      the device's busy share);
@@ -212,7 +214,9 @@ Phases (any failure exits non-zero; nothing is caught):
      arguments and with ``--dist`` on a one-rank NCCL world; (a)'s losses
      and its parameters after the timed steps are kept on the host for
      phase 16;
- 15. the roofline on the card (`roofline_phase`): phase 4's median round
+ 15. (run last, after phase 17, so that its lines stand just before the
+     kernel table) the roofline on the card (`roofline_phase`): phase 4's
+     median round
      (counted on the card after phase 5 under the roofline counter, its
      eval included), phase 10's 1 x 32,768 prefill, phase 11's decode_32k
      step and phase 14's training step, each with its counted FLOPs and
@@ -232,8 +236,21 @@ Phases (any failure exits non-zero; nothing is caught):
      14 (b)'s limits; each rank's collective bytes by op equal to
      `roofline.analysis.lm_collectives`; a rank's step time and peak
      memory;
- 17. print the kernel table as one JSON line (B7's and its backward's rows
-     with their launches on phase 16's meshes), the card's line, and last
+ 17. the rest of the reference's surface (`surface_phase`) on phase 4's
+     model, kept on the host since phase 9c: (a) `tree.predict_forest`
+     over the 262,144 held-out rows bitwise `predict_raw` (B3), and
+     `tree.tree_leaf_index` of each tree bitwise `SketchBoost.apply`'s
+     leaf ids; (b) `boosting.boost_scan` at full width, 6 rounds at
+     ``scan_chunk=4`` with an eval set, bitwise ``loop="python"``, the
+     validation losses read once a segment, seconds a round for both
+     loops; (c) `split.brute_force_best_split` on a 4,096 x 32 root at
+     k = 5 picks B2's split; (d) `losses.rmse` and `accuracy` against
+     numpy within 1e-6; (e) the four `repro_torch.examples` at their
+     default sizes through their ``main``, timed, ``distributed_gbdt`` on
+     eight gloo ranks sharing the card at mesh (4, 2);
+ 18. print the kernel table as one JSON line (B7's and its backward's rows
+     with their launches on phase 16's meshes, and each kernel's launches
+     in phase 17 (e)'s examples), the card's line, and last
      ``{"ok": true, "device": {...}}``.
 
 Phase 4's data are made on the card from a seeded ``torch.Generator``
@@ -250,7 +267,9 @@ decode steps (B8), in each rank of phase 12 around each distributed
 fit and the prediction after it (B1, B2, B3, B4, B1-bf16), and around
 each of phase 13's prefill runs (B7) and decode mixes (B8), around
 phase 14 (a)'s timed training steps (B7 and its backward), around phase
-16 (a)'s and in each rank of 16 (b) around its step.
+16 (a)'s and in each rank of 16 (b) around its step, and around each of
+phase 17 (e)'s examples (in the script's process: not in the ranks of
+``distributed_gbdt``).
 """
 from __future__ import annotations
 
@@ -4260,6 +4279,208 @@ def roofline_phase(torch, round_counter, round_s, prefill, decode,
     return rows
 
 
+def to_device(torch, nt, dev):
+    """A NamedTuple's tensors on ``dev`` (a packed forest's ``lr`` stays the
+    host scalar the kernels take)."""
+    return nt._replace(**{k: v.to(dev) for k, v in nt._asdict().items()
+                          if torch.is_tensor(v) and k != "lr"})
+
+
+def move_model(torch, model, dev):
+    """A fitted `SketchBoost`'s tensors moved to ``dev``: phase 4's model
+    waits on the host while phases 9c to 16 have the card, and comes back
+    for phase 17."""
+    model.forest = to_device(torch, model.forest, dev)
+    model.packed = to_device(torch, model.packed, dev)
+    model.quantizer = to_device(torch, model.quantizer, dev)
+    model.base_score = model.base_score.to(dev)
+    model.device = torch.device(dev)
+    model._path_pack = None
+    return model
+
+
+# Phase 17 (c)'s node: a root of 4,096 rows x 32 features x 256 bins, k = 5.
+ORACLE_NODE = (4096, 32, 5)
+EXAMPLES = ("quickstart", "serve_gbdt", "explain_gbdt", "distributed_gbdt")
+
+
+def surface_phase(torch, dev, model, Xtr, ytr, Xte, yte, every):
+    """Phase 17: the rest of the reference's surface on the card, on phase
+    4's model.  (a) `tree.predict_forest` over the 262,144 held-out rows
+    bitwise `predict_raw` (B3), and `tree.tree_leaf_index` of every tree
+    bitwise `SketchBoost.apply`'s leaf ids; (b) `boosting.boost_scan` at
+    full width: 6 rounds at ``scan_chunk=4`` (a full and a partial segment)
+    with an eval set, the forest bitwise ``loop="python"``'s from the same
+    seed, the validation losses equal, read twice against six times;
+    (c) `split.brute_force_best_split` on `ORACLE_NODE` picks B2's
+    (feature, threshold) on B4's histogram, gains within 1e-5 relative;
+    (d) `losses.rmse` and `accuracy` on (a)'s predictions against numpy
+    on the copied values within 1e-6; (e) the four examples of
+    `repro_torch.examples` at their default sizes, each through its
+    ``main``, timed, with its launches (counts set to zero just before
+    each).  Returns the record."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import boosting as BO
+    from repro_torch.core import losses as L
+    from repro_torch.core import split as S
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    rec = {}
+
+    # (a) the forest replay and the leaf walk against the traversal.
+    codes = model._bin(Xte)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = model.predict_raw(Xte)
+    torch.cuda.synchronize()
+    raw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replay = T.predict_forest(model.forest, codes, cfg.learning_rate,
+                              model.base_score)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    bitwise = bool(torch.equal(raw, replay))
+    ids = model.apply(Xte)
+    off, depth = 2 ** model.forest.depth - 1, model.forest.depth
+    leaves_equal = all(
+        torch.equal(T.tree_leaf_index(model.forest.feat[t],
+                                      model.forest.thr[t], codes,
+                                      depth=depth) + off, ids[:, t])
+        for t in range(model.forest.n_trees))
+    rec["a"] = dict(rows=len(Xte), trees=model.forest.n_trees,
+                    predict_forest_bitwise_b3=bitwise,
+                    leaf_index_bitwise_apply=leaves_equal,
+                    predict_raw_s=raw_s, predict_forest_s=replay_s)
+    print(f"[17] (a) predict_forest over {len(Xte)} rows x "
+          f"{model.forest.n_trees} trees bitwise predict_raw (B3) {bitwise} "
+          f"({replay_s:.4f} s against {raw_s:.4f} s, binning included "
+          f"there); tree_leaf_index bitwise apply's leaf ids {leaves_equal}")
+    assert bitwise and leaves_equal
+    del replay, ids, codes
+
+    # (d) the metrics on (a)'s predictions.
+    Y = torch.as_tensor(yte, device=dev).long()
+    P = torch.softmax(raw, -1)
+    acc, rm = float(L.accuracy(raw, Y)), float(
+        L.rmse(P, torch.nn.functional.one_hot(Y, P.shape[1]).float()))
+    raw_h, P_h = raw.cpu().numpy(), P.cpu().numpy().astype(np.float64)
+    acc_np = float((raw_h.argmax(1) == yte).mean())
+    # sum (P - onehot)^2 = sum P^2 - 2 sum P[i, y_i] + n, in float64
+    sq = (np.square(P_h).sum() - 2 * P_h[np.arange(len(yte)), yte].sum()
+          + len(yte))
+    rm_np = float(np.sqrt(sq / P_h.size))
+    rec["d"] = dict(accuracy=acc, accuracy_numpy=acc_np, rmse=rm,
+                    rmse_numpy=rm_np)
+    print(f"[17] (d) accuracy {acc!r} (numpy {acc_np!r}), rmse of the "
+          f"probabilities against one-hot labels {rm!r} (numpy {rm_np!r})")
+    assert abs(acc - acc_np) <= 1e-6 and abs(rm - rm_np) <= 1e-6 * rm_np
+    del raw, P, Y, raw_h, P_h
+
+    # (b) boost_scan against the per-round loop at full width.
+    reads = []
+    real_read = BO._to_host
+    BO._to_host = lambda t: (reads.append(tuple(t.shape)), real_read(t))[1]
+    fits = {}
+    try:
+        for loop in ("scan", "python"):
+            reads.clear()
+            c = dataclasses.replace(cfg, loop=loop, n_trees=6, scan_chunk=4,
+                                    early_stopping_rounds=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = BO.SketchBoost(c, device=dev).fit(
+                Xtr, ytr, eval_set=(Xte[:N_EVAL], yte[:N_EVAL]))
+            torch.cuda.synchronize()
+            fits[loop] = dict(model=m, fit_s=time.perf_counter() - t0,
+                              reads=list(reads))
+    finally:
+        BO._to_host = real_read
+    a, b = fits["scan"]["model"], fits["python"]["model"]
+    same = all((x is None and z is None) or torch.equal(x, z)
+               for x, z in zip(a.forest, b.forest))
+    vl = [[h["valid_loss"] for h in f["model"].history] for f in
+          (fits["scan"], fits["python"])]
+    rec["b"] = {loop: dict(fit_s=f["fit_s"], round_s=f["model"].history[-1][
+        "train_time_s"] / 6, loss_reads=f["reads"], valid_loss=vl[i])
+        for i, (loop, f) in enumerate(fits.items())}
+    rec["b"]["forest_bitwise"], rec["b"]["valid_loss_equal"] = same, (
+        vl[0] == vl[1])
+    print(f"[17] (b) 6 rounds at full width, scan_chunk=4: forest bitwise "
+          f"loop='python' {same}, validation losses equal {vl[0] == vl[1]} "
+          f"({vl[0]}); seconds a round scan "
+          f"{rec['b']['scan']['round_s']:.4f} python "
+          f"{rec['b']['python']['round_s']:.4f} (fits {fits['scan']['fit_s']:.2f}"
+          f" and {fits['python']['fit_s']:.2f} s, binning included); loss "
+          f"reads {fits['scan']['reads']} against {fits['python']['reads']}")
+    assert same and vl[0] == vl[1]
+    assert fits["scan"]["reads"] == [(4,), (2,)], fits["scan"]["reads"]
+    assert len(fits["python"]["reads"]) == 6
+    del a, b, fits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) B2 against the brute-force oracle on one root node.
+    n, m, k = ORACLE_NODE
+    gen = torch.Generator(device=dev).manual_seed(17)
+    codes = torch.randint(0, 256, (n, m), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    g = torch.randn((n, k), generator=gen, device=dev)
+    g[codes[:, 7] <= 100] += 0.25                  # a planted split
+    stats = torch.cat([g, torch.ones((n, 1), device=dev)], 1)
+    hist = ops.histogram(codes.t().contiguous(),
+                         torch.zeros(n, dtype=torch.int32, device=dev),
+                         stats, n_nodes=1, n_bins=256)
+    best_gain, best_idx = ops.split_scan(hist, 1.0, 1.0)
+    kf, kt = divmod(int(best_idx[0]), 256)
+    kg = float(best_gain[0])
+    t0 = time.perf_counter()
+    of, ot, og = S.brute_force_best_split(codes, stats, 1.0, 1)
+    oracle_s = time.perf_counter() - t0
+    rel = abs(kg - og) / abs(og)
+    rec["c"] = dict(node=list(ORACLE_NODE), b2=[kf, kt, kg],
+                    oracle=[of, ot, og], gain_rel_diff=rel,
+                    oracle_s=oracle_s)
+    print(f"[17] (c) B2 picks feature {kf} threshold {kt} gain {kg!r}; the "
+          f"brute-force oracle feature {of} threshold {ot} gain {og!r} "
+          f"(relative difference {rel:.3e}, {oracle_s:.2f} s)")
+    assert (kf, kt) == (of, ot) and rel <= 1e-5
+    del codes, g, stats, hist
+
+    # (e) the examples at their default sizes.
+    import importlib
+    rec["e"] = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        for kern in every:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mod.main([])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {kern.name: kern.launches for kern in every
+                    if kern.launches}
+        rec["e"][name] = dict(seconds=secs, launches=launches, result=out)
+        print(f"[17] (e) {name} on the card in {secs:.2f} s; launches in "
+              f"this process {launches}")
+    want = {"quickstart": ("hist_nodes", "split_scan", "forest_traverse"),
+            "serve_gbdt": ("hist_nodes", "split_scan", "forest_traverse",
+                           "forest_traverse_quant_int8"),
+            "explain_gbdt": ("hist_nodes", "split_scan", "tree_shap")}
+    for name, names in want.items():
+        got = rec["e"][name]["launches"]
+        assert all(got.get(x, 0) > 0 for x in names), (name, got)
+    dist = rec["e"]["distributed_gbdt"]["result"]
+    assert dist["mesh"] == [4, 2] and dist["accuracy"] > 1 / 16, dist
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[17] phase 17 took {rec['phase_s']:.2f} s")
+    return rec
+
+
 def main() -> int:
     import torch
     from repro_torch.configs import sketchboost_tabular as paper
@@ -4446,8 +4667,10 @@ def main() -> int:
     leafwise, bf16_launches = leafwise_phase(
         torch, dev, Xtr, ytr, Xev, yev, cfg, kernels + [b1bf])
     lap("9b leafwise")
-    # Phase 9c: free phases 4-9b's memory first.
-    del model, raw, pf_cpu, codes_te, Ytr
+    # Phase 9c: free phases 4-9b's memory first; phase 4's model waits on
+    # the host for phase 17.
+    move_model(torch, model, "cpu")
+    del raw, pf_cpu, codes_te, Ytr
     gc.collect()
     torch.cuda.empty_cache()
     one_vs_all, ova_launches = ova_phase(torch, dev, Xtr, ytr, Xev, yev,
@@ -4542,15 +4765,28 @@ def main() -> int:
         if r["name"] in (b7.name, b8.name):
             r["family_launches"] = {arch: v[r["name"]] for arch, v in
                                     family_launches.items()}
-    roofline = roofline_phase(torch, round_counter, round_s, prefill,
-                              decode, training)
-    lap("15 roofline")
     # Phase 16 runs alone on the card: phase 14's state is freed.
     gc.collect()
     torch.cuda.empty_cache()
     mesh_training = mesh_training_phase(torch, dev, b7, b7b, every, after14)
     del after14
     lap("16 mesh training")
+    # Phase 17 runs alone on the card, on phase 4's model brought back.
+    gc.collect()
+    torch.cuda.empty_cache()
+    surface = surface_phase(torch, dev, move_model(torch, model, dev), Xtr,
+                            ytr, Xte, yte, every)
+    del model
+    lap("17 surface")
+    for r in rows:                           # the examples of phase 17 (e)
+        by_example = {k: v["launches"][r["name"]] for k, v in
+                      surface["e"].items() if r["name"] in v["launches"]}
+        if by_example:
+            r["examples_launches"] = by_example
+    # Phase 15 last, so its lines stand just before the kernel table.
+    roofline = roofline_phase(torch, round_counter, round_s, prefill,
+                              decode, training)
+    lap("15 roofline")
     for r in rows:                           # B7, B7-bwd: phase 16's step
         if r["name"] in (b7.name, b7b.name):
             r["mesh_launches"] = {
@@ -4559,7 +4795,7 @@ def main() -> int:
                 "b_mesh_2x2_a_rank": [n[r["name"]] for n in
                                       mesh_training["b"]["launches"]]}
     script_s = time.perf_counter() - t_script
-    print(f"[17] the script took {script_s:.1f} s")
+    print(f"[18] the script took {script_s:.1f} s")
     print(json.dumps({"kernels": rows, "fit_s": fit_s, "script_s": script_s,
                       "fit_round_s": round_s, "predict_rows_per_s":
                       N_TEST / pred_s, "serve": serve, "explain": explain,
@@ -4570,6 +4806,7 @@ def main() -> int:
                       "decode": decode, "distributed": distributed,
                       "families": families, "training": training,
                       "roofline": roofline, "mesh_training": mesh_training,
+                      "surface": surface,
                       "laps_s": laps, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,10 +15,15 @@ resuming (``save_every``/``ckpt_dir``/``resume_from``, format v4 of
 (`core.distributed`); here it raises, as the reference's does.  The fitted model explains itself as the reference's does:
 `SketchBoost.shap_values`, `apply` and `feature_importances` (``explain/``).
 
-The loop runs one round per iteration for both ``loop="scan"`` (the
-default) and ``loop="python"``: the reference guarantees that its two loops
-train bit-identical forests, so one loop stands for both here (PyTorch
-runs eagerly; there is nothing to compile).  ``scan_chunk`` has no effect.
+Two loops, as the reference's, train the same forest bit for bit.
+``loop="scan"`` (the default) runs `boost_scan` segments of ``scan_chunk``
+rounds (cut at ``save_every`` and chaos rounds): each segment stacks its
+trees, keeps every round's validation loss on the device and reads them
+once, and the host replays early stopping and ``eval_every`` from them.
+``loop="python"`` runs one `boost_round` a round and reads the loss each
+evaluated round.  Under ``guard_policy="raise"`` the scan loop checks the
+scores once a segment and names the segment's last round, as the
+reference's does.
 
 RNG seam: the reference splits each round's key into a sketch, a sample
 and a column key, threefry streams that ``torch.Generator`` cannot
@@ -192,6 +197,15 @@ class GBDTConfig:
         for ok, msg in checks:
             if not ok:
                 raise ValueError(msg)
+
+    def resolve(self, d: int) -> "GBDTConfig":
+        """Validate, bind the output dimension ``d`` and normalise
+        ``hist_engine`` (`histogram.resolve_hist_engine`).  ``use_kernel``
+        stays as it is: the port picks kernels by device."""
+        self.validate()
+        return dataclasses.replace(
+            self, n_outputs=d,
+            hist_engine=H.resolve_hist_engine(self.hist_engine))
 
     def strip_io(self) -> "GBDTConfig":
         """The config without its checkpoint knobs: what the rounds run
@@ -418,10 +432,7 @@ class SketchBoost:
         else:
             X = np.ascontiguousarray(X, dtype=np.float32)
         d = self._infer_d(y)
-        cfg = dataclasses.replace(
-            self.cfg, n_outputs=d,
-            hist_engine=H.resolve_hist_engine(self.cfg.hist_engine))
-        loss = L.get_loss(cfg.loss)
+        cfg = self.cfg.resolve(d)
         chaos = CH.as_chaos_list(chaos)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
@@ -458,7 +469,7 @@ class SketchBoost:
         else:
             F = self.base_score.expand(n, d).contiguous()
         has_eval = eval_set is not None
-        Fv = None
+        Fv = codes_v = Yv = None
         if has_eval:
             m = self.quantizer.edges.shape[0]
             Xv = (validate_features(eval_set[0], n_features=m,
@@ -494,23 +505,114 @@ class SketchBoost:
         if state is not None:
             self._resume_generator(gen, state, cfg, sketch_mats,
                                    sample_draws, feature_draws)
-            start, trees = state.round, T.unstack_trees(state.trees)
-            best_loss, best_round = state.best_loss, state.best_round
+            prefix = state.trees
+            best = (state.best_loss, state.best_round)
             self.history = list(state.history)
         else:
-            start, trees, best_loss, best_round = 0, [], np.inf, -1
+            prefix, best = None, (np.inf, -1)
             self.history = []
-        saver = self._make_saver(cfg, has_eval, gen)
-        run_cfg = cfg.strip_io()
+        loop = self._fit_scan if cfg.loop == "scan" else self._fit_python
+        forest, best_round = loop(
+            cfg.strip_io(), F, codes, codes_t, Y, Fv, codes_v, Yv, has_eval,
+            gen, verbose, start=0 if state is None else state.round,
+            prefix=prefix, best=best, chaos=chaos,
+            saver=self._make_saver(cfg, has_eval, gen),
+            save_every=cfg.save_every,
+            draws=(sketch_mats, sample_draws, feature_draws))
+        if best_round >= 0 and cfg.early_stopping_rounds:
+            forest = _head(forest, best_round + 1)
+        self.best_round = (best_round if best_round >= 0
+                           else forest.feat.shape[0] - 1)
+        self.cfg = cfg
+        self.forest = forest
+        self.packed = self._pack(self.forest, cfg)
+        self._path_pack = None
+        return self
+
+    def _fit_scan(self, cfg: GBDTConfig, F, codes, codes_t, Y, Fv, codes_v,
+                  Yv, has_eval: bool, gen, verbose: bool, *, start: int,
+                  prefix, best, chaos, saver, save_every: int, draws):
+        """The default loop: `boost_scan` segments of ``scan_chunk`` rounds,
+        cut at checkpoint (``save_every``) and chaos rounds so that saves
+        and injections land on round boundaries.  The validation losses are
+        read once a segment, and early stopping and ``eval_every`` are
+        replayed from them on the host; ``train_time_s`` is interpolated
+        within a segment.  Returns the stacked forest of every round run
+        and the best round."""
+        n_total = cfg.n_trees
+        chunk = cfg.scan_chunk if cfg.scan_chunk > 0 else n_total
+        chunk = max(1, min(chunk, max(n_total - start, 1)))
+        best_loss, best_round = best
+        chunks = [] if prefix is None else [prefix]
+        done, stop = start, False
+        t0 = time.perf_counter()
+        seg_start = 0.0
+        while done < n_total and not stop:
+            CH.check_round_all(chaos, done)
+            Y = _chaos_mutate(chaos, Y, done)
+            steps = min(chunk, n_total - done)
+            if save_every > 0:
+                steps = min(steps, (done // save_every + 1) * save_every
+                            - done)
+            nxt = _next_chaos_round(chaos, done)
+            if nxt is not None:
+                steps = min(steps, nxt - done)
+            F, Fv, trees, vloss = boost_scan(
+                F, codes, codes_t, Y, Fv, codes_v, Yv, cfg, n_steps=steps,
+                has_eval=has_eval, generator=gen,
+                draws=_segment_draws(draws, done, steps))
+            vl = _to_host(vloss)           # the segment's one host read
+            if cfg.guard_policy == "raise":
+                GU.check_scores_host(F, done + steps - 1)
+            elapsed = time.perf_counter() - t0
+            keep = steps
+            for j in range(steps):
+                it = done + j
+                rec = {"round": it, "train_time_s":
+                       seg_start + (elapsed - seg_start) * (j + 1) / steps}
+                if has_eval and it % cfg.eval_every == 0:
+                    rec["valid_loss"] = vl[j]
+                    if vl[j] < best_loss - 1e-9:
+                        best_loss, best_round = vl[j], it
+                    if (cfg.early_stopping_rounds
+                            and it - best_round >= cfg.early_stopping_rounds):
+                        self.history.append(rec)
+                        keep, stop = j + 1, True
+                        if verbose:
+                            print(f"[sketchboost] early stop @ {it} "
+                                  f"(best {best_loss:.5f} @ {best_round})")
+                        break
+                self.history.append(rec)
+            chunks.append(trees if keep == steps else _head(trees, keep))
+            done += keep
+            seg_start = elapsed
+            if saver is not None and not stop and done % save_every == 0:
+                saver(done, _concat_chunks(chunks), F, Fv, best_loss,
+                      best_round, list(self.history))
+            if verbose and not stop:
+                msg = f"[sketchboost] round {done - 1}"
+                if has_eval:
+                    msg += f" valid_loss={vl[keep - 1]:.5f}"
+                print(msg)
+        return _concat_chunks(chunks), best_round
+
+    def _fit_python(self, cfg: GBDTConfig, F, codes, codes_t, Y, Fv,
+                    codes_v, Yv, has_eval: bool, gen, verbose: bool, *,
+                    start: int, prefix, best, chaos, saver, save_every: int,
+                    draws):
+        """One `boost_round` a round, the validation loss read every
+        evaluated round; trains the forest of `_fit_scan` bit for bit."""
+        loss = L.get_loss(cfg.loss)
+        trees = [] if prefix is None else T.unstack_trees(prefix)
+        best_loss, best_round = best
         t0 = time.perf_counter()
         for it in range(start, cfg.n_trees):
             CH.check_round_all(chaos, it)
             Y = _chaos_mutate(chaos, Y, it)
-            tree = boost_round(
-                F, codes, codes_t, Y, run_cfg,
-                draw=_round_draw(sketch_mats, it), generator=gen,
-                sample_draw=_round_draw(sample_draws, it),
-                feature_draw=_round_draw(feature_draws, it))
+            draw, sample_draw, feature_draw = _round_draws(draws, it)
+            tree = boost_round(F, codes, codes_t, Y, cfg, draw=draw,
+                               generator=gen, sample_draw=sample_draw,
+                               feature_draw=feature_draw)
             if cfg.guard_policy == "raise":
                 GU.check_scores_host(F, it)
             trees.append(tree)
@@ -518,7 +620,7 @@ class SketchBoost:
             if has_eval:
                 Fv = _apply_tree(tree, codes_v, Fv, cfg)
             if has_eval and it % cfg.eval_every == 0:
-                vloss = float(loss.value(Fv, Yv))
+                vloss = _to_host(loss.value(Fv, Yv))
                 rec["valid_loss"] = vloss
                 if vloss < best_loss - 1e-9:
                     best_loss, best_round = vloss, it
@@ -530,23 +632,15 @@ class SketchBoost:
                               f"(best {best_loss:.5f} @ {best_round})")
                     break
             self.history.append(rec)
-            if saver is not None and (it + 1) % cfg.save_every == 0:
-                saver(it + 1, trees, F, Fv, best_loss, best_round,
-                      list(self.history))
+            if saver is not None and (it + 1) % save_every == 0:
+                saver(it + 1, T.stack_trees(trees), F, Fv, best_loss,
+                      best_round, list(self.history))
             if verbose and it % 20 == 0:
                 msg = f"[sketchboost] round {it}"
                 if "valid_loss" in rec:
                     msg += f" valid_loss={rec['valid_loss']:.5f}"
                 print(msg)
-
-        if best_round >= 0 and cfg.early_stopping_rounds:
-            trees = trees[:best_round + 1]
-        self.best_round = best_round if best_round >= 0 else len(trees) - 1
-        self.cfg = cfg
-        self.forest = T.stack_trees(trees)
-        self.packed = self._pack(self.forest, cfg)
-        self._path_pack = None
-        return self
+        return T.stack_trees(trees), best_round
 
     def _pack(self, forest, cfg: GBDTConfig) -> FO.PackedForest:
         return FO.pack_forest(
@@ -593,8 +687,7 @@ class SketchBoost:
             return None
         from repro_torch.io import checkpoint as CK
 
-        def save(round_done, trees, F, Fv, best_loss, best_round, history):
-            forest = T.stack_trees(trees)
+        def save(round_done, forest, F, Fv, best_loss, best_round, history):
             packed = self._pack(forest, cfg)
             meta = _resume_cfg_snapshot(cfg)
             meta["extra_meta"] = {
@@ -698,6 +791,48 @@ def _round_draw(draws: Optional[Sequence], it: int):
     return None if draws is None else draws[it]
 
 
+def _round_draws(draws: Tuple, it: int) -> Tuple:
+    """Round ``it``'s (sketch, sample, feature) draws from ``fit``'s
+    ``(sketch_mats, sample_draws, feature_draws)``."""
+    return tuple(_round_draw(d, it) for d in draws)
+
+
+def _segment_draws(draws: Tuple, start: int, steps: int):
+    """The per-round draw triples of rounds ``start .. start + steps - 1``
+    for `boost_scan`, or None when nothing is injected."""
+    if all(d is None for d in draws):
+        return None
+    return [_round_draws(draws, it) for it in range(start, start + steps)]
+
+
+def _next_chaos_round(chaos, done: int) -> Optional[int]:
+    """The earliest chaos trigger round after ``done`` (a scan segment
+    ends there, so the injection lands on a round boundary)."""
+    rounds = [int(c.round) for c in chaos
+              if getattr(c, "round", None) is not None and int(c.round) > done]
+    return min(rounds) if rounds else None
+
+
+def _to_host(t: torch.Tensor):
+    """A device value read to the host (a float, or a list of them): the
+    loops' one read of the validation loss, a round's or a segment's."""
+    return t.tolist()
+
+
+def _head(stacked, n: int):
+    """The first ``n`` rounds of a stacked `Forest` or `NodeTree`."""
+    return type(stacked)(*[None if f is None else f[:n] for f in stacked])
+
+
+def _concat_chunks(chunks):
+    """Stacked segments (and a resumed prefix) joined along the round
+    axis."""
+    if len(chunks) == 1:
+        return chunks[0]
+    return type(chunks[0])(*[None if f[0] is None else torch.cat(f)
+                             for f in zip(*chunks)])
+
+
 def _draw_tensor(draw, device) -> Optional[torch.Tensor]:
     """An injected draw (numpy array or tensor) as float32 on ``device``."""
     if draw is None:
@@ -775,6 +910,45 @@ def boost_round(F: torch.Tensor, codes: torch.Tensor, codes_t: torch.Tensor,
                               device=device))        # lr * v, then the add
     F.add_(contrib)
     return tree
+
+
+def boost_scan(F: torch.Tensor, codes: torch.Tensor, codes_t: torch.Tensor,
+               Y: torch.Tensor, Fv: Optional[torch.Tensor],
+               codes_v: Optional[torch.Tensor], Yv: Optional[torch.Tensor],
+               cfg: GBDTConfig, *, n_steps: int, has_eval: bool,
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[Sequence] = None):
+    """``n_steps`` boosting rounds, one segment of the default loop.
+
+    Each round is a `boost_round` (F updated in place); with an eval set
+    the round's tree is added to ``Fv`` through the traversal kernel and
+    its validation loss kept on the device.  ``draws`` is None or
+    ``n_steps`` ``(draw, sample_draw, feature_draw)`` triples, round j's
+    injected draws (`boost_round`); what is not given comes from
+    ``generator``.  Nothing here reads a value to the host that the rounds
+    do not read themselves.
+
+    Returns ``(F, Fv, trees, vloss)``: ``trees`` the segment's trees
+    stacked with a leading ``n_steps`` axis (`tree.stack_trees`), ``vloss``
+    an ``(n_steps,)`` float32 tensor on the device (zeros without an eval
+    set).
+    """
+    loss = L.get_loss(cfg.loss)
+    trees, vloss = [], []
+    zero = torch.zeros((), dtype=torch.float32, device=F.device)
+    for j in range(n_steps):
+        draw, sample_draw, feature_draw = (
+            (None, None, None) if draws is None else draws[j])
+        tree = boost_round(F, codes, codes_t, Y, cfg, draw=draw,
+                           generator=generator, sample_draw=sample_draw,
+                           feature_draw=feature_draw)
+        trees.append(tree)
+        if has_eval:
+            Fv = _apply_tree(tree, codes_v, Fv, cfg)
+            vloss.append(loss.value(Fv, Yv).to(torch.float32))
+        else:
+            vloss.append(zero)
+    return F, Fv, T.stack_trees(trees), torch.stack(vloss)
 
 
 def _one_vs_all_round(F: torch.Tensor, codes: torch.Tensor,

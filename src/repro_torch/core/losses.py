@@ -3,6 +3,7 @@
 Port of the JAX package's ``core/losses.py``.  ``grad_hess`` returns
 per-sample, per-output derivatives with respect to the raw scores ``F``.
 Multiclass labels may be class ids ``(n,)`` or one-hot rows ``(n, d)``.
+`rmse` and `accuracy` are the reference's metrics for benches and tests.
 """
 from __future__ import annotations
 
@@ -73,3 +74,19 @@ def get_loss(name: str) -> Loss:
         return LOSSES[name]
     except KeyError:
         raise ValueError(f"unknown loss {name!r}; available: {sorted(LOSSES)}")
+
+
+def rmse(F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Root mean squared error over every element, a float32 scalar on the
+    input's device."""
+    return torch.sqrt(torch.square(F.to(torch.float32) - Y).mean())
+
+
+def accuracy(F: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Share of rows whose arg-max score is the label; ``Y`` holds class
+    ids (n,) or one-hot rows (n, d).  A float32 scalar on the input's
+    device."""
+    pred = F.argmax(-1)
+    if Y.ndim > 1:
+        Y = Y.argmax(-1)
+    return (pred == Y).to(torch.float32).mean()

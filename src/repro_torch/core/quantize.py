@@ -5,7 +5,8 @@ edges are fitted once on the host with numpy, and codes are
 ``searchsorted(edges, x, side="left") + 1`` with NaN -> ``MISSING_BIN = 0``.
 Codes come out feature-major, ``(m, n)`` uint8, the layout the histogram
 kernel reads; `codes_rows` gives the row-major ``(n, m)`` twin that routing
-and the traversal kernels read.
+and the traversal kernels read.  `quantize_uniform` is the reference's
+min/max binning for tests and synthetic benches.
 
 Forest half: `QuantizedForest` stores a trained forest for serving with
 uint8 thresholds (bin codes, so every split decision is exact) and int8 or
@@ -72,6 +73,24 @@ def apply_quantizer(q: Quantizer, X: torch.Tensor) -> torch.Tensor:
 def codes_rows(codes_t: torch.Tensor) -> torch.Tensor:
     """(m, n) feature-major codes -> (n, m) row-major codes."""
     return codes_t.t().contiguous()
+
+
+def quantize_uniform(X: torch.Tensor, n_bins: int = MAX_BINS) -> torch.Tensor:
+    """Uniform (min/max) binning for tests and synthetic benches: (n, m)
+    float32 -> (n, m) uint8 row-major codes on X's device.  Per column,
+    ``code = clip((x - min) * (n_bins - 1) / max(max - min, 1e-12), 0,
+    n_bins - 2) + 1`` truncated, min and max over the non-NaN rows; NaN ->
+    ``MISSING_BIN``.  The reference's float32 arithmetic, op for op."""
+    X = X.to(torch.float32)
+    nan = torch.isnan(X)
+    lo = torch.where(nan, torch.inf, X).amin(0, keepdim=True)
+    hi = torch.where(nan, -torch.inf, X).amax(0, keepdim=True)
+    span = torch.clamp(hi - lo, min=1e-12)
+    # A tensor numerator: ``int / tensor`` multiplies by the reciprocal.
+    scale = torch.tensor(n_bins - 1, dtype=torch.float32,
+                         device=X.device) / span
+    codes = torch.clamp((X - lo) * scale, 0, n_bins - 2).to(torch.int32) + 1
+    return torch.where(nan, MISSING_BIN, codes).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,9 @@ of the sum (but in the rare case that two orders' float64 sums straddle a
 float32 rounding boundary), so the card's split scan (B2, which sums them
 in its own order, in float64 too) gives the plain version's gains bit for
 bit at any channel count.
+
+`brute_force_best_split` is the from-first-principles oracle the tests
+hold the split search (B2) to: it reads the raw rows, not histograms.
 """
 from __future__ import annotations
 
@@ -84,3 +87,37 @@ def best_splits(gain: torch.Tensor, min_gain: float = 0.0) -> Splits:
     best, idx = flat_argmax(gain)
     return splits_from_flat(best, idx, n_bins=gain.shape[2],
                             min_gain=min_gain)
+
+
+def brute_force_best_split(codes: torch.Tensor, stats: torch.Tensor,
+                           lam: float, min_data: float = 0):
+    """The best split of ONE node, enumerated from the raw rows: every
+    feature f and every threshold ``0 .. max(codes[:, f])``, the left rows
+    ``codes[:, f] <= thr``, scored from the rows' own statistics in
+    float64.  ``codes`` (n, m) uint8, ``stats`` (n, k+1) with the counts
+    last.  A candidate with fewer than ``min_data`` counted rows on a side,
+    or none on the right, is skipped; ties keep the first (feature, then
+    threshold).  Returns ``(feat, thr, gain)`` as Python scalars, ``(0,
+    255, -inf)`` when nothing is legal.  For tests only: O(n m B k)."""
+    n, m = codes.shape
+    g = stats[:, :-1].to(torch.float64)
+    counts = stats[:, -1].to(torch.float64)
+    c_tot, g_tot = counts.sum(), g.sum(0)
+    s_parent = g_tot.square().sum() / (c_tot + lam)
+    best_feat, best_thr, best_gain = 0, 255, float("-inf")
+    for f in range(m):
+        col = codes[:, f].long()
+        thr = torch.arange(int(col.max()) + 1, device=codes.device)
+        left = (col[None, :] <= thr[:, None]).to(torch.float64)  # (T, n)
+        cl = left @ counts
+        cr = c_tot - cl
+        gl = left @ g
+        gr = g_tot - gl
+        s = gl.square().sum(1) / (cl + lam) + gr.square().sum(1) / (cr + lam)
+        gain = 0.5 * (s - s_parent)
+        legal = (cl >= min_data) & (cr >= min_data) & (cr != 0)
+        gain = torch.where(legal, gain, float("-inf"))
+        t = int(gain.argmax())
+        if float(gain[t]) > best_gain:
+            best_feat, best_thr, best_gain = f, t, float(gain[t])
+    return best_feat, best_thr, best_gain

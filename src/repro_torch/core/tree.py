@@ -108,6 +108,47 @@ def route_bits(codes: torch.Tensor, node_pos: torch.Tensor,
     return (code.long() > thr.long()[p]).to(torch.int32)
 
 
+def route_level(codes: torch.Tensor, node_pos: torch.Tensor,
+                feat: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """Advance every row one level: ``pos <- 2 pos + [code > thr]``."""
+    return node_pos.to(torch.int32) * 2 + route_bits(codes, node_pos, feat,
+                                                     thr)
+
+
+def tree_leaf_index(feat: torch.Tensor, thr: torch.Tensor,
+                    codes: torch.Tensor, *, depth: int) -> torch.Tensor:
+    """Heap walk of one tree: (n, m) codes -> (n,) int32 leaf index."""
+    pos = torch.zeros(codes.shape[0], dtype=torch.int32, device=codes.device)
+    for lvl in range(depth):
+        heap = (pos + (2 ** lvl - 1)).long()
+        code = codes.gather(1, feat.long()[heap][:, None])[:, 0]
+        pos = pos * 2 + (code.long() > thr.long()[heap]).to(torch.int32)
+    return pos
+
+
+def predict_tree(tree: Tree, codes: torch.Tensor) -> torch.Tensor:
+    """(n, m) codes -> (n, d) leaf values of one heap tree."""
+    pos = tree_leaf_index(tree.feat, tree.thr, codes, depth=tree.depth)
+    return tree.value[pos.long()]
+
+
+def predict_forest(forest: Forest, codes: torch.Tensor, lr: float,
+                   base_score: torch.Tensor) -> torch.Tensor:
+    """Raw scores ``base + lr * sum_t f_t(x)`` of a stacked heap `Forest`,
+    tree by tree in index order, each add ``acc + (lr * v)`` rounded twice
+    (the product first), as `boost_round` adds a tree to F.  The reference
+    of the packed traversal: on a ``strategy="single_tree"`` forest its
+    scores equal `forest.predict_raw`'s (B3) bit for bit."""
+    n, d = codes.shape[0], forest.value.shape[-1]
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=codes.device)
+    acc = base_score.to(codes.device, torch.float32).expand(n, d).clone()
+    for t in range(forest.n_trees):
+        pos = tree_leaf_index(forest.feat[t], forest.thr[t], codes,
+                              depth=forest.depth)
+        acc += lr_t * forest.value[t][pos.long()]
+    return acc
+
+
 def grow_tree(codes: torch.Tensor, codes_t: torch.Tensor,
               stats: torch.Tensor, G: torch.Tensor, H_diag: torch.Tensor, *,
               depth: int, n_bins: int, lam: float,

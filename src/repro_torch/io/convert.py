@@ -2,9 +2,10 @@
 
 The JAX package's fitted objects are given as numpy arrays (``np.asarray``
 of each field), so this module needs nothing of JAX.  Both packages then
-compute on the same forest, quantizer, tree, path pack, LM parameters,
-LM optimizer state or LM KV cache; `lm_tree_to_arrays` carries LM trees
-(parameters, gradients, optimizer state) back.
+compute on the same forest (packed, or stacked heap trees), quantizer,
+tree, path pack, LM parameters, LM optimizer state or LM KV cache;
+`lm_tree_to_arrays` carries LM trees (parameters, gradients, optimizer
+state) back.
 Every helper places its tensors by the device rule: CUDA unless ``device``
 names another device.
 """
@@ -18,7 +19,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.forest import PackedForest
 from repro_torch.core.quantize import QuantizedForest, Quantizer
-from repro_torch.core.tree import NodeTree, Tree
+from repro_torch.core.tree import Forest, NodeTree, Tree
 from repro_torch.explain.paths import PathPack
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import lm
@@ -80,16 +81,28 @@ def quantizer_from_edges(edges: np.ndarray, n_bins: int,
                      n_bins=n_bins)
 
 
-def tree_from_arrays(feat, thr, value, gain, cover=None,
-                     device=None) -> Tree:
-    """A training-side heap `Tree` from the reference's tree buffers."""
+def _heap_fields(feat, thr, value, gain, cover, device) -> dict:
     device = resolve_device(device)
 
     def t(x, dtype):
-        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
-    return Tree(feat=t(feat, torch.int32), thr=t(thr, torch.int32),
+        return (None if x is None else
+                torch.as_tensor(np.array(x), dtype=dtype, device=device))
+    return dict(feat=t(feat, torch.int32), thr=t(thr, torch.int32),
                 value=t(value, torch.float32), gain=t(gain, torch.float32),
-                cover=None if cover is None else t(cover, torch.float32))
+                cover=t(cover, torch.float32))
+
+
+def tree_from_arrays(feat, thr, value, gain, cover=None,
+                     device=None) -> Tree:
+    """A training-side heap `Tree` from the reference's tree buffers."""
+    return Tree(**_heap_fields(feat, thr, value, gain, cover, device))
+
+
+def forest_from_arrays(feat, thr, value, gain=None, cover=None,
+                       device=None) -> Forest:
+    """A training-side heap `Forest` from the reference's stacked
+    ``tree.Forest`` buffers (a leading T axis on each)."""
+    return Forest(**_heap_fields(feat, thr, value, gain, cover, device))
 
 
 def node_tree_from_arrays(arrays: Mapping[str, np.ndarray], *,

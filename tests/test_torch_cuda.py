@@ -1988,3 +1988,90 @@ def test_four_gloo_ranks_on_one_card_match_the_card_step(dev, tmp_path):
                                  2 * cfg.n_layers,
                                  flash_attention.BWD_KERNEL.name:
                                  cfg.n_layers}
+
+
+# -- the rest of the reference's surface on the card -----------------------------
+
+def _scan_fit(device, loop, **kw):
+    from repro_torch.core.boosting import GBDTConfig, SketchBoost
+    from repro_torch.data.pipeline import make_tabular
+    X, y = make_tabular("multiclass", 4000, 12, 8, seed=5, n_informative=12)
+    cfg = GBDTConfig(loop=loop, n_trees=7, depth=5, sketch_k=3,
+                     learning_rate=0.5, min_data_in_leaf=20, **kw)
+    return SketchBoost(cfg, device=device).fit(
+        X[:3200], y[:3200], eval_set=(X[3200:], y[3200:]))
+
+
+@pytest.mark.parametrize("kw", [dict(scan_chunk=3),
+                                dict(scan_chunk=1, strategy="one_vs_all"),
+                                dict(scan_chunk=4, growth="leafwise",
+                                     max_leaves=12)],
+                         ids=["levelwise", "one_vs_all", "leafwise"])
+def test_boost_scan_on_card_trains_the_python_loops_forest(dev, kw):
+    """``loop="scan"`` (B1, B2 in the rounds, B3 in the eval) and the
+    per-round loop on the card: the same forest and losses bit for bit."""
+    a, b = _scan_fit(dev, "scan", **kw), _scan_fit(dev, "python", **kw)
+    for x, z in zip(a.forest, b.forest):
+        assert (x is None and z is None) or torch.equal(x, z)
+    assert [h["valid_loss"] for h in a.history] == [
+        h["valid_loss"] for h in b.history]
+
+
+def test_predict_forest_on_card_is_bitwise_predict_raw(dev):
+    from repro_torch.core import tree as T
+    from repro_torch.data.pipeline import make_tabular
+    m = _scan_fit(dev, "scan", scan_chunk=4)
+    X, _ = make_tabular("multiclass", 5000, 12, 8, seed=6)
+    codes = m._bin(X)
+    got = T.predict_forest(m.forest, codes, m.cfg.learning_rate,
+                           m.base_score)
+    assert torch.equal(got, m.predict_raw(X))
+    ids = m.apply(X)
+    for t in range(m.forest.n_trees):
+        leaf = T.tree_leaf_index(m.forest.feat[t], m.forest.thr[t], codes,
+                                 depth=m.forest.depth)
+        assert torch.equal(leaf + 2 ** m.forest.depth - 1, ids[:, t])
+
+
+def test_quantize_uniform_on_card_is_the_cpus(dev):
+    rng = np.random.default_rng(4)
+    X = (rng.normal(size=(20000, 9)) * 50).astype(np.float32)
+    X[rng.random(X.shape) < 0.03] = np.nan
+    X[:, 3], X[:, 5] = np.nan, 1.5
+    Xt = torch.from_numpy(X)
+    assert torch.equal(Q.quantize_uniform(Xt.to(dev)).cpu(),
+                       Q.quantize_uniform(Xt))
+
+
+def test_brute_force_oracle_agrees_with_the_split_kernel(dev):
+    """B2 on B4's histogram of one root (4,096 x 32 x 256, k = 5) against
+    `split.brute_force_best_split` on the raw rows."""
+    from repro_torch.core import split as S
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(3)
+    codes = torch.randint(0, 256, (4096, 32), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    g = torch.randn((4096, 5), generator=gen, device=dev)
+    g[codes[:, 11] <= 60] += 0.25
+    stats = torch.cat([g, torch.ones((4096, 1), device=dev)], 1)
+    hist = ops.histogram(codes.t().contiguous(),
+                         torch.zeros(4096, dtype=torch.int32, device=dev),
+                         stats, n_nodes=1, n_bins=256)
+    gain, idx = ops.split_scan(hist, 1.0, 1.0)
+    f, t, og = S.brute_force_best_split(codes, stats, 1.0, 1)
+    assert divmod(int(idx[0]), 256) == (f, t)
+    assert abs(float(gain[0]) - og) <= 1e-5 * abs(og)
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("quickstart", ["--rows", "2000", "--trees", "8"]),
+    ("serve_gbdt", ["--rows", "1000", "--trees", "8"]),
+    ("explain_gbdt", ["--rows", "1000", "--trees", "6"]),
+    ("distributed_gbdt", ["--mesh", "2,1", "--rows", "4096", "--trees", "4",
+                          "--compressed-trees", "2"])])
+def test_examples_run_on_the_card(dev, name, argv):
+    """Each example through its ``main`` on the card (the default device)
+    at cut sizes, its own checks held."""
+    import importlib
+    out = importlib.import_module(f"repro_torch.examples.{name}").main(argv)
+    assert out["device"].startswith("cuda")

@@ -146,10 +146,10 @@ def _pi(n_rounds):
 
 
 @functools.lru_cache(maxsize=None)
-def _ref(policy, strategy="single_tree", nan_round=1, **kw):
+def _ref(policy, strategy="single_tree", nan_round=1, loop="python", **kw):
     X, y, _, _ = _data()
     cfg = JB.GBDTConfig(guard_policy=policy, strategy=strategy,
-                        use_kernel="jnp", loop="python", **KW, **kw)
+                        use_kernel="jnp", loop=loop, **KW, **kw)
     chaos = None if nan_round is None else JC.NaNAtRow(nan_round, [0, 7])
     return JB.SketchBoost(cfg).fit(X, y, check_input=False, chaos=chaos)
 
@@ -196,11 +196,25 @@ def test_skip_round_zeroes_every_poisoned_round(strategy):
 
 @pytest.mark.parametrize("strategy", ["single_tree", "one_vs_all"])
 def test_raise_names_the_round(strategy):
+    """The per-round loops check the scores every round: the poisoned
+    round is named."""
     with pytest.raises(JG.NonFiniteError, match="round 1"):
         _ref("raise", strategy)
     with pytest.raises(TG.NonFiniteError, match="round 1") as err:
-        _port("raise", strategy)
+        _port("raise", strategy, loop="python")
     assert err.value.round == 1
+
+
+@pytest.mark.parametrize("strategy", ["single_tree", "one_vs_all"])
+def test_raise_in_the_scan_loop_names_the_segments_last_round(strategy):
+    """``loop="scan"`` checks the scores once a segment: the injection at
+    round 1 cuts the segments at [0, 1) and [1, 4), and both packages name
+    round 3, the poisoned segment's last."""
+    with pytest.raises(JG.NonFiniteError, match="round 3"):
+        _ref("raise", strategy, loop="scan")
+    with pytest.raises(TG.NonFiniteError, match="round 3") as err:
+        _port("raise", strategy, loop="scan")
+    assert err.value.round == 3
 
 
 def test_off_lets_nan_poison_the_scores():
